@@ -1,0 +1,68 @@
+"""The port stands alone: it imports no jax, flax or vqa_tpu, and no
+library kernel stands in for one of its own.
+
+``chip_smoke.py`` may time ``scaled_dot_product_attention`` as the
+yardstick of the cross-attention kernel; the package never calls it.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "vqa_tpu_torch")
+FORBIDDEN_IMPORTS = ("jax", "flax", "vqa_tpu")
+
+
+def _port_files():
+    """(path, whether SDPA is forbidden there)."""
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f), True
+    yield os.path.join(REPO, "chip_smoke.py"), False
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vqa_tpu_torch\n"
+        "for m in pkgutil.walk_packages(vqa_tpu_torch.__path__, 'vqa_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS!r})\n"
+        "print(len([n for n in sys.modules if n.startswith('vqa_tpu_torch.')]))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20  # every submodule was imported
+
+
+def test_no_forbidden_import_or_library_kernel_in_the_source():
+    found = []
+    for path, no_sdpa in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+                names += [a.name for a in node.names if node.module == "torch"]
+            else:
+                names = []
+            found += [(path, n) for n in names
+                      if n.split(".")[0] in FORBIDDEN_IMPORTS or n == "compile"]
+            name = (node.attr if isinstance(node, ast.Attribute)
+                    else node.id if isinstance(node, ast.Name) else None)
+            if no_sdpa and name == "scaled_dot_product_attention":
+                found.append((path, name))
+            if (isinstance(node, ast.Attribute) and node.attr == "compile"
+                    and isinstance(node.value, ast.Name) and node.value.id == "torch"):
+                found.append((path, "torch.compile"))
+    assert not found, found

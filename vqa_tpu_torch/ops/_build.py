@@ -1,0 +1,159 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``vqa_tpu_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` on first use — one ``nvcc -c`` per source, all started together,
+then one link into a shared library with a plain C interface — and loaded
+with ctypes. PyTorch's own extension builder is not used: a source that
+includes PyTorch's headers takes minutes to compile, a plain C one seconds.
+
+The library lands in ``vqa_tpu_torch/build/`` under a name keyed by a hash
+of the sources and flags, so an edited source is never served a stale
+build. It is written to a temporary file and renamed into place, so a
+concurrent process never loads a half-written library. A failed build
+raises with nvcc's output; nothing falls back to the plain versions.
+
+The compiler is ``$CUDA_HOME/bin/nvcc`` where ``CUDA_HOME`` is set, else
+``nvcc`` on ``PATH``, else ``/usr/local/cuda/bin/nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Optional
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+SOURCES = ("common.cu", "stem.cu", "se.cu", "cross_attention.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # name: argtypes (restype is int, a cudaError_t)
+    "vqa_stem_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vqa_se_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vqa_cross_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    if os.environ.get("CUDA_HOME"):
+        return os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libvqa_kernels-{_source_hash()}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile every source in parallel and link the shared library.
+
+    Returns its path. ``verbose`` adds ``-Xptxas -v`` and prints nvcc's
+    report (registers, shared memory and spills of each kernel)."""
+    out = library_path()
+    nvcc = nvcc_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix=".objs.") as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", os.path.join(CSRC_DIR, name), "-o", obj]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed, objs = [], []
+        for name, obj, proc in procs:
+            log = proc.communicate()[0].decode(errors="replace")
+            if verbose and log:
+                print(f"[nvcc {name}]\n{log}", flush=True)
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+            objs.append(obj)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_so, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                "nvcc link failed:\n" + link.stdout.decode(errors="replace"))
+        os.replace(tmp_so, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                build()
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.vqa_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.vqa_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        msg = load_library().vqa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def require(t, name: str, shape=None, device=None) -> None:
+    """Raise unless ``t`` is a contiguous f32 tensor (of ``shape``, on
+    ``device``): what every kernel of this package takes."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} is on {t.device}: the kernels take CPU or CUDA tensors")
+
+
+def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
