@@ -37,8 +37,10 @@ def _randn(rng, shape, dev, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
 
+# B = 33 at 224 px: 1,617 tiles, a ragged last wave of the persistent blocks
 @pytest.mark.parametrize("b,h,w,cout", [(2, 224, 224, 64), (3, 64, 64, 8),
-                                        (1, 37, 50, 16), (2, 17, 9, 24), (1, 1, 1, 8)])
+                                        (1, 37, 50, 16), (2, 17, 9, 24), (1, 1, 1, 8),
+                                        (33, 224, 224, 64)])
 def test_stem_kernel_matches_plain(cuda, b, h, w, cout):
     rng = np.random.default_rng(0)
     x = _randn(rng, (b, h, w, 3), cuda)
@@ -66,8 +68,14 @@ def test_se_kernel_matches_plain(cuda, b, h, w, c, r):
     torch.testing.assert_close(got, ops.plain_se(x, w1, w2), atol=1e-3, rtol=1e-3)
 
 
+# the instantiated widths (d 16/32/64, L_kv <= 64) at the main path's shapes
+# (bucket 32 and bucket 1) and the tiny config's, then the general kernel:
+# d 4, 6, 8, L_kv 70 and 196 (448 px)
 @pytest.mark.parametrize("b,h,lq,lkv,d", [(2, 8, 20, 49, 32), (1, 2, 5, 7, 8),
-                                          (3, 1, 1, 1, 4), (1, 2, 6, 70, 16)])
+                                          (3, 1, 1, 1, 4), (1, 2, 6, 70, 16),
+                                          (32, 8, 20, 49, 32), (1, 8, 20, 49, 32),
+                                          (2, 2, 8, 4, 16), (2, 4, 20, 49, 64),
+                                          (1, 8, 20, 196, 32), (2, 3, 7, 33, 6)])
 def test_cross_attention_kernel_matches_plain(cuda, b, h, lq, lkv, d):
     rng = np.random.default_rng(2)
     q, k, v = (_randn(rng, (b, h, n, d), cuda) for n in (lq, lkv, lkv))
@@ -75,6 +83,30 @@ def test_cross_attention_kernel_matches_plain(cuda, b, h, lq, lkv, d):
     ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(d))
     torch.cuda.synchronize()
     assert ops.fused_cross_attention.launches == before + 1
+    pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(d))
+    torch.testing.assert_close(ctx, pctx, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(w, pw, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("lkv,d,offset", [(49, 32, 0), (49, 32, 1), (4, 16, 0), (70, 8, 2)])
+def test_cross_attention_kernel_takes_head_views(cuda, lkv, d, offset):
+    """q, k, v as the model passes them: [B,H,L,d] views of [B,L,H,d]
+    projections (offset > 0: row starts not 16-byte aligned, scalar
+    staging); the context comes back as a view of [B,L_q,H,d] memory."""
+    rng = np.random.default_rng(4)
+    b, h, lq = 3, 4, 20
+
+    def view(n):
+        buf = _randn(rng, (b * n * h * d + offset,), cuda)
+        return buf[offset:].view(b, n, h, d).transpose(1, 2)
+
+    q, k, v = view(lq), view(lkv), view(lkv)
+    before = ops.fused_cross_attention.launches
+    ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(d))
+    torch.cuda.synchronize()
+    assert ops.fused_cross_attention.launches == before + 1
+    assert ctx.shape == (b, h, lq, d) and ctx.transpose(1, 2).is_contiguous()
+    assert w.is_contiguous()
     pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(d))
     torch.testing.assert_close(ctx, pctx, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(w, pw, atol=1e-6, rtol=1e-5)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from vqa_tpu.ops import fused_cross_attention, fused_se, xla_stem
+from vqa_tpu.ops.cross_attention_kernel import xla_cross_attention
 from vqa_tpu_torch import ops as tops
 from vqa_tpu_torch.ops.stem_kernel import stem_output_hw
 
@@ -123,5 +124,51 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     q, k, v, scale = _xattn_args(rng)
     with pytest.raises(ValueError, match="shape"):
         tops.fused_cross_attention(q, k[:, :1].contiguous(), v, scale)
-    with pytest.raises(ValueError, match="contiguous"):
-        tops.fused_cross_attention(q.transpose(1, 2), k, v, scale)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        tops.fused_cross_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, scale)
+
+
+def _head_views(rng, b, h, lq, lkv, dh):
+    """q, k, v as the model passes them: [B,H,L,d] views of [B,L,H,d]
+    projections, plus the same values as contiguous numpy arrays."""
+    arrs = [rng.standard_normal((b, n, h, dh)).astype(np.float32) for n in (lq, lkv, lkv)]
+    views = [_t(a).transpose(1, 2) for a in arrs]
+    return views, [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in arrs]
+
+
+@pytest.mark.parametrize("b,h,lq,lkv,dh", [(2, 8, 20, 49, 32), (1, 2, 6, 70, 16),
+                                           (3, 1, 1, 1, 4)])
+def test_cross_attention_takes_head_transposed_views(b, h, lq, lkv, dh):
+    """Strided [B,H,L,d] views of [B,L,H,d] memory go in without a copy and
+    match the JAX XLA path on the same numpy inputs."""
+    rng = np.random.default_rng(3)
+    (q, k, v), (qn, kn, vn) = _head_views(rng, b, h, lq, lkv, dh)
+    assert not q.is_contiguous() or h == 1
+    scale = float(np.sqrt(dh))
+    ctx_j, w_j = xla_cross_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), scale)
+    ctx_t, w_t = tops.fused_cross_attention(q, k, v, scale)
+    assert ctx_t.shape == (b, h, lq, dh) and w_t.shape == (b, h, lq, lkv)
+    np.testing.assert_allclose(ctx_t.numpy(), np.asarray(ctx_j), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_cross_attention_raises_on_non_unit_last_stride(which):
+    rng = np.random.default_rng(4)
+    args = dict(zip("qkv", _xattn_args(rng)[:3]))
+    args[which] = _t(rng.standard_normal((*args[which].shape[:3], 16)).astype(np.float32))[..., ::2]
+    assert args[which].stride(-1) == 2
+    with pytest.raises(ValueError, match=f"{which} must have a contiguous last dimension"):
+        tops.fused_cross_attention(args["q"], args["k"], args["v"], 8 ** 0.5)
+
+
+def test_cross_attention_raises_beyond_the_kernel_limits():
+    rng = np.random.default_rng(5)
+    q = _t(rng.standard_normal((1, 1, 2, 136)).astype(np.float32))
+    kv = _t(rng.standard_normal((1, 1, 3, 136)).astype(np.float32))
+    with pytest.raises(ValueError, match="d <= 128"):
+        tops.fused_cross_attention(q, kv, kv, 1.0)
+    q = _t(rng.standard_normal((1, 1, 2, 8)).astype(np.float32))
+    kv = _t(rng.standard_normal((1, 1, 257, 8)).astype(np.float32))
+    with pytest.raises(ValueError, match="L_kv <= 256"):
+        tops.fused_cross_attention(q, kv, kv, 1.0)

@@ -7,9 +7,11 @@ attention weights.
 
 In eval mode with no key/value mask — the condition of the JAX code at
 ``cross_attention.py:63`` — the attention core runs as the cross-attention
-kernel (``ops/cross_attention_kernel.py``); in training mode, or with a
-mask, it runs as matmul → masked fill (-1e9) → f32 softmax → dropout →
-matmul, as the JAX einsum path does.
+kernel (``ops/cross_attention_kernel.py``), which reads the head-transposed
+projections as strided views and writes the context head-merged, so neither
+side makes a copy; in training mode, or with a mask, it runs as matmul →
+masked fill (-1e9) → f32 softmax → dropout → matmul, as the JAX einsum path
+does.
 
 Parameter names follow the reference state_dict layout
 (``layers.i.cross_attention.W_q``, ``layers.i.ffn.0`` / ``ffn.3``).
@@ -49,8 +51,8 @@ class CrossAttention(nn.Module):
         h, dh = self.num_heads, self.embed_dim // self.num_heads
         scale = math.sqrt(dh)
 
-        def heads(t, L):
-            return t.reshape(b, L, h, dh).transpose(1, 2).contiguous()
+        def heads(t, L):  # [B,H,L,dh] view of [B,L,H,dh] memory, no copy
+            return t.reshape(b, L, h, dh).transpose(1, 2)
 
         q = heads(self.W_q(query), lq)
         k = heads(self.W_k(key_value), lkv)
@@ -66,6 +68,7 @@ class CrossAttention(nn.Module):
             weights = torch.softmax(scores.float(), dim=-1)
             ctx = torch.matmul(self.dropout(weights), v)
 
+        # the kernel's context is a view of [B,Lq,H,dh] memory: no copy here
         ctx = ctx.transpose(1, 2).reshape(b, lq, self.embed_dim)
         return self.W_o(ctx), weights
 

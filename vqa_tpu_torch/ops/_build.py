@@ -42,11 +42,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (restype is int, a cudaError_t)
     "vqa_stem_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vqa_stem_smem_bytes": [],
     "vqa_se_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vqa_cross_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, ctx, w, B, H, Lq, Lkv, D, 12 strides (batch, head, row of
+    # q, k, v, ctx), 1/scale, stream
+    "vqa_cross_attention_f32": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,8 +1,10 @@
 """Fused CNN stem: conv 7x7/2 + BN-eval affine + ReLU + maxpool 3x3/2.
 
 Counterpart of ``vqa_tpu/ops/stem_kernel.py``. ``fused_stem`` launches the
-hand-written CUDA kernel ``csrc/stem.cu`` on a CUDA tensor (the conv output
-never reaches device memory) and computes ``plain_stem`` on a CPU tensor.
+hand-written CUDA kernel ``csrc/stem.cu`` on a CUDA tensor — the conv as an
+implicit GEMM on the tensor cores in 3xTF32, which keeps f32 accuracy; the
+conv output never reaches device memory — and computes ``plain_stem`` on a
+CPU tensor.
 Activations are NHWC as in the JAX package; the conv weight is the
 ``nn.Conv2d`` OIHW layout the model stores, read by the kernel as it is.
 
