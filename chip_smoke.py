@@ -13,7 +13,10 @@ What it does, failing (non-zero exit, no result line) on any failed check:
    (cross-attention on head-transposed views, as the model passes them),
    holds each kernel against its plain PyTorch version on the card and
    times kernel, plain version and — where one PyTorch call computes the
-   same function — that call as a yardstick the port never uses;
+   same function — that call as a yardstick the port never uses; for each
+   SE stage it logs the launch plan (cluster size, resident or streaming,
+   split by rows or channels, shared memory, clusters the card holds at
+   once) and the stage's bound;
 3. zeroes the kernels' launch counters, drives the main path through the
    engine's entry points (warmup of every bucket, ``predict`` on PNG
    bytes, ``predict_batch`` / ``predict_batch_raw`` of 5 and 40 requests,
@@ -178,6 +181,8 @@ def check_kernels(torch, engine, rng):
         bound_ms=bnd, bound_by=by, library_ms=None)
 
     # ---- SE, at the four stage shapes ---------------------------------
+    from vqa_tpu_torch.ops.se_kernel import max_active_clusters, se_plan
+
     se = dict(route="cuda", source="vqa_tpu_torch/csrc/se.cu",
               replaces="vqa_tpu/ops/se_kernel.py:50", max_abs_err=0.0, ms=0.0,
               plain_ms=0.0, call_ms=0.0, plain_call_ms=0.0, library_ms=None)
@@ -185,24 +190,39 @@ def check_kernels(torch, engine, rng):
     for i, (hw, c) in enumerate(SE_STAGES, start=1):
         mod = getattr(model.image_encoder, f"stage{i}").attention.se
         w1, w2 = mod.fc1.weight, mod.fc2.weight
+        r = w1.shape[0]
         xs = torch.relu(torch.from_numpy(
             rng.standard_normal((BUCKET, hw, hw, c)).astype(np.float32)).to(dev))
+        plan = se_plan(BUCKET, hw * hw, c, r)
+        active = max_active_clusters(plan, hw * hw, c, r)
+        full = plan.block_rows(hw * hw)
+        mode = ("resident" if plan.keep_rows == full else "streaming" if not plan.keep_rows
+                else f"{plan.keep_rows} of {full} rows kept, the rest streamed")
+        log(f"se stage{i} plan: cluster {plan.cluster}, {mode}, split by "
+            f"{'rows' if plan.rows else 'channels'}, "
+            f"{plan.smem_bytes} bytes of shared memory per block, "
+            f"{active} clusters resident at once for {BUCKET} images"
+            f"{'' if active >= BUCKET else ' (more than one wave)'}")
         got, want = ops.fused_se(xs, w1, w2), ops.plain_se(xs, w1, w2)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        log(f"se stage{i} {tuple(xs.shape)} r={w1.shape[0]}: max abs err {err:.3e} (tol 1e-3)")
+        log(f"se stage{i} {tuple(xs.shape)} r={r}: max abs err {err:.3e} (tol 1e-3)")
         require(torch.allclose(got, want, atol=1e-3, rtol=1e-3), f"se stage{i} disagrees")
         se["max_abs_err"] = max(se["max_abs_err"], err)
         k_ms, k_call = time_ms(torch, lambda: ops.fused_se(xs, w1, w2), 50)
         p_ms, p_call = time_ms(torch, lambda: ops.plain_se(xs, w1, w2), 50)
+        nbytes = 4 * (2 * xs.numel() + w1.numel() + w2.numel())
+        flops = 2 * xs.numel() + 4 * BUCKET * c * r + 4 * BUCKET * c
+        stage_bound, _ = bound_ms(nbytes, flops)
         log(f"se stage{i}: kernel {k_ms:.4f} ms on the device ({k_call:.4f} ms per "
-            f"call), plain {p_ms:.4f} ms ({p_call:.4f} ms per call)")
+            f"call), plain {p_ms:.4f} ms ({p_call:.4f} ms per call), bound "
+            f"{stage_bound:.4f} ms")
         se["ms"] += k_ms
         se["plain_ms"] += p_ms
         se["call_ms"] += k_call
         se["plain_call_ms"] += p_call
-        se_bytes += 4 * (2 * xs.numel() + w1.numel() + w2.numel())
-        se_flops += 2 * xs.numel() + 4 * BUCKET * c * w1.shape[0] + 4 * BUCKET * c
+        se_bytes += nbytes
+        se_flops += flops
     se["bound_ms"], se["bound_by"] = bound_ms(se_bytes, se_flops)
     results["se"] = se
 

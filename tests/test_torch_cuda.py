@@ -55,17 +55,41 @@ def test_stem_kernel_matches_plain(cuda, b, h, w, cout):
                                atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("b,h,w,c,r", [(2, 56, 56, 64, 4), (2, 7, 7, 512, 32),
-                                       (3, 8, 8, 8, 1), (2, 5, 3, 12, 3)])
+# the four full-width stages at B = 32 and B = 1 (resident, stage 1 at
+# B = 32 partly), narrow widths whose images start off 16-byte alignment
+# (C = 6, 12 with r = 1, 3; scalar path), C = 1, stage 1 at 448 px
+# (streaming), one image of C = 2048
+@pytest.mark.parametrize("b,h,w,c,r", [
+    (32, 56, 56, 64, 4), (32, 28, 28, 128, 8), (32, 14, 14, 256, 16), (32, 7, 7, 512, 32),
+    (1, 56, 56, 64, 4), (1, 28, 28, 128, 8), (1, 14, 14, 256, 16), (1, 7, 7, 512, 32),
+    (2, 56, 56, 64, 4), (2, 7, 7, 512, 32), (3, 8, 8, 8, 1), (2, 5, 3, 12, 3),
+    (3, 9, 7, 6, 1), (2, 8, 8, 6, 3), (3, 5, 5, 12, 1), (4, 6, 6, 1, 1),
+    (32, 112, 112, 64, 4), (1, 7, 7, 2048, 128)])
 def test_se_kernel_matches_plain(cuda, b, h, w, c, r):
+    from vqa_tpu_torch.ops.se_kernel import se_plan
+
     rng = np.random.default_rng(1)
     x = torch.relu(_randn(rng, (b, h, w, c), cuda))
     w1, w2 = _randn(rng, (r, c), cuda, 0.2), _randn(rng, (c, r), cuda, 0.2)
+    assert (se_plan(b, h * w, c, r).keep_rows == 0) is (h == 112)  # 448 px streams
     before = ops.fused_se.launches
     got = ops.fused_se(x, w1, w2)
     torch.cuda.synchronize()
     assert ops.fused_se.launches == before + 1
     torch.testing.assert_close(got, ops.plain_se(x, w1, w2), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("b,h,w,c,r", [(32, 56, 56, 64, 4), (3, 9, 7, 6, 1),
+                                       (32, 112, 112, 64, 4)])
+def test_se_kernel_is_deterministic(cuda, b, h, w, c, r):
+    """Sums in a fixed order, no atomics: two calls agree bit for bit."""
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (b, h, w, c), cuda)
+    w1, w2 = _randn(rng, (r, c), cuda, 0.2), _randn(rng, (c, r), cuda, 0.2)
+    first = ops.fused_se(x, w1, w2)
+    second = ops.fused_se(x, w1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # the instantiated widths (d 16/32/64, L_kv <= 64) at the main path's shapes
@@ -112,10 +136,38 @@ def test_cross_attention_kernel_takes_head_views(cuda, lkv, d, offset):
     torch.testing.assert_close(w, pw, atol=1e-6, rtol=1e-5)
 
 
-def test_se_kernel_raises_on_misaligned_input(cuda):
-    x = torch.zeros(2 * 4 * 4 * 8 + 1, device=cuda)[1:].view(2, 4, 4, 8)
-    with pytest.raises(ValueError, match="aligned"):
-        ops.fused_se(x, torch.zeros(2, 8, device=cuda), torch.zeros(8, 2, device=cuda))
+def test_se_kernel_takes_misaligned_input(cuda):
+    """x one float past a 16-byte boundary takes the scalar path."""
+    rng = np.random.default_rng(8)
+    x = _randn(rng, (2 * 4 * 4 * 8 + 1,), cuda)[1:].view(2, 4, 4, 8)
+    w1, w2 = _randn(rng, (2, 8), cuda, 0.2), _randn(rng, (8, 2), cuda, 0.2)
+    before = ops.fused_se.launches
+    got = ops.fused_se(x, w1, w2)
+    torch.cuda.synchronize()
+    assert ops.fused_se.launches == before + 1
+    torch.testing.assert_close(got, ops.plain_se(x, w1, w2), atol=1e-3, rtol=1e-3)
+
+
+def test_se_kernel_refuses_an_inconsistent_plan(cuda):
+    """The launcher checks the plan against its own layout."""
+    from vqa_tpu_torch.ops._build import load_library
+    from vqa_tpu_torch.ops.se_kernel import se_plan
+
+    x = torch.zeros(2, 7, 7, 64, device=cuda)
+    out = torch.empty_like(x)
+    w1, w2 = torch.zeros(4, 64, device=cuda), torch.zeros(64, 4, device=cuda)
+    p = se_plan(2, 49, 64, 4)
+    lib = load_library()
+    args = (x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), 2, 49, 64, 4)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.vqa_se_f32(*args, p.cluster, p.keep_rows, int(p.rows), p.smem_bytes, stream) == 0
+    bad = [(p.cluster, p.keep_rows, int(p.rows), p.smem_bytes + 16),
+           (17, p.keep_rows, int(p.rows), p.smem_bytes), (p.cluster, 50, int(p.rows), p.smem_bytes),
+           (p.cluster, 0, int(p.rows), p.smem_bytes), (p.cluster, p.keep_rows, 2, p.smem_bytes),
+           (p.cluster // 2, p.keep_rows, int(p.rows), p.smem_bytes)]
+    for plan in bad:
+        assert lib.vqa_se_f32(*args, *plan, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_tiny_model_kernels_match_plain_and_cpu(cuda):
@@ -142,5 +194,31 @@ def test_tiny_model_kernels_match_plain_and_cpu(cuda):
                               cross_attention_kernel.plain_cross_attention):
         plain = forward_logits(model, *(a.to(cuda) for a in args))
     torch.testing.assert_close(got, plain, atol=1e-3, rtol=0)
+    torch.testing.assert_close(got.cpu(), forward_logits(cpu_model, *args),
+                               atol=1e-3, rtol=0)
+
+
+def test_narrow_stem_runs_unfused_and_matches_cpu(cuda):
+    """A stem of 12 features is not the stem kernel's geometry: the backbone
+    runs its unfused layers (0 stem launches); the four SEs (C = 12, 24, 48,
+    96; r = 1, 1, 3, 6) still launch their kernel."""
+    import dataclasses
+
+    from vqa_tpu_torch.models import create_vqa_model, forward_logits
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    cfg = dataclasses.replace(tiny_model_config(), base_channels=12, stage_channels=None)
+    assert tuple(cfg.stage_channels) == (12, 24, 48, 96)
+    cpu_model = create_vqa_model(config=cfg, device="cpu", seed=6)
+    model = create_vqa_model(config=cfg, device=cuda, seed=6)
+    rng = np.random.default_rng(9)
+    images = rng.standard_normal((3, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    ids = rng.integers(1, cfg.vocab_size, (3, cfg.max_question_length))
+    mask = np.ones_like(ids, dtype=np.int32)
+    args = [torch.from_numpy(a) for a in (images, ids, mask)]
+    counts = ops.launch_counts()
+    got = forward_logits(model, *(a.to(cuda) for a in args))
+    assert {k: ops.launch_counts()[k] - counts[k] for k in counts} == {
+        "stem": 0, "se": 4, "cross_attention": 2}
     torch.testing.assert_close(got.cpu(), forward_logits(cpu_model, *args),
                                atol=1e-3, rtol=0)

@@ -36,7 +36,7 @@ TINY = dict(vocab_size=20, num_answers=7, embed_dim=16, num_transformer_layers=1
 def _inputs(cfg, batch=3, seed=0):
     rng = np.random.default_rng(seed)
     images = rng.standard_normal(
-        (batch, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+        (batch, cfg.image_size, cfg.image_size, cfg.in_channels)).astype(np.float32)
     lengths = rng.integers(2, cfg.max_question_length + 1, batch)
     mask = (np.arange(cfg.max_question_length)[None] < lengths[:, None]).astype(np.int32)
     ids = (rng.integers(1, cfg.vocab_size, mask.shape) * mask).astype(np.int32)
@@ -44,9 +44,10 @@ def _inputs(cfg, batch=3, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(use_attention=True):
-    """(jax model, jax variables, port model with the same weights)."""
-    jmodel = jax_create(**TINY, use_attention=use_attention)
+def _pair(use_attention=True, overrides=()):
+    """(jax model, jax variables, port model with the same weights);
+    ``overrides`` are (field, value) pairs replacing TINY's."""
+    jmodel = jax_create(**{**TINY, **dict(overrides)}, use_attention=use_attention)
     variables = init_vqa_model(jmodel, jax.random.PRNGKey(0))
     cfg = model_config_from_dict(model_config_dict(jmodel.config))
     tmodel = create_vqa_model(config=cfg, device="cpu")
@@ -126,6 +127,30 @@ def test_full_model_logits_match_jax(use_attention):
     tl = forward_logits(tmodel, torch.from_numpy(images), torch.from_numpy(ids).long(),
                         torch.from_numpy(mask))
     assert tl.dtype == torch.float32 and tl.shape == (4, TINY["num_answers"])
+    assert np.abs(tl.numpy() - np.asarray(jl)).max() <= 1e-3
+
+
+# widths the JAX model runs that the kernels' fast paths do not all take:
+# a stem of 12 features and one of 1 input channel (the backbone's gate
+# routes both to the unfused stem), and a last stage of 6 channels, whose
+# SE has C = 6 and r = 1 (the first stage of base 12 has C = 12, r = 1)
+@pytest.mark.parametrize("overrides", [
+    (("base_channels", 12), ("stage_channels", (12, 16, 32, 64))),
+    (("in_channels", 1),),
+    (("stage_channels", (8, 16, 32, 6)),),
+], ids=["base12", "in_channels1", "last_stage6"])
+def test_narrow_widths_match_jax(overrides):
+    from vqa_tpu.models import forward_logits as jax_forward_logits
+
+    jmodel, variables, tmodel = _pair(True, overrides)
+    cfg = tmodel.config
+    assert not tmodel.training
+    images, ids, mask = _inputs(cfg, batch=2, seed=6)
+    jl = jax_forward_logits(jmodel, variables, jnp.asarray(images), jnp.asarray(ids),
+                            jnp.asarray(mask))
+    tl = forward_logits(tmodel, torch.from_numpy(images), torch.from_numpy(ids).long(),
+                        torch.from_numpy(mask))
+    assert tl.shape == (2, TINY["num_answers"]) and bool(torch.isfinite(tl).all())
     assert np.abs(tl.numpy() - np.asarray(jl)).max() <= 1e-3
 
 

@@ -16,7 +16,9 @@ import torch
 from vqa_tpu.ops import fused_cross_attention, fused_se, xla_stem
 from vqa_tpu.ops.cross_attention_kernel import xla_cross_attention
 from vqa_tpu_torch import ops as tops
-from vqa_tpu_torch.ops.stem_kernel import stem_output_hw
+from vqa_tpu_torch.ops.se_kernel import (
+    CLUSTER_FILL, MAX_SMEM, NUM_SMS, SM_SHARED, se_plan)
+from vqa_tpu_torch.ops.stem_kernel import stem_output_hw, stem_takes
 
 
 def _t(a):
@@ -38,9 +40,12 @@ def test_plain_cross_attention_matches_pallas():
     np.testing.assert_allclose(w_t.sum(-1).numpy(), 1.0, atol=1e-5)
 
 
-def test_plain_se_matches_pallas():
+@pytest.mark.parametrize("c,r", [(64, 4), (6, 1), (12, 1)])
+def test_plain_se_matches_pallas(c, r):
+    """C = 6 and 12 with r = 1 are the SEs of the narrow models the JAX
+    package runs (reduction 16, r = max(C // 16, 1))."""
     rng = np.random.default_rng(0)
-    b, hh, ww, c, r = 2, 7, 7, 64, 4
+    b, hh, ww = 2, 7, 7
     x = rng.standard_normal((b, hh, ww, c)).astype(np.float32)
     w1 = (rng.standard_normal((c, c // r)) * 0.1).astype(np.float32)  # flax [in,out]
     w2 = (rng.standard_normal((c // r, c)) * 0.1).astype(np.float32)
@@ -116,10 +121,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
         tops.fused_stem(x.transpose(1, 2), w, s, b)
 
     x, w1, w2 = _se_args(rng)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        tops.fused_se(x[..., :6].contiguous(), w1[:, :6].contiguous(), w2[:6].contiguous())
     with pytest.raises(ValueError, match="shape"):
         tops.fused_se(x, w1, w2.t().contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        tops.fused_se(x, w1[:, :6].contiguous(), w2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.fused_se(x.transpose(1, 2), w1, w2)
+    with pytest.raises(TypeError, match="float32"):
+        tops.fused_se(x.double(), w1, w2)
 
     q, k, v, scale = _xattn_args(rng)
     with pytest.raises(ValueError, match="shape"):
@@ -172,3 +181,64 @@ def test_cross_attention_raises_beyond_the_kernel_limits():
     kv = _t(rng.standard_normal((1, 1, 257, 8)).astype(np.float32))
     with pytest.raises(ValueError, match="L_kv <= 256"):
         tops.fused_cross_attention(q, kv, kv, 1.0)
+
+
+# (H = W, C) of the four SE stages at 224 px, full width
+_SE_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))
+
+
+def _covers_once(plan, hw, c):
+    """The blocks' tiles of rows x channels partition the image."""
+    seen = np.zeros((hw, c), np.int64)
+    for r0, r1, c0, c1 in plan.tiles(hw, c):
+        seen[r0:r1, c0:c1] += 1
+    return bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("hw,c", _SE_STAGES)
+def test_se_plan_is_resident_at_full_width(b, hw, c):
+    """Every full-width stage holds its image in its cluster's shared
+    memory (within 227 KB per block), the blocks' tiles cover the image
+    once, and a split by channels gives each block 16-byte slices. The one
+    exception is stage 1 at B = 32: 32 resident clusters do not fit the card
+    at once (30 do), so its blocks keep two thirds of their rows, which lets
+    a third block onto each SM, and stream the rest."""
+    plan = se_plan(b, hw * hw, c, c // 16)
+    assert plan.smem_bytes <= MAX_SMEM
+    assert plan.cluster == (8 if b == 32 else 16)
+    assert _covers_once(plan, hw * hw, c)
+    assert all((c1 - c0) % 4 == 0 for _, _, c0, c1 in plan.tiles(hw * hw, c))
+    # stage 1 (64 channels) splits by rows; stages 3 and 4 by channels
+    assert plan.rows is (c == 64 or (b == 1 and c == 128))
+    if (b, c) == (32, 64):
+        slots = SM_SHARED // (plan.smem_bytes + 1024)
+        assert slots == 3 and CLUSTER_FILL * NUM_SMS * slots / plan.cluster >= b
+        assert 0.6 * plan.block_rows(hw * hw) < plan.keep_rows < plan.block_rows(hw * hw)
+    else:
+        assert plan.resident(hw * hw) and plan.keep_rows == plan.block_rows(hw * hw)
+        assert plan.smem_bytes >= 4 * hw * hw * c // plan.cluster
+
+
+@pytest.mark.parametrize("b,hw,c,r,resident", [
+    (32, 112 * 112, 64, 4, False), (1, 112 * 112, 64, 4, True), (4, 56 * 56, 64, 4, True),
+    (1, 1, 1, 1, True), (3, 15, 6, 1, True), (3, 15, 12, 3, True), (1, 49, 2048, 128, True)])
+def test_se_plan_streams_what_does_not_fit_and_covers_every_row(b, hw, c, r, resident):
+    """Stage 1 at 448 px (112 x 112 rows of 64 channels, 3.2 MB per image)
+    streams at B = 32 (8 blocks of 401 KB) and fits 16 blocks at B = 1;
+    narrow widths get no more blocks than rows or channel slices; the tiles
+    cover the image once."""
+    plan = se_plan(b, hw, c, r)
+    assert plan.smem_bytes <= MAX_SMEM
+    assert plan.resident(hw) is resident
+    assert plan.keep_rows == (plan.block_rows(hw) if resident else 0)
+    assert plan.cluster <= (hw if plan.rows else c)
+    assert _covers_once(plan, hw, c)
+
+
+@pytest.mark.parametrize("cin,cout,takes", [(3, 64, True), (3, 8, True), (3, 12, False),
+                                            (3, 128, False), (1, 64, False), (3, 0, False)])
+def test_stem_gate(cin, cout, takes):
+    """The geometry the stem kernel takes: the backbone's gate and the
+    wrapper's check."""
+    assert stem_takes(cin, cout) is takes

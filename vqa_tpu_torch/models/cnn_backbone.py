@@ -7,10 +7,12 @@ attention in stages 3-4.
 
 Layout: the model takes NHWC images and returns NHWC features, as the JAX
 backbone does; inside, tensors are NCHW in ``torch.channels_last`` memory,
-so the NHWC views the stem and SE kernels read cost no copy. In eval mode
-the stem runs as one fused kernel (``ops/stem_kernel.py``) with BN folded
-into a per-channel affine, as ``cnn_backbone.py:305-306`` folds it; in
-training mode it runs conv → BN (batch statistics) → ReLU → maxpool.
+so the NHWC views the stem and SE kernels read cost no copy. In eval mode,
+where the stem kernel takes the geometry (``stem_kernel.stem_takes``: 3
+input channels, a multiple of 8 up to 64 features), the stem runs as one
+fused kernel (``ops/stem_kernel.py``) with BN folded into a per-channel
+affine, as ``cnn_backbone.py:294-308`` gates and folds it; otherwise, and
+in training mode, it runs conv → BN → ReLU → maxpool.
 
 Parameter names follow the reference state_dict layout (``stem.0`` conv,
 ``stem.1`` BN, ``stageN.blocks.i.conv1`` …, ``downsample.0/1``). BN uses
@@ -112,7 +114,8 @@ class CustomResNet(nn.Module):
         return out.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        conv = self.stem[0]
+        if self.training or not stem_kernel.stem_takes(conv.in_channels, conv.out_channels):
             x = self.stem(x_nhwc.permute(0, 3, 1, 2))
         else:
             x = self._fused_stem(x_nhwc)

@@ -47,7 +47,11 @@ _SIGNATURES = {
     # name: argtypes (restype is int, a cudaError_t)
     "vqa_stem_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vqa_stem_smem_bytes": [],
-    "vqa_se_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w1, w2, out, B, HW, C, R, the plan (cluster, kept rows, split by
+    # rows, shared-memory bytes), stream
+    "vqa_se_f32": [_P] * 4 + [_I] * 8 + [_P],
+    # HW, C, R, the plan, vec, out: clusters
+    "vqa_se_max_active_clusters": [_I] * 8 + [ctypes.POINTER(_I)],
     # q, k, v, ctx, w, B, H, Lq, Lkv, D, 12 strides (batch, head, row of
     # q, k, v, ctx), 1/scale, stream
     "vqa_cross_attention_f32": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],

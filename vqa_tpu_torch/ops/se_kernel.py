@@ -1,23 +1,125 @@
 """Squeeze-and-Excitation: pool → FC → ReLU → FC → sigmoid → rescale.
 
 Counterpart of ``vqa_tpu/ops/se_kernel.py``. ``fused_se`` launches the
-hand-written CUDA kernels of ``csrc/se.cu`` (a pooled reduction, then the
-FCs and sigmoid fused with the rescale pass) on a CUDA tensor and computes
+hand-written CUDA kernel of ``csrc/se.cu`` on a CUDA tensor — one
+thread-block cluster per image, which holds the image in shared memory
+where it fits, so x is read from device memory once — and computes
 ``plain_se`` on a CPU tensor. x is NHWC as in the JAX package; the weights
 are the ``nn.Linear`` layouts ``SEAttention`` stores ([out, in]), the
 transposes of the flax kernels ``fused_se`` of the JAX package takes.
+
+``se_plan`` computes the launch plan (cluster size, split by rows or by
+channels, rows kept in shared memory, shared-memory bytes) in plain
+Python; the launcher refuses a plan that does not match its own layout.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from vqa_tpu_torch.ops._build import check, load_library, require, stream_of
 
-MAX_C = 1024
-# floats of x one block handles (~32 KB): keeps hundreds of blocks in
-# flight at stage-1 sizes
-_CHUNK_FLOATS = 8192
+THREADS = 256       # threads per block, as csrc/se.cu
+MAX_SMEM = 232_448  # dynamic shared memory one block may use (227 KB)
+MAX_WEIGHT_SMEM = 48 * 1024  # a block's weights are staged when they fit
+NUM_SMS = 132       # H100 SXM
+SM_SHARED = 233_472  # shared memory of one SM (228 KB); each block also reserves 1 KB
+# share of the card's block slots that clusters of 8 to 16 fill, measured on
+# the H100 with cudaOccupancyMaxActiveClusters (30 of 33 clusters of 8 at
+# two blocks per SM, 45 of 49.5 at three): the GPCs do not divide evenly
+CLUSTER_FILL = 0.9
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def slice_width(c: int, cluster: int) -> int:
+    """Channels each block of a cluster split by channels owns:
+    ceil(C/cluster), rounded up to a multiple of 4 where C is one."""
+    cs = -(-c // cluster)
+    return _round4(cs) if c % 4 == 0 else cs
+
+
+def _smem_bytes(c: int, r: int, cluster: int, keep_rows: int, rows: bool) -> int:
+    """Bytes of csrc/se.cu's shared-memory layout for a block owning w
+    channels (all C split by rows, a slice split by channels): what every
+    rank pushes ([cluster, C] sums or [cluster, R] shares); pooled means and
+    scales [w]; the hidden units [R]; the block's weights [R, w] twice where
+    they fit MAX_WEIGHT_SMEM; the pooling scratch; the kept rows [keep, w]."""
+    w = c if rows else slice_width(c, cluster)
+    weights = 2 * _round4(r * w) if 8 * r * w <= MAX_WEIGHT_SMEM else 0
+    floats = (_round4(cluster * (c if rows else r)) + 2 * _round4(w) + _round4(r) + weights
+              + _round4(max(w, 4 * THREADS)) + keep_rows * w)
+    return 4 * floats
+
+
+@dataclass(frozen=True)
+class SEPlan:
+    cluster: int     # blocks per image: one thread-block cluster
+    rows: bool       # split by rows (each block all channels), else by channels
+    keep_rows: int   # rows a block holds in shared memory; the rest stream
+    smem_bytes: int  # dynamic shared memory per block
+
+    def block_rows(self, hw: int) -> int:
+        """The most rows one block owns."""
+        return -(-hw // self.cluster) if self.rows else hw
+
+    def resident(self, hw: int) -> bool:
+        """Every row is read from device memory once."""
+        return self.keep_rows == self.block_rows(hw)
+
+    def tiles(self, hw: int, c: int):
+        """The [r0, r1) x [c0, c1) each block owns, as the kernel splits."""
+        n = self.cluster
+        if self.rows:
+            return [(q * hw // n, (q + 1) * hw // n, 0, c) for q in range(n)]
+        cs = slice_width(c, n)
+        return [(0, hw, min(c, q * cs), min(c, (q + 1) * cs)) for q in range(n)]
+
+
+@functools.lru_cache(maxsize=256)
+def se_plan(b: int, hw: int, c: int, r: int) -> SEPlan:
+    """The launch plan of one ``fused_se`` call on x [b, hw, c] with r
+    hidden units.
+
+    Clusters of 8 blocks (the portable size) from 17 images up; below
+    that 16 (non-portable, still one cluster per image), so a small batch
+    keeps more SMs busy. Split by channels where each block's slice of a
+    row is at least 16 channels (64 bytes, so the strided copies stay
+    efficient): no block barrier before the FCs, and each weight read once
+    per image. Else split by rows, every block running the (then small)
+    FCs whole. Resident when a block's part of the image fits its shared
+    memory, else streaming. Where the resident clusters would not all fit
+    the card at once (stage 1 at 224 px and B = 32: 30 of 32), a block
+    keeps fewer rows, so that one more block fits an SM, and streams the
+    rest: a second wave of clusters costs more than reading those rows twice.
+    """
+    if min(b, hw, c, r) <= 0:
+        raise ValueError(f"se_plan: sizes must be positive, got b={b} hw={hw} c={c} r={r}")
+    target = 8 if b * 8 > NUM_SMS else 16
+    cluster = min(target, c // 4 if c % 4 == 0 else c)
+    rows = slice_width(c, cluster) < 16
+    if rows:
+        cluster = min(target, hw)
+    base = _smem_bytes(c, r, cluster, 0, rows)
+    if base > MAX_SMEM:
+        raise ValueError(
+            f"the SE kernel's vectors for C={c}, R={r} need {base} bytes of shared "
+            f"memory, more than {MAX_SMEM}")
+    full = -(-hw // cluster) if rows else hw
+    keep = full if _smem_bytes(c, r, cluster, full, rows) <= MAX_SMEM else 0
+    width = c if rows else slice_width(c, cluster)
+    while keep:
+        slots = SM_SHARED // (_smem_bytes(c, r, cluster, keep, rows) + 1024)
+        if CLUSTER_FILL * NUM_SMS * slots / cluster >= b:
+            break
+        keep = max(0, (SM_SHARED // (slots + 1) - 1024 - base) // (4 * width))
+    return SEPlan(cluster, rows, keep, _smem_bytes(c, r, cluster, keep, rows))
 
 
 def _validate(x, w1, w2) -> None:
@@ -25,18 +127,19 @@ def _validate(x, w1, w2) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC [B,H,W,C], got {tuple(x.shape)}")
     c = x.shape[3]
-    if c % 4 or c > MAX_C:
-        raise ValueError(f"the SE kernel takes C a multiple of 4 up to {MAX_C}, got {c}")
     r = w1.shape[0] if w1.dim() == 2 else -1
     require(w1, "w1", (r, c), x.device)
     require(w2, "w2", (c, r), x.device)
+    if r <= 0 or x.numel() == 0:
+        raise ValueError(f"the SE kernel takes a non-empty x and r >= 1, got x "
+                         f"{tuple(x.shape)} and w1 {tuple(w1.shape)}")
 
 
 def fused_se(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(relu(mean_hw(x) · w1ᵀ) · w2ᵀ), per image and channel.
 
     Args:
-        x: [B, H, W, C] NHWC f32.
+        x: [B, H, W, C] NHWC f32, any C.
         w1: [C/r, C] fc1 weight (nn.Linear layout).
         w2: [C, C/r] fc2 weight (nn.Linear layout).
 
@@ -46,23 +149,31 @@ def fused_se(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tenso
     _validate(x, w1, w2)
     if x.device.type == "cpu":
         return plain_se(x, w1, w2)
-    if x.data_ptr() % 16:
-        raise ValueError("the SE kernel reads x as float4: x must be 16-byte aligned")
     b, h, w, c = x.shape
-    hw = h * w
-    rows = max(1, _CHUNK_FLOATS // c)
-    nchunks = -(-hw // rows)
-    partial = torch.empty((b, nchunks, c), dtype=torch.float32, device=x.device)
+    plan = se_plan(b, h * w, c, w1.shape[0])
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     rc = load_library().vqa_se_f32(
-        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), b, hw, c, w1.shape[0], rows, nchunks, stream_of(x))
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), b, h * w, c,
+        w1.shape[0], plan.cluster, plan.keep_rows, int(plan.rows), plan.smem_bytes,
+        stream_of(x))
     check(rc, "se")
     fused_se.launches += 1
     return out
 
 
 fused_se.launches = 0
+
+
+def max_active_clusters(plan: SEPlan, hw: int, c: int, r: int, vec: int = 4) -> int:
+    """How many clusters of ``plan`` the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``); ``vec`` 4 is the float4
+    instantiation the aligned main path runs, 1 the scalar one."""
+    n = ctypes.c_int(0)
+    rc = load_library().vqa_se_max_active_clusters(
+        hw, c, r, plan.cluster, plan.keep_rows, int(plan.rows), plan.smem_bytes, vec,
+        ctypes.byref(n))
+    check(rc, "se occupancy query")
+    return n.value
 
 
 def plain_se(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

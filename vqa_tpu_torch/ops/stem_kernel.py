@@ -9,8 +9,9 @@ Activations are NHWC as in the JAX package; the conv weight is the
 ``nn.Conv2d`` OIHW layout the model stores, read by the kernel as it is.
 
 Shapes: x [B, H, W, 3] → [B, PH, PW, cout] with CH = ceil(H/2) conv rows
-and PH = ceil(CH/2) pool rows (224 → 112 → 56). Any H, W; cout a multiple
-of 8 up to 64. Everything else raises.
+and PH = ceil(CH/2) pool rows (224 → 112 → 56). Any H, W; 3 input
+channels and cout a multiple of 8 up to 64 (``stem_takes``). Everything
+else raises; the backbone routes other stems to its unfused layers.
 """
 
 from __future__ import annotations
@@ -29,15 +30,19 @@ def stem_output_hw(h: int, w: int):
     return (ch - 1) // 2 + 1, (cw - 1) // 2 + 1
 
 
+def stem_takes(in_channels: int, cout: int) -> bool:
+    """Whether the stem kernel takes this geometry: 3 input channels and
+    cout a multiple of 8 up to 64."""
+    return in_channels == 3 and 0 < cout <= MAX_COUT and cout % 8 == 0
+
+
 def _validate(x, w, scale, bias) -> None:
     require(x, "x")
-    if x.dim() != 4 or x.shape[3] != 3:
-        raise ValueError(f"x must be NHWC [B,H,W,3], got {tuple(x.shape)}")
     cout = w.shape[0] if w.dim() == 4 else -1
-    if cout <= 0 or cout % 8 or cout > MAX_COUT:
+    if x.dim() != 4 or not stem_takes(x.shape[3], cout):
         raise ValueError(
-            f"the stem kernel takes cout a multiple of 8 up to {MAX_COUT}, "
-            f"got weight {tuple(w.shape)}")
+            f"the stem kernel takes NHWC x [B,H,W,3] and cout a multiple of 8 up to "
+            f"{MAX_COUT}, got x {tuple(x.shape)} and weight {tuple(w.shape)}")
     require(w, "w", (cout, 3, 7, 7), x.device)
     require(scale, "scale", (cout,), x.device)
     require(bias, "bias", (cout,), x.device)
