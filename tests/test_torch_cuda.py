@@ -198,6 +198,57 @@ def test_tiny_model_kernels_match_plain_and_cpu(cuda):
                                atol=1e-3, rtol=0)
 
 
+def test_micro_batcher_on_the_card_answers_each_request_as_alone(cuda):
+    """32 concurrent submits at the tiny width: each answer within 1e-4 of
+    ``engine.predict`` on that request alone, whatever group it landed in,
+    and the kernels launched 1, 4 and 2 times per forward from the
+    batcher's dispatch thread."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from vqa_tpu_torch.serving.batcher import MicroBatcher
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    engine = VQAInference(model_config=tiny_model_config(), device=cuda, seed=3).load()
+    rng = np.random.default_rng(11)
+    requests = []
+    for i in range(32):
+        buf = io.BytesIO()
+        h, w = rng.integers(20, 120, 2)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "PNG")
+        requests.append((buf.getvalue(), ["what color is the cat", "how many dogs"][i % 2]))
+    want = [engine.predict(img, q, top_k=5) for img, q in requests]
+    batcher = MicroBatcher(engine, batch_timeout_ms=20.0)
+    results = [None] * len(requests)
+    barrier = threading.Barrier(len(requests))
+
+    def call(i):
+        barrier.wait()
+        results[i] = batcher.submit(*requests[i], top_k=5)
+
+    ops.reset_launch_counts()
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    batcher.shutdown()
+    assert not any(t.is_alive() for t in threads)
+    forwards = batcher.total_batches
+    assert forwards < len(requests)
+    assert ops.launch_counts() == {"stem": forwards, "se": 4 * forwards,
+                                   "cross_attention": 2 * forwards}
+    for got, exp in zip(results, want):
+        assert abs(got["confidence"] - exp["confidence"]) <= 1e-4
+        for a in got["answers"]:
+            match = [b for b in exp["answers"] if b["index"] == a["index"]]
+            if match:
+                assert abs(a["probability"] - match[0]["probability"]) <= 1e-4
+
+
 def test_narrow_stem_runs_unfused_and_matches_cpu(cuda):
     """A stem of 12 features is not the stem kernel's geometry: the backbone
     runs its unfused layers (0 stem launches); the four SEs (C = 12, 24, 48,

@@ -242,3 +242,38 @@ def test_stem_gate(cin, cout, takes):
     """The geometry the stem kernel takes: the backbone's gate and the
     wrapper's check."""
     assert stem_takes(cin, cout) is takes
+
+
+def test_launch_counts_stay_exact_across_threads():
+    """Kernels launch from several threads (the micro-batcher's dispatch
+    thread, HTTP handler threads): 32 threads counting at once with a short
+    switch interval lose no launch, and a reset zeroes the count."""
+    import sys
+    import threading
+
+    from vqa_tpu_torch.ops._build import count_launch, reset_launches
+
+    def kernel():
+        pass
+
+    kernel.launches = 0
+    n_threads, per_thread = 32, 2000
+
+    def launch_many():
+        for _ in range(per_thread):
+            count_launch(kernel)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch_many) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert kernel.launches == n_threads * per_thread
+    reset_launches([kernel])
+    assert kernel.launches == 0

@@ -1,9 +1,10 @@
-"""Image preprocessing for the serving path.
+"""Image and question preprocessing for the serving path.
 
-Counterpart of ``vqa_tpu/data/preprocess.py:27-120``: host decode and
-bilinear resize through PIL to ``[N,S,S,3]`` uint8 (NHWC), and
+Counterpart of ``vqa_tpu/data/preprocess.py:27-120,290-303``: host decode
+and bilinear resize through PIL to ``[N,S,S,3]`` uint8 (NHWC),
 ``device_normalize`` — /255 and ImageNet mean/std — on a tensor on the
-serving device, so the host ships uint8 pixels (4x fewer bytes than f32).
+serving device, so the host ships uint8 pixels (4x fewer bytes than f32),
+and the question helpers the HTTP layer validates with.
 
 The JAX package resizes through its own C++ resampler, which is
 bit-identical to PIL bilinear; the port uses PIL itself until that
@@ -13,7 +14,7 @@ resampler is ported, so both packages feed the model the same pixels.
 from __future__ import annotations
 
 import io
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,3 +60,19 @@ def device_normalize(pixels_uint8: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
     std_inv = torch.as_tensor(1.0 / IMAGENET_STD, device=x.device)
     return (x - mean) * std_inv
+
+
+def normalize_question(q: str) -> str:
+    """Display normalization: strip, collapse spaces, ensure trailing '?'."""
+    q = " ".join(q.strip().split())
+    if q and not q.endswith("?"):
+        q += "?"
+    return q
+
+
+def validate_question(q: str, min_words: int = 2) -> Tuple[bool, str]:
+    """Minimum-length validation."""
+    words = q.strip().split()
+    if len(words) < min_words:
+        return False, f"Question must have at least {min_words} words"
+    return True, ""

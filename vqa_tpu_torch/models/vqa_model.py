@@ -96,12 +96,18 @@ class VQAModel(nn.Module):
 
 
 def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises for CUDA without a card."""
+    """``torch.device`` for ``device``; raises for CUDA without a card.
+
+    A bare ``"cuda"`` becomes the current device with its index, so a
+    thread that later uses the result (whose own current device is 0) still
+    lands on the same card."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; the port runs on an NVIDIA GPU "
             "unless device='cpu' is asked for")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -2,11 +2,12 @@
 wrapper, with its plain PyTorch version beside it.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``fused_stem.launches`` …); ``launch_counts`` reads them and
-``reset_launch_counts`` zeroes them, so a run can show which kernels the
-main path went through.
+(``fused_stem.launches`` …), under one lock, since kernels launch from
+several threads; ``launch_counts`` reads them and ``reset_launch_counts``
+zeroes them, so a run can show which kernels the main path went through.
 """
 
+from vqa_tpu_torch.ops._build import reset_launches
 from vqa_tpu_torch.ops.cross_attention_kernel import (  # noqa: F401
     fused_cross_attention,
     plain_cross_attention,
@@ -26,5 +27,4 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches(KERNELS.values())

@@ -165,3 +165,20 @@ def require(t, name: str, shape=None, device=None) -> None:
 def stream_of(t) -> int:
     """The raw handle of the current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches``. Kernels launch from several threads (the
+    micro-batcher's dispatch thread, HTTP handler threads), and ctypes
+    releases the GIL around each launch, so the increment takes a lock."""
+    with _count_lock:
+        fn.launches += 1
+
+
+def reset_launches(fns) -> None:
+    with _count_lock:
+        for fn in fns:
+            fn.launches = 0

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from vqa_tpu_torch.ops._build import check, load_library, stream_of
+from vqa_tpu_torch.ops._build import check, count_launch, load_library, stream_of
 
 MAX_D = 128       # head width the kernel takes
 MAX_LKV = 256     # keys per slice the kernel takes
@@ -84,11 +84,12 @@ def fused_cross_attention(
     ctx = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device).transpose(1, 2)
     w = torch.empty((b, h, lq, lkv), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, ctx) for s in t.stride()[:3]]
-    rc = load_library().vqa_cross_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(), w.data_ptr(),
-        b, h, lq, lkv, d, *strides, 1.0 / scale, stream_of(q))
+    with torch.cuda.device(q.device):  # a new thread's current device is 0
+        rc = load_library().vqa_cross_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(), w.data_ptr(),
+            b, h, lq, lkv, d, *strides, 1.0 / scale, stream_of(q))
     check(rc, "cross_attention")
-    fused_cross_attention.launches += 1
+    count_launch(fused_cross_attention)
     return ctx, w
 
 

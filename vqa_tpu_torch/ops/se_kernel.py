@@ -21,7 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
-from vqa_tpu_torch.ops._build import check, load_library, require, stream_of
+from vqa_tpu_torch.ops._build import check, count_launch, load_library, require, stream_of
 
 THREADS = 256       # threads per block, as csrc/se.cu
 MAX_SMEM = 232_448  # dynamic shared memory one block may use (227 KB)
@@ -152,12 +152,13 @@ def fused_se(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> torch.Tenso
     b, h, w, c = x.shape
     plan = se_plan(b, h * w, c, w1.shape[0])
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    rc = load_library().vqa_se_f32(
-        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), b, h * w, c,
-        w1.shape[0], plan.cluster, plan.keep_rows, int(plan.rows), plan.smem_bytes,
-        stream_of(x))
+    with torch.cuda.device(x.device):  # a new thread's current device is 0
+        rc = load_library().vqa_se_f32(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), b, h * w, c,
+            w1.shape[0], plan.cluster, plan.keep_rows, int(plan.rows), plan.smem_bytes,
+            stream_of(x))
     check(rc, "se")
-    fused_se.launches += 1
+    count_launch(fused_se)
     return out
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from vqa_tpu_torch.ops._build import check, load_library, require, stream_of
+from vqa_tpu_torch.ops._build import check, count_launch, load_library, require, stream_of
 
 MAX_COUT = 64
 
@@ -68,11 +68,12 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     cout = w.shape[0]
     ph, pw = stem_output_hw(h, wd)
     out = torch.empty((b, ph, pw, cout), dtype=torch.float32, device=x.device)
-    rc = load_library().vqa_stem_f32(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h, wd, cout, stream_of(x))
+    with torch.cuda.device(x.device):  # a new thread's current device is 0
+        rc = load_library().vqa_stem_f32(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, h, wd, cout, stream_of(x))
     check(rc, "stem")
-    fused_stem.launches += 1
+    count_launch(fused_stem)
     return out
 
 

@@ -9,7 +9,9 @@ placeholders — and the same request mechanics:
   by repeating the first row, so the card sees a few fixed batch shapes;
   requests larger than the largest bucket are cut into chunks of it, all
   launched before any result is fetched;
-- the host ships uint8 pixels; /255 and ImageNet normalize run on the card.
+- the host ships uint8 pixels, staged through pinned memory so that
+  ``dispatch_probs_from_pixels`` returns before the card finishes; /255
+  and ImageNet normalize run on the card.
 
 Weights: a reference-schema ``.pth`` (``model_state_dict`` + ``config``,
 loaded strictly) named by ``checkpoint_dir/checkpoint_name``, or else a
@@ -171,13 +173,36 @@ class VQAInference:
             "caller must chunk (predict_probs_from_pixels does)")
 
     def _to_device(self, pixels: np.ndarray, ids: np.ndarray, mask: np.ndarray):
-        return (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in (pixels, ids, mask))
+        """Host arrays → tensors on the device without waiting on the card.
+
+        A copy from pageable memory would block the host until the stream's
+        earlier work (the previous forward) finishes; a copy from pinned
+        memory is queued. Each array is copied into a block from PyTorch's
+        pinned host allocator, which keeps the block until the copy's event
+        has passed, so it may go out of scope here. (``Tensor.pin_memory()``
+        would first ask the CUDA runtime whether the numpy memory is pinned,
+        a slow query for memory it did not allocate.)"""
+        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pixels, ids, mask)]
+        if self.device.type == "cpu":
+            return tensors
+        out = []
+        for t in tensors:
+            staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            staged.copy_(t)
+            out.append(staged.to(self.device, non_blocking=True))
+        return out
+
+    def _preprocess_images(self, images: Sequence[ImageInput]) -> np.ndarray:
+        """Decode and resize → [N, S, S, 3] u8 (what the micro-batcher calls)."""
+        self._ensure_loaded()
+        return resize_batch_to_uint8(images, self.model.config.image_size)
 
     @torch.inference_mode()
     def dispatch_probs_from_pixels(self, pixels: np.ndarray, questions):
         """Pad to a bucket and launch the forward: returns the padded
-        probabilities on the device (not yet fetched) and n."""
+        probabilities on the device (not yet fetched) and n, without
+        waiting on the card, so the caller can prepare the next batch while
+        this one runs. n must fit the largest bucket."""
         self._ensure_loaded()
         n = len(questions)
         bucket = self._bucket(n)
@@ -214,7 +239,7 @@ class VQAInference:
         self._ensure_loaded()
         if len(images) == 0:
             return np.zeros((0, self.model.config.num_answers), np.float32)
-        pixels = resize_batch_to_uint8(images, self.model.config.image_size)
+        pixels = self._preprocess_images(images)
         return self.predict_probs_from_pixels(pixels, questions)
 
     def _format_result(self, question: str, probs: np.ndarray, top_k: int
@@ -246,7 +271,7 @@ class VQAInference:
         map."""
         self._ensure_loaded()
         cfg = self.model.config
-        pixels = resize_batch_to_uint8([image], cfg.image_size)
+        pixels = self._preprocess_images([image])
         ids, mask = self.tokenizer.encode_batch_np([question])
         pixels_t, ids_t, mask_t = self._to_device(pixels, ids, mask)
         logits, aux = self.model(device_normalize(pixels_t), ids_t.long(), mask_t,
@@ -273,6 +298,10 @@ class VQAInference:
         return [self._format_result(q, p, top_k) for q, p in zip(questions, probs)]
 
     def get_model_info(self) -> Dict[str, Any]:
+        """The JAX engine's keys; ``backend`` is ``"gpu"`` on the card and
+        ``"cpu"`` on the CPU, as ``jax.default_backend()`` names them. No
+        ``device`` key: the server derives its served ``device`` field from
+        ``backend`` and then spreads this dict over it."""
         self._ensure_loaded()
         cfg = self.model.config
         return {
@@ -283,7 +312,25 @@ class VQAInference:
             "max_question_length": cfg.max_question_length,
             "image_size": cfg.image_size,
             "parameters": count_parameters(self.model),
-            "backend": self.device.type,
-            "device": (torch.cuda.get_device_name(self.device)
-                       if self.device.type == "cuda" else "cpu"),
+            "backend": "gpu" if self.device.type == "cuda" else self.device.type,
         }
+
+
+_ENGINE: Optional[VQAInference] = None
+_ENGINE_LOCK = threading.Lock()
+
+
+def get_inference_engine(checkpoint_dir: Optional[str] = None, **kwargs) -> VQAInference:
+    """Lazy process-wide engine, loaded on first call."""
+    global _ENGINE
+    if _ENGINE is None:
+        with _ENGINE_LOCK:
+            if _ENGINE is None:
+                _ENGINE = VQAInference(checkpoint_dir=checkpoint_dir, **kwargs)
+                _ENGINE.load()
+    return _ENGINE
+
+
+def reset_engine() -> None:
+    global _ENGINE
+    _ENGINE = None

@@ -1,17 +1,63 @@
-"""Model and inference configuration of the port.
+"""Model, inference and path configuration of the port.
 
-Copies of ``ModelConfig``, ``InferenceConfig``, ``tiny_model_config`` and
-the dict round-trip of ``vqa_tpu/utils/config.py`` (same fields, same
-defaults), so configs and checkpoint config dicts move between the two
-packages unchanged. The training, mesh and kernel-toggle configs belong to
-later slices: the port's kernels are not behind toggles.
+Copies of ``PathConfig``/``PATHS``, ``ModelConfig``, ``InferenceConfig``,
+``tiny_model_config`` and the dict round-trip of
+``vqa_tpu/utils/config.py`` (same fields, same defaults), so configs and
+checkpoint config dicts move between the two packages unchanged. The
+training, mesh and kernel-toggle configs are not ported yet: the port's
+kernels are not behind toggles.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Tuple
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+@dataclass
+class PathConfig:
+    """Filesystem layout, relative to the repository (counterpart of
+    ``vqa_tpu.utils.config.PathConfig``); the serving CLI's default
+    ``--checkpoint-dir`` is ``PATHS.checkpoint_dir``."""
+
+    data_root: str = os.path.join(_REPO_ROOT, "data_store")
+    # VQA v2 layout
+    questions_file: str = "questions.json"
+    annotations_file: str = "annotations.json"
+    images_dir: str = "images"
+    # artifacts
+    checkpoint_dir: str = os.path.join(_REPO_ROOT, "checkpoints")
+    log_dir: str = os.path.join(_REPO_ROOT, "logs")
+    tokenizer_file: str = "tokenizer.json"
+    answer_vocab_file: str = "answer_vocab.json"
+
+    def __post_init__(self):
+        for d in (self.checkpoint_dir, self.log_dir):
+            os.makedirs(d, exist_ok=True)
+
+    @property
+    def questions_path(self) -> str:
+        return os.path.join(self.data_root, self.questions_file)
+
+    @property
+    def annotations_path(self) -> str:
+        return os.path.join(self.data_root, self.annotations_file)
+
+    @property
+    def images_path(self) -> str:
+        return os.path.join(self.data_root, self.images_dir)
+
+    @property
+    def tokenizer_path(self) -> str:
+        return os.path.join(self.checkpoint_dir, self.tokenizer_file)
+
+    @property
+    def answer_vocab_path(self) -> str:
+        return os.path.join(self.checkpoint_dir, self.answer_vocab_file)
 
 
 @dataclass(frozen=True)
@@ -75,6 +121,9 @@ class InferenceConfig:
     batch_buckets: Tuple[int, ...] = (1, 4, 16, 32)
     max_request_batch: int = 128
     max_body_mb: int = 256
+
+
+PATHS = PathConfig()
 
 
 def tiny_model_config() -> ModelConfig:
