@@ -43,7 +43,25 @@ What it does, failing (non-zero exit, no result line) on any failed check:
 9. supervisor: ``python -m vqa_tpu_torch.serving.supervisor`` with
    full-width workers on the card and a recycle bound below one worker's
    RSS; a client posts without pause through the first recycle, then the
-   supervisor gets SIGTERM: no failed request, exit 0, no worker left.
+   supervisor gets SIGTERM: no failed request, exit 0, no worker left;
+10. training, at full width (``ModelConfig()``, 224 px), f32, TF32 off:
+    (a) one train step from the same weights and synthetic batch of 32
+    (dropout off) on the card and on the CPU — loss within 1e-4; with
+    cuDNN off, clipped gradients and BN statistics per tensor within 10x
+    the CPU's own f32 noise (the step in other summation orders) plus
+    floors; with cuDNN, BN statistics within 1e-3 and the gradients as a
+    whole within 10x that noise; parameters within 2·lr (a first AdamW
+    step is near a sign function); (b) the Trainer's step overfits one batch of 32
+    (loss halved in 30 steps at lr 1e-3); (c) ``python -m
+    vqa_tpu_torch.training.train --synthetic --epochs 1 --device-aug``,
+    run in this process to count kernel launches: none in train steps
+    (training mode takes the plain paths), 1, 4 and 2 per validation
+    forward, ``latest`` and ``best_model`` written with sidecars; (d) the
+    engine serves that checkpoint, its probabilities within 1e-5 of the
+    trainer's eval forward; (e) a Trainer resumed from ``latest`` takes the
+    same first step of epoch 1 as the uninterrupted one; (f) train pairs/s
+    and ms per step at batch 32 and 256 (CUDA events over 12 steady steps,
+    the card's busy share from a profiler window, peak memory).
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -61,8 +79,9 @@ kernel takes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one JSON line of per-kernel
-numbers, and before that the ``serving`` line (load bench, HTTP phase,
-supervisor) and the ``engine`` line.
+numbers (launches counted over the serving main path of phase 3), and
+before that the ``training`` line, the ``serving`` line (load bench, HTTP
+phase, supervisor) and the ``engine`` line.
 """
 
 from __future__ import annotations
@@ -903,6 +922,389 @@ def drive_supervisor(rng, recycle_rss_mb: float = 512.0, worker_args=("--device"
                 recycle_warmup_s=done["warmup_s"], recycle_drain_s=done["drain_s"])
 
 
+# The training phase's card-against-CPU step (full width, f32, TF32 off),
+# also used by tests/test_torch_cuda.py. At random initialisation many
+# backbone gradients are ill-conditioned (BN's backward subtracts most of
+# what reaches it): two correct f32 runs of the same step on the CPU, the
+# batch in another order, differ by up to a sixth of some tensors' largest
+# gradient. So the card is held to the CPU's own f32 noise, measured per
+# tensor as the larger difference from the CPU's step of (1) the same step
+# on the batch in another order (the loss is a mean over the batch, so the
+# step is the same function; only the rounding differs) and (2) the step
+# without oneDNN (PyTorch's native CPU convolutions, another summation
+# order). The card's step is checked twice:
+# - cuDNN off (PyTorch's own CUDA convolutions and BN, IEEE f32 GEMMs): every
+#   gradient tensor and BN statistic within 10x the CPU's noise plus floors;
+# - as the trainer runs it (cuDNN, whose f32 convolution algorithms include
+#   FFT and Winograd ones): the loss, BN statistics and parameters to the
+#   bounds below, and the gradients as a whole within 10x the CPU's noise.
+STEP_LOSS_TOL = 1e-4      # |loss_card - loss_cpu|
+STEP_NOISE_FACTOR = 10.0  # |x_card - x_cpu| <= 10 x the CPU's noise + floors
+STEP_REL_FLOOR = 1e-5     # floor: 1e-5 of the tensor's max (BN statistics: of max(1, max))
+STEP_GLOBAL_FLOOR = 1e-6  # and, for gradients, 1e-6 of the model's largest gradient
+STEP_CUDNN_BN_REL_TOL = 1e-3  # cuDNN: BN statistics, per tensor, of max(1, max)
+# a first AdamW step moves a weight by ~lr·g/(|g| + eps), near a sign
+# function of g, so parameters are held to 2·lr (+1e-6 of rounding), and
+# the weights whose update changed sign are counted
+TRAIN_BATCH_SIZES = (32, 256)
+
+
+def synthetic_batch(cfg, batch: int, seed: int = 0):
+    """A batch of ``batch`` synthetic scenes at ``cfg.image_size``
+    (normalized f32 images, token ids, mask, answers), as the port's
+    synthetic loader makes them."""
+    from vqa_tpu_torch.data.dataset import BatchLoader
+    from vqa_tpu_torch.data.synthetic import SyntheticVQADataset
+
+    ds = SyntheticVQADataset(num_samples=batch, image_size=cfg.image_size,
+                             max_question_length=cfg.max_question_length,
+                             is_training=False, seed=seed)
+    b = next(iter(BatchLoader(ds, batch, shuffle=False, drop_last=True)))
+    return [b["image"], b["token_ids"], b["attention_mask"], b["answer"]]
+
+
+def one_train_step(torch, cfg, where, arrays, lr: float, seed: int = 11):
+    """(model after one train step from seeded weights, its metrics)."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    model = create_vqa_model(config=cfg, device=where, seed=seed)
+    state = TrainState.create(
+        model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
+    metrics = make_train_step(model)(state, *(torch.from_numpy(a).to(where) for a in arrays))
+    return model, metrics
+
+
+def compare_train_steps(torch, cpu, cpu_noise, card, lr: float) -> dict:
+    """The card's step against the CPU's, bounded by the CPU's own f32
+    noise: ``cpu_noise`` is a list of CPU runs of the same step in other
+    summation orders. Each run is (model, metrics). Returns the errors,
+    ``failures`` (per-tensor noise bounds) and ``cudnn_failures`` (the
+    bounds of the step as the trainer runs it)."""
+    m_cpu, r_cpu = cpu
+    m_card, r_card = card
+    failures = []
+    loss_err = abs(float(r_card["loss"]) - float(r_cpu["loss"]))
+    if loss_err > STEP_LOSS_TOL:
+        failures.append(f"loss off by {loss_err:.3e}")
+    for k in ("correct1", "correct5"):
+        if int(r_card[k]) != int(r_cpu[k]):
+            failures.append(f"{k} {int(r_card[k])} != {int(r_cpu[k])}")
+
+    def named(model, kind):
+        items = model.named_parameters() if kind == "grad" else model.named_buffers()
+        return {k: (v.grad if kind == "grad" else v).detach().cpu().double()
+                for k, v in items
+                if kind == "grad" or k.endswith(("running_mean", "running_var"))}
+
+    out = dict(loss_err=loss_err, loss_noise=max(
+        abs(float(r["loss"]) - float(r_cpu["loss"])) for _, r in cpu_noise))
+    for kind in ("grad", "bn"):
+        ref, dev = named(m_cpu, kind), named(m_card, kind)
+        others = [named(m, kind) for m, _ in cpu_noise]
+        top = max(float(v.abs().max()) for v in ref.values())
+        worst, max_rel = [], 0.0
+        sq_ref, sq_err, sq_noise = 0.0, 0.0, [0.0] * len(others)
+        for name, r in ref.items():
+            err = float((dev[name] - r).abs().max())
+            noise = max(float((o[name] - r).abs().max()) for o in others)
+            scale = float(r.abs().max()) if kind == "grad" else max(1.0, float(r.abs().max()))
+            bound = (STEP_NOISE_FACTOR * noise + STEP_REL_FLOOR * scale
+                     + (STEP_GLOBAL_FLOOR * top if kind == "grad" else 0.0))
+            worst.append((err / bound, name, err, noise, scale))
+            max_rel = max(max_rel, err / max(scale, 1e-30))
+            sq_ref += float((r ** 2).sum())
+            sq_err += float(((dev[name] - r) ** 2).sum())
+            for i, o in enumerate(others):
+                sq_noise[i] += float(((o[name] - r) ** 2).sum())
+        worst.sort(reverse=True)
+        failures += [f"{kind} {n}: err {e:.3e} > bound (noise {z:.3e}, max {m:.3e})"
+                     for f, n, e, z, m in worst if f > 1]
+        out[kind] = dict(
+            worst=[dict(name=n, err=e, noise=z, max=m, share_of_bound=f)
+                   for f, n, e, z, m in worst[:3]],
+            rel_l2_err=math.sqrt(sq_err / max(sq_ref, 1e-300)),
+            rel_l2_noise=max(math.sqrt(q / max(sq_ref, 1e-300)) for q in sq_noise),
+            max_rel_err=max_rel)
+    card_params = dict(m_card.named_parameters())
+    param_err, flipped = 0.0, 0
+    for name, p in m_cpu.named_parameters():
+        d = (card_params[name].detach().cpu() - p.detach()).abs()
+        param_err = max(param_err, float(d.max()))
+        flipped += int((d > lr).sum())
+    if param_err > 2 * lr + 1e-6:
+        failures.append(f"parameters off by {param_err:.3e} > 2·lr")
+    out.update(param_err=param_err, params_flipped=flipped, failures=failures)
+    cudnn = [f for f in failures if not f.startswith(("grad ", "bn "))]
+    if out["bn"]["max_rel_err"] > STEP_CUDNN_BN_REL_TOL:
+        cudnn.append(f"BN statistics off by {out['bn']['max_rel_err']:.3e}")
+    g = out["grad"]
+    if g["rel_l2_err"] > STEP_NOISE_FACTOR * g["rel_l2_noise"] + STEP_REL_FLOOR:
+        cudnn.append(f"gradients off by {g['rel_l2_err']:.3e} (L2; CPU noise "
+                     f"{g['rel_l2_noise']:.3e})")
+    out["cudnn_failures"] = cudnn
+    return out
+
+
+def step_card_vs_cpu(torch, cfg, device, lr: float = 1e-4, batch: int = 32) -> dict:
+    """(a) One train step from the same weights and synthetic batch
+    (dropout off) on the CPU (three times: as is, the batch in another
+    order, oneDNN off) and on the card (cuDNN off, then as the trainer
+    runs it)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, dropout=0.0, answer_dropout=0.0)
+    arrays = synthetic_batch(cfg, batch, seed=1)
+    perm = np.random.default_rng(0).permutation(batch)
+    runs = {}
+    for name, where, data, onednn, cudnn in (
+            ("cpu", "cpu", arrays, True, True),
+            ("cpu_permuted", "cpu", [a[perm] for a in arrays], True, True),
+            ("cpu_onednn_off", "cpu", arrays, False, True),
+            ("card_cudnn_off", device, arrays, True, False), ("card", device, arrays, True, True)):
+        t0 = time.perf_counter()
+        with torch.backends.mkldnn.flags(enabled=onednn), torch.backends.cudnn.flags(
+                enabled=cudnn, deterministic=False, benchmark=False, allow_tf32=False):
+            runs[name] = one_train_step(torch, cfg, where, data, lr)
+        log(f"train step, {name}: loss {float(runs[name][1]['loss']):.7f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    noise = [runs["cpu_permuted"], runs["cpu_onednn_off"]]
+    for name in ("card_cudnn_off", "card"):
+        r = compare_train_steps(torch, runs["cpu"], noise, runs[name], lr)
+        for kind in ("grad", "bn"):
+            log(f"{name} vs CPU, {kind}: relative L2 error {r[kind]['rel_l2_err']:.3e} (the "
+                f"CPU's own f32 noise {r[kind]['rel_l2_noise']:.3e}), max per-tensor error "
+                f"{r[kind]['max_rel_err']:.3e} of the tensor's max; nearest to the noise "
+                "bound: " + "; ".join(
+                    f"{w['name']} err {w['err']:.3e} noise {w['noise']:.3e} max {w['max']:.3e} "
+                    f"({100 * w['share_of_bound']:.0f}%)" for w in r[kind]["worst"]))
+        log(f"{name} vs CPU, one step at B={batch} (lr {lr}): loss err {r['loss_err']:.3e} "
+            f"(tol {STEP_LOSS_TOL}; CPU noise {r['loss_noise']:.3e}); params max err "
+            f"{r['param_err']:.3e} (tol 2·lr), {r['params_flipped']} weights whose update "
+            f"changed sign")
+        out[name] = r
+    require(not out["card_cudnn_off"]["failures"], "train step card (cuDNN off) vs CPU: "
+            + "; ".join(out["card_cudnn_off"]["failures"][:5]))
+    require(not out["card"]["cudnn_failures"], "train step card vs CPU: "
+            + "; ".join(out["card"]["cudnn_failures"][:5]))
+    for r in out.values():
+        del r["failures"], r["cudnn_failures"]
+    out["lr"], out["batch"] = lr, batch
+    return out
+
+
+def overfit_one_batch(torch, cfg, device, steps: int = 30) -> dict:
+    """(b) The Trainer's step on one batch of 32, lr 1e-3, no warmup."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    batch = [torch.from_numpy(a).to(device) for a in synthetic_batch(cfg, 32, seed=2)]
+    model = create_vqa_model(config=cfg, device=device, seed=12)
+    one = [{"answer": np.zeros(32)}] * steps  # the loaders' length sets the schedule
+    trainer = Trainer(model, one, [], config=TrainingConfig(
+        learning_rate=1e-3, warmup_epochs=0, num_epochs=20), save_checkpoints=False)
+    losses = [float(trainer.train_step(trainer.state, *batch)["loss"]) for _ in range(steps)]
+    log(f"overfit one batch of 32: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {steps} "
+        f"steps (min {min(losses):.4f})")
+    require(all(math.isfinite(v) for v in losses), "non-finite loss while overfitting")
+    require(losses[-1] < losses[0] / 2, f"loss {losses[0]} -> {losses[-1]}: not halved")
+    return dict(first_loss=losses[0], last_loss=losses[-1], steps=steps)
+
+
+def drive_train_cli(torch, tmp: str, extra=()) -> tuple:
+    """(c) ``python -m vqa_tpu_torch.training.train --synthetic --epochs 1``,
+    in this process so the kernel launches of each train epoch and each
+    validation can be counted. Returns (the CLI's Trainer, a summary)."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.training import checkpoint as ckpt_lib
+    from vqa_tpu_torch.training import train as train_mod
+
+    seen = {}
+    train_epoch, validate = train_mod.Trainer.train_epoch, train_mod.Trainer.validate
+
+    def counted_train_epoch(self, epoch):
+        seen["trainer"] = self
+        ops.reset_launch_counts()
+        out = train_epoch(self, epoch)
+        seen["train_launches"] = ops.launch_counts()
+        seen["train_steps"] = len(self.train_loader)
+        return out
+
+    def counted_validate(self):
+        ops.reset_launch_counts()
+        out = validate(self)
+        seen["val_launches"] = ops.launch_counts()
+        seen["val_forwards"] = len(self.val_loader)
+        return out
+
+    argv = ["--synthetic", "--epochs", "1", "--subset-size", "640", "--device-aug",
+            "--num-workers", "4", "--checkpoint-dir", tmp, *extra]
+    t0 = time.perf_counter()
+    with mock.patch.object(train_mod.Trainer, "train_epoch", counted_train_epoch), \
+            mock.patch.object(train_mod.Trainer, "validate", counted_validate):
+        logger = train_mod.main(argv)
+    wall = time.perf_counter() - t0
+    trainer = seen["trainer"]
+    log(f"train CLI ({' '.join(argv)}): {wall:.1f} s; {seen['train_steps']} train steps "
+        f"launched {seen['train_launches']}; {seen['val_forwards']} validation forwards "
+        f"launched {seen['val_launches']}; history {logger.history}")
+    require(all(math.isfinite(v[0]) for v in logger.history.values()), "non-finite metrics")
+    require(all(v == 0 for v in seen["train_launches"].values()),
+            f"kernels launched during train steps: {seen['train_launches']}")
+    for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(seen["val_launches"][name] == per_forward * seen["val_forwards"],
+                f"validation: {name} launched {seen['val_launches'][name]} times in "
+                f"{seen['val_forwards']} forwards")
+    for name in ("latest", "best_model"):
+        require(ckpt_lib.checkpoint_exists(tmp, name), f"no {name} checkpoint with sidecar")
+    return trainer, dict(seconds=wall, train_steps=seen["train_steps"],
+                         train_launches=seen["train_launches"],
+                         val_forwards=seen["val_forwards"], val_launches=seen["val_launches"],
+                         val_top1=logger.history["val_top1"][0])
+
+
+def engine_from_checkpoint(torch, trainer, tmp: str, rng) -> float:
+    """(d) The engine loads the checkpoint just written; its probabilities
+    on 8 pairs against the trainer's eval-mode forward."""
+    from vqa_tpu_torch.data.preprocess import device_normalize
+    from vqa_tpu_torch.serving.engine import VQAInference
+
+    engine = VQAInference(checkpoint_dir=tmp, checkpoint_name="latest",
+                          device=trainer.device).load()
+    require(engine.model_loaded_from_checkpoint, "the engine did not load the checkpoint")
+    size = trainer.model.config.image_size
+    pixels = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+    questions = ["what color is the circle", "how many shapes are there", "is there a square",
+                 "what color is the triangle"] * 2
+    probs = engine.predict_probs_from_pixels(pixels, questions)
+    ids, mask = engine.tokenizer.encode_batch_np(questions)
+    with torch.inference_mode():
+        logits, _ = trainer.model.eval()(
+            device_normalize(torch.from_numpy(pixels).to(trainer.device)),
+            torch.from_numpy(ids).long().to(trainer.device),
+            torch.from_numpy(mask).to(trainer.device))
+    want = torch.softmax(logits, -1).cpu().numpy()
+    err = float(np.abs(probs - want).max())
+    log(f"engine from the checkpoint: 8 pairs, max prob err {err:.3e} (tol 1e-5), "
+        f"top answers {[engine.answer_vocab.decode(int(i)) for i in probs.argmax(-1)]}")
+    require(err <= 1e-5, f"engine vs trainer probabilities {err}")
+    require((probs.argmax(-1) == want.argmax(-1)).all(), "engine top answers differ")
+    return err
+
+
+def resume_matches(torch, trainer, tmp: str) -> float:
+    """(e) Resume a fresh Trainer from ``latest`` and take the first step
+    of epoch 1; the CLI's own Trainer (uninterrupted) takes the same step."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer
+
+    model = create_vqa_model(config=trainer.model.config, device=trainer.device, seed=99)
+    resumed = Trainer(model, trainer.train_loader, trainer.val_loader, config=trainer.cfg,
+                      checkpoint_dir=tmp, seed=trainer.seed)
+    resumed.resume("latest")
+    require(resumed.state.step == trainer.state.step and resumed.start_epoch == 1,
+            f"resumed at step {resumed.state.step}, epoch {resumed.start_epoch}")
+    losses = []
+    for t in (resumed, trainer):
+        t.train_loader.set_epoch(1)
+        batch = next(iter(t.train_loader))
+        images = torch.from_numpy(batch["image"]).to(t.device)
+        if images.dtype == torch.uint8:
+            images = t.augment(images, 1, 0)
+        torch.manual_seed(1234)  # the same dropout masks for both
+        losses.append(float(t.train_step(t.state, images, *(
+            torch.from_numpy(batch[k]).to(t.device)
+            for k in ("token_ids", "attention_mask", "answer")))["loss"]))
+    err = abs(losses[0] - losses[1])
+    log(f"resume: first step of epoch 1 resumed {losses[0]:.6f}, uninterrupted "
+        f"{losses[1]:.6f}, err {err:.3e} (tol {STEP_LOSS_TOL})")
+    require(err <= STEP_LOSS_TOL, "resumed step differs from the uninterrupted one")
+    return err
+
+
+def train_timing(torch, cfg, device, batch: int, steps: int = 12) -> dict:
+    """(f) Train pairs/s and ms per step at ``batch``: CUDA events over
+    ``steps`` steady steps after 3 warm-up steps, the device's busy share
+    from a profiler window of 5 steps, and peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    rng = np.random.default_rng(batch)
+    size, L = cfg.image_size, cfg.max_question_length
+    args = [torch.from_numpy(a).to(device) for a in (
+        rng.standard_normal((batch, size, size, 3)).astype(np.float32),
+        rng.integers(4, cfg.vocab_size, (batch, L)).astype(np.int32),
+        np.ones((batch, L), np.int32),
+        rng.integers(0, cfg.num_answers, batch).astype(np.int32))]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    model = create_vqa_model(config=cfg, device=device, seed=13)
+    state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 100)
+    step = make_train_step(model)
+    for _ in range(3):
+        step(state, *args)
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        m = step(state, *args)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    window = 5
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(window):
+            m = step(state, *args)
+        torch.cuda.synchronize(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    peak = torch.cuda.max_memory_allocated(device)
+    require(math.isfinite(float(m["loss"])), "non-finite loss in the timed steps")
+    out = dict(batch=batch, step_ms=step_ms, pairs_per_s=batch / step_ms * 1e3,
+               device_busy_ms_per_step=busy_ms / window,
+               device_busy_share=busy_ms / wall_ms, peak_memory_bytes=peak, steps=steps)
+    log(f"train step at B={batch}: {step_ms:.3f} ms ({out['pairs_per_s']:.1f} pairs/s, CUDA "
+        f"events over {steps} steps); profiled window: card busy {busy_ms / window:.3f} ms "
+        f"per step, {100 * out['device_busy_share']:.1f}% of the wall time; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    del model, state, args
+    return out
+
+
+def drive_training(torch, rng) -> dict:
+    """The training phase at full width (``ModelConfig()``, 224 px), f32,
+    TF32 off: (a) one step card vs CPU, (b) overfit one batch, (c) the
+    train CLI with launch counts, (d) its checkpoint in the engine, (e)
+    resume, (f) timing at batch 32 and 256."""
+    import tempfile
+
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig()
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": step_card_vs_cpu(torch, cfg, device)}
+    out["overfit"] = overfit_one_batch(torch, cfg, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train.") as tmp:
+        trainer, out["cli"] = drive_train_cli(torch, tmp)
+        out["engine_prob_err"] = engine_from_checkpoint(torch, trainer, tmp, rng)
+        out["resume_loss_err"] = resume_matches(torch, trainer, tmp)
+        del trainer
+    out["timing"] = {str(b): train_timing(torch, cfg, device, b) for b in TRAIN_BATCH_SIZES}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"training phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--profile", action="store_true",
@@ -973,6 +1375,7 @@ def main(argv=None) -> int:
         f"{load['throughput_rps']:.1f} requests/s, {load['server_metrics']['batches']} batches")
     supervisor = drive_supervisor(rng)
     log(f"serving phases: {time.perf_counter() - t0:.1f} s")
+    training = drive_training(torch, rng)
 
     log(json.dumps({"engine": {
         "params": n_params, "build_s": build_s,
@@ -982,6 +1385,7 @@ def main(argv=None) -> int:
         "p50_ms_bucket32": tput[BUCKET]["p50_ms"],
         "p90_ms_bucket32": tput[BUCKET]["p90_ms"]}}))
     log(json.dumps({"serving": {**load, "http": http, "supervisor": supervisor}}))
+    log(json.dumps({"training": training}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: ({"name": name, **r}[k]) for k in keys}

@@ -273,3 +273,88 @@ def test_narrow_stem_runs_unfused_and_matches_cpu(cuda):
         "stem": 0, "se": 4, "cross_attention": 2}
     torch.testing.assert_close(got.cpu(), forward_logits(cpu_model, *args),
                                atol=1e-3, rtol=0)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step from the same weights and batch (dropout off), tiny width,
+    with chip_smoke.py's bounds: cuDNN off, loss within 1e-4, clipped
+    gradients and BN statistics per tensor within 10x the CPU's own f32
+    noise (the step on the batch in another order, and without oneDNN)
+    plus floors, parameters within 2·lr; with cuDNN, the loss, BN
+    statistics (1e-3) and parameters, and the gradients as a whole within
+    10x that noise. No kernel launches (training mode takes the plain
+    paths)."""
+    import dataclasses
+
+    import chip_smoke
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    cfg = dataclasses.replace(tiny_model_config(), dropout=0.0, answer_dropout=0.0)
+    rng = np.random.default_rng(12)
+    arrays = [rng.standard_normal((8, 64, 64, 3)).astype(np.float32),
+              rng.integers(4, cfg.vocab_size, (8, cfg.max_question_length)).astype(np.int32),
+              np.ones((8, cfg.max_question_length), np.int32),
+              rng.integers(0, cfg.num_answers, 8).astype(np.int32)]
+    perm = np.arange(8)[::-1].copy()
+    ops.reset_launch_counts()
+    cpu = [chip_smoke.one_train_step(torch, cfg, "cpu", data, 1e-4, seed=4)
+           for data in (arrays, [a[perm] for a in arrays])]
+    with torch.backends.mkldnn.flags(enabled=False):
+        cpu.append(chip_smoke.one_train_step(torch, cfg, "cpu", arrays, 1e-4, seed=4))
+    with torch.backends.cudnn.flags(enabled=False):
+        native = chip_smoke.one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
+    card = chip_smoke.one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"stem": 0, "se": 0, "cross_attention": 0}
+    out = chip_smoke.compare_train_steps(torch, cpu[0], cpu[1:], native, lr=1e-4)
+    assert not out["failures"], out["failures"]
+    out = chip_smoke.compare_train_steps(torch, cpu[0], cpu[1:], card, lr=1e-4)
+    assert not out["cudnn_failures"], out["cudnn_failures"]
+
+
+def test_device_augment_on_the_card_matches_the_cpu(cuda):
+    """The same draws applied on the card and on the CPU (within 1e-5); the
+    draws themselves come from a generator on the card."""
+    from vqa_tpu_torch.data.preprocess import apply_augment, device_augment, draw_augment
+
+    rng = np.random.default_rng(13)
+    pixels = torch.from_numpy(rng.integers(0, 256, (16, 256, 256, 3), dtype=np.uint8))
+    draws = draw_augment(16, 256, 224, torch.Generator().manual_seed(3))
+    got = apply_augment(pixels.to(cuda), {k: v.to(cuda) for k, v in draws.items()}, 224)
+    torch.testing.assert_close(got.cpu(), apply_augment(pixels, draws, 224),
+                               atol=1e-5, rtol=0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    out = device_augment(pixels.to(cuda), gen, image_size=224)
+    assert out.device.type == "cuda" and out.shape == (16, 224, 224, 3)
+    assert bool(torch.isfinite(out).all())
+
+
+def _train_batch(cfg, b, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a) for a in (
+        rng.standard_normal((b, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+        rng.integers(4, cfg.vocab_size, (b, cfg.max_question_length)).astype(np.int32),
+        np.ones((b, cfg.max_question_length), np.int32),
+        rng.integers(0, cfg.num_answers, b).astype(np.int32))]
+
+
+def test_validation_forward_launches_the_kernels_and_train_steps_none(cuda):
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import TrainState, make_train_step, make_val_step
+    from vqa_tpu_torch.utils.config import TrainingConfig, tiny_model_config
+
+    cfg = tiny_model_config()
+    model = create_vqa_model(config=cfg, device=cuda, seed=5)
+    state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 10)
+    images, ids, mask, labels = (a.to(cuda) for a in _train_batch(cfg, 4, 14))
+    ops.reset_launch_counts()
+    step = make_train_step(model)
+    for _ in range(2):
+        step(state, images, ids, mask, labels)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"stem": 0, "se": 0, "cross_attention": 0}
+    valid = torch.ones(4, dtype=torch.int32, device=cuda)
+    out = make_val_step(model)(images, ids, mask, labels, valid)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"stem": 1, "se": 4, "cross_attention": 2}
+    assert float(out["n"]) == 4.0 and np.isfinite(float(out["loss_sum"]))

@@ -17,7 +17,9 @@ in training mode, it runs conv → BN → ReLU → maxpool.
 Parameter names follow the reference state_dict layout (``stem.0`` conv,
 ``stem.1`` BN, ``stageN.blocks.i.conv1`` …, ``downsample.0/1``). BN uses
 eps 1e-5 and momentum 0.1, as the JAX package's ``BN_EPS`` and
-``BN_MOMENTUM`` (keep-fraction 0.9) do.
+``BN_MOMENTUM`` (keep-fraction 0.9) do, and in training mode updates its
+running variance with the biased batch variance, as flax's ``BatchNorm``
+does (``BatchNorm2d`` below).
 """
 
 from __future__ import annotations
@@ -26,11 +28,31 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from vqa_tpu_torch.models.attention_modules import AttentionWrapper
 from vqa_tpu_torch.ops import stem_kernel
 
 BN_EPS = 1e-5
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode running variance is the
+    biased batch variance, as flax's ``BatchNorm`` keeps it; torch's own
+    takes the unbiased one, which after one step at batch 4 moved a
+    stage-4 ``running_var`` by ~1e-2 from flax's. Normalisation, the eval
+    path and the state_dict keys are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class ResidualBlock(nn.Module):
@@ -40,14 +62,14 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(out_channels, eps=BN_EPS)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(out_channels, eps=BN_EPS)
         self.downsample = None
         if stride != 1 or in_channels != out_channels:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False),
-                nn.BatchNorm2d(out_channels, eps=BN_EPS),
+                BatchNorm2d(out_channels, eps=BN_EPS),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +117,7 @@ class CustomResNet(nn.Module):
         self.output_channels = c[-1]
         self.stem = nn.Sequential(
             nn.Conv2d(in_channels, c[0], 7, 2, 3, bias=False),
-            nn.BatchNorm2d(c[0], eps=BN_EPS),
+            BatchNorm2d(c[0], eps=BN_EPS),
             nn.ReLU(),
             nn.MaxPool2d(3, 2, 1),
         )

@@ -13,10 +13,13 @@ placeholders — and the same request mechanics:
   ``dispatch_probs_from_pixels`` returns before the card finishes; /255
   and ImageNet normalize run on the card.
 
-Weights: a reference-schema ``.pth`` (``model_state_dict`` + ``config``,
-loaded strictly) named by ``checkpoint_dir/checkpoint_name``, or else a
-seeded random model. The JAX package's Orbax checkpoints are not read yet:
-export one with ``python -m vqa_tpu.compat.torch_export`` first.
+Weights, in the JAX engine's order (its own checkpoint, a ``.pth``, a
+random model): the port's checkpoint ``checkpoint_dir/<name>.pt`` with its
+sidecar (``training/checkpoint.py``; the model rebuilt from the sidecar's
+full config), else a reference-schema ``.pth`` (``model_state_dict`` +
+``config``, loaded strictly) named by ``checkpoint_dir/checkpoint_name``,
+else a seeded random model. The JAX package's Orbax checkpoints are not
+read yet: export one with ``python -m vqa_tpu.compat.torch_export`` first.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU,
 and raises when no CUDA device is present. It computes in f32 and, on the
@@ -47,6 +50,7 @@ from vqa_tpu_torch.models.vqa_model import (
     create_vqa_model,
     resolve_device,
 )
+from vqa_tpu_torch.training import checkpoint as ckpt_lib
 from vqa_tpu_torch.utils.config import InferenceConfig, ModelConfig
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -109,13 +113,18 @@ class VQAInference:
         loaded = False
         if self.checkpoint_dir:
             path = os.path.join(self.checkpoint_dir, self.checkpoint_name)
-            if os.path.isdir(path):
+            if ckpt_lib.checkpoint_exists(self.checkpoint_dir, self.checkpoint_name):
+                self.model = ckpt_lib.load_model_for_inference(
+                    self.checkpoint_dir, self.checkpoint_name, device=self.device)
+                loaded = True
+                print(f"[Inference] loaded checkpoint {self.checkpoint_name}")
+            elif os.path.isdir(path):
                 raise NotImplementedError(
                     f"{path} looks like an Orbax checkpoint, which the port does "
                     "not read yet; export it with "
                     "`python -m vqa_tpu.compat.torch_export --checkpoint-dir ... "
                     "--out X.pth` and load the .pth")
-            if path.endswith(".pth") and os.path.exists(path):
+            elif path.endswith(".pth") and os.path.exists(path):
                 self.model = load_reference_checkpoint(path, self.device)
                 loaded = True
                 print(f"[Inference] loaded PyTorch checkpoint {path}")

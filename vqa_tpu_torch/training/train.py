@@ -1,0 +1,686 @@
+"""Training loop: AdamW with the JAX package's warmup-cosine schedule.
+
+Counterpart of ``vqa_tpu/training/train.py``, with the same semantics — CE
+loss (optional label smoothing), AdamW lr 1e-4 wd 0.01 with linear warmup
+and cosine decay to 1e-6 (per step, or per epoch), global-norm clip 1.0,
+gradient accumulation over microbatches, per-epoch validation with
+per-question-type accuracy, best-model tracking, early stop, a checkpoint
+every ``checkpoint_every`` epochs and a final ``latest``, resume, and
+SIGTERM routed to an ``interrupted`` save — on one CUDA device, in f32
+(the JAX trainer is f32 on every backend but the TPU), with TF32 off.
+
+Where the two packages' mechanics differ:
+
+- the optimizer is ``torch.optim.AdamW`` over ``model.parameters()``;
+  buffers (BN running statistics, the ``pe`` table) are not decayed,
+  exactly as optax's unmasked ``adamw`` leaves out ``batch_stats``. The
+  learning rate of step t is set to ``schedule(t)`` before the update, as
+  optax evaluates its schedule at the update count;
+- clipping is done by hand, the optax way: the gradients stay as they are
+  when their global norm is below the bound and become ``g / norm * bound``
+  otherwise (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm);
+- dropout draws from torch's generator, seeded from ``seed`` when the
+  Trainer is built; device augmentation draws from a ``torch.Generator``
+  on the card, seeded per (seed, epoch, step);
+- a train step runs the model in training mode, where the backbone, SE
+  and cross-attention take their plain paths, as the JAX model's training
+  path does: no kernel of ``vqa_tpu_torch.ops`` launches. Validation runs
+  in eval mode, through the stem, SE and cross-attention kernels;
+- ``remat`` (activation recomputation) is not ported: a re-run of the
+  forward in training mode would update BN's running statistics twice.
+
+    python -m vqa_tpu_torch.training.train --synthetic --epochs 12           # on the card
+    python -m vqa_tpu_torch.training.train --synthetic --tiny --device cpu --epochs 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import signal
+import threading
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vqa_tpu_torch.data.pipeline import prefetch_to_device
+from vqa_tpu_torch.data.preprocess import device_augment
+from vqa_tpu_torch.models.vqa_model import VQAModel, create_vqa_model, resolve_device
+from vqa_tpu_torch.training import checkpoint as ckpt_lib
+from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
+from vqa_tpu_torch.utils.metrics import MetricsLogger, topk_correct, topk_flags
+from vqa_tpu_torch.utils.profiling import StepTimer, maybe_trace, step_annotation
+
+Schedule = Callable[[int], float]
+
+
+def _cosine(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """optax.cosine_decay_schedule."""
+    if decay_steps <= 0:
+        return lambda step: init_value
+
+    def schedule(step):
+        count = min(step, decay_steps)
+        decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * decay + alpha)
+
+    return schedule
+
+
+def make_schedule(cfg: TrainingConfig, steps_per_epoch: int) -> Schedule:
+    """The learning rate of optimizer step t (0-based), as the JAX trainer's
+    optax schedule gives it: ``"step"`` is
+    ``optax.warmup_cosine_decay_schedule`` (linear from 0 over the warmup
+    steps, then cosine over the rest of ``num_epochs`` down to ``min_lr``);
+    ``"epoch"`` holds the rate within an epoch at
+    min_lr + (lr − min_lr)·(1 + cos(π·e/num_epochs))/2, scaled by
+    min((e + 1)/warmup_epochs, 1) during warmup."""
+    warmup_steps = cfg.warmup_epochs * steps_per_epoch
+    total_steps = max(cfg.num_epochs * steps_per_epoch, warmup_steps + 1)
+    granularity = cfg.lr_schedule_granularity
+    if granularity == "epoch":
+        base = _cosine(cfg.learning_rate - cfg.min_lr, max(cfg.num_epochs, 1))
+        spe = max(steps_per_epoch, 1)  # drop_last can make it 0
+
+        def schedule(step):
+            epoch = min(step // spe, cfg.num_epochs)
+            lr = cfg.min_lr + base(epoch)
+            if cfg.warmup_epochs:
+                lr = lr * min((epoch + 1.0) / cfg.warmup_epochs, 1.0)
+            return lr
+
+        return schedule
+    if granularity != "step":
+        raise ValueError(
+            f"lr_schedule_granularity must be 'step' or 'epoch', got {granularity!r}")
+    peak = cfg.learning_rate
+    init = 0.0 if warmup_steps else peak
+    alpha = 0.0 if peak == 0 else cfg.min_lr / peak
+    cosine = _cosine(peak, total_steps - warmup_steps, alpha)
+
+    def schedule(step):
+        if step < warmup_steps:
+            frac = 1 - step / warmup_steps
+            return (init - peak) * frac + peak
+        return cosine(step - warmup_steps)
+
+    return schedule
+
+
+def make_optimizer(model: torch.nn.Module, cfg: TrainingConfig, steps_per_epoch: int
+                   ) -> Tuple[torch.optim.AdamW, Schedule]:
+    """AdamW over the model's parameters and the schedule that sets its
+    learning rate step by step."""
+    schedule = make_schedule(cfg, steps_per_epoch)
+    optimizer = torch.optim.AdamW(
+        model.parameters(), lr=schedule(0), betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8,
+        weight_decay=cfg.weight_decay)
+    return optimizer, schedule
+
+
+class TrainState:
+    """Model, optimizer, schedule and the optimizer step count."""
+
+    def __init__(self, model: VQAModel, optimizer: torch.optim.Optimizer,
+                 schedule: Schedule, grad_clip_norm: float = 1.0):
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.grad_clip_norm = grad_clip_norm
+        self.step = 0
+
+    @classmethod
+    def create(cls, model: VQAModel, cfg: TrainingConfig, steps_per_epoch: int
+               ) -> "TrainState":
+        optimizer, schedule = make_optimizer(model, cfg, steps_per_epoch)
+        return cls(model, optimizer, schedule, cfg.grad_clip_norm)
+
+    def apply_gradients(self) -> None:
+        """Clip the gradients by their global norm (optax's rule), set the
+        learning rate to ``schedule(step)``, update, count the step. No
+        host synchronisation."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        keep = norm < self.grad_clip_norm
+        one = torch.ones_like(norm)
+        torch._foreach_div_(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, one * self.grad_clip_norm))
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+
+
+def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float = 0.0,
+                    remat: str = "none"):
+    """``train_step(state, images, token_ids, mask, labels) → metrics``:
+    forward in training mode, CE loss, backward, clip, AdamW update, BN's
+    running statistics updated by the forward. The metrics (``loss``,
+    ``correct1``, ``correct5``) stay on the device; the clipped gradients
+    stay in each parameter's ``.grad`` until the next step.
+
+    ``grad_accum > 1`` splits the batch into that many microbatches run
+    one after another (BN normalising each with its own statistics and
+    updating its running statistics once per microbatch), sums their
+    gradients, divides by ``grad_accum`` and updates once; the loss is
+    the mean of the microbatches' losses."""
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP.md §A: remat); "
+            "recomputing the forward in training mode would update BN's "
+            "running statistics twice")
+
+    def forward_loss(images, token_ids, mask, labels):
+        logits, _ = model(images, token_ids.long(), mask)
+        loss = F.cross_entropy(logits, labels.long(), label_smoothing=label_smoothing)
+        return loss, logits.detach()
+
+    def train_step(state: TrainState, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
+        n = images.shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        if grad_accum == 1:
+            loss, logits = forward_loss(images, token_ids, mask, labels)
+            loss.backward()
+            c1, c5 = topk_correct(logits, labels, k=5)
+        else:
+            m = n // grad_accum
+            loss = c1 = c5 = 0
+            for i in range(grad_accum):
+                part = slice(i * m, (i + 1) * m)
+                mb_loss, logits = forward_loss(images[part], token_ids[part], mask[part],
+                                               labels[part])
+                mb_loss.backward()
+                f1, f5 = topk_correct(logits, labels[part], k=5)
+                loss, c1, c5 = loss + mb_loss.detach(), c1 + f1, c5 + f5
+            loss = loss / grad_accum
+            torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
+                                grad_accum)
+        state.apply_gradients()
+        return {"loss": loss.detach(), "correct1": c1, "correct5": c5}
+
+    return train_step
+
+
+def make_val_step(model: VQAModel, num_types: int = 0):
+    """``val_step(images, token_ids, mask, labels, valid_mask, type_ids=None)``
+    in eval mode, reduced to sums on the device with pad rows masked by
+    ``valid_mask``. ``num_types > 0`` adds per-question-type (correct,
+    total) sums over ``num_types + 1`` rows, the last being the loader's
+    overflow bucket for unknown types, which is dropped."""
+
+    @torch.inference_mode()
+    def val_step(images, token_ids, mask, labels, valid_mask, type_ids=None):
+        model.eval()
+        logits, _ = model(images, token_ids.long(), mask)
+        w = valid_mask.to(torch.float32)
+        loss_vec = F.cross_entropy(logits, labels.long(), reduction="none")
+        flags1, flags5 = topk_flags(logits, labels, k=5)
+        out = {
+            "loss_sum": (loss_vec * w).sum(),
+            "correct1": (flags1 * w).sum(),
+            "correct5": (flags5 * w).sum(),
+            "n": w.sum(),
+        }
+        if num_types and type_ids is not None:
+            idx = type_ids.long()
+            zeros = torch.zeros(num_types + 1, dtype=torch.float32, device=w.device)
+            out["type_correct"] = zeros.index_add(0, idx, flags1 * w)[:num_types]
+            out["type_total"] = zeros.index_add(0, idx, w)[:num_types]
+        return out
+
+    return val_step
+
+
+def make_eval_step(model: VQAModel):
+    """``eval_step(images, token_ids, mask, labels)`` in eval mode:
+    per-sample loss and correctness flags, predictions and logits."""
+
+    @torch.inference_mode()
+    def eval_step(images, token_ids, mask, labels):
+        model.eval()
+        logits, _ = model(images, token_ids.long(), mask)
+        flags1, flags5 = topk_flags(logits, labels, k=5)
+        return {
+            "loss_vec": F.cross_entropy(logits, labels.long(), reduction="none"),
+            "pred": logits.argmax(-1),
+            "correct1": flags1,
+            "correct5": flags5,
+            "logits": logits,
+        }
+
+    return eval_step
+
+
+def _augment_seed(seed: int, epoch: int, step: int) -> int:
+    """A 63-bit generator seed per (seed, epoch, step)."""
+    state = np.random.SeedSequence([seed, 0x5EED, epoch * 1_000_000 + step])
+    return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+class Trainer:
+    """Owns the model, optimizer state and steps; the JAX Trainer's
+    contract on one device (the model's)."""
+
+    def __init__(
+        self,
+        model: VQAModel,
+        train_loader,
+        val_loader,
+        config: Optional[TrainingConfig] = None,
+        checkpoint_dir: Optional[str] = None,
+        save_checkpoints: bool = True,
+        seed: int = 42,
+        profile_dir: Optional[str] = None,
+        run_meta: Optional[Dict[str, Any]] = None,
+        log_dir: Optional[str] = None,
+    ):
+        self.model = model
+        self.cfg = config or TrainingConfig()
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.device = next(model.parameters()).device
+        if self.device.type == "cuda":
+            # f32 throughout: TF32 would keep ~3 digits per conv and matmul
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.checkpoint_dir = checkpoint_dir
+        self.save_checkpoints = save_checkpoints and checkpoint_dir is not None
+        self.seed = seed
+        torch.manual_seed(seed)  # dropout's generator
+
+        steps_per_epoch = max(len(train_loader), 1)
+        self.state = TrainState.create(model, self.cfg, steps_per_epoch)
+        self.schedule = self.state.schedule
+        self.train_step = make_train_step(
+            model, grad_accum=self.cfg.grad_accum, label_smoothing=self.cfg.label_smoothing,
+            remat=self.cfg.remat)
+        self.val_type_vocab = getattr(val_loader, "type_vocab", None)
+        self.val_step = make_val_step(
+            model, num_types=len(self.val_type_vocab) if self.val_type_vocab else 0)
+        self._aug_generator = torch.Generator(device=self.device)
+
+        self.logger = MetricsLogger()
+        self.start_epoch = 0
+        self.best_val_accuracy = 0.0
+        # a trace of the first trained epoch goes to profile_dir when set;
+        # the fenced StepTimer runs only then, so the default path never
+        # waits on the card per step
+        self.profile_dir = profile_dir
+        self.step_timer = StepTimer()
+        # run provenance persisted into every checkpoint sidecar
+        self.run_meta = dict(run_meta or {})
+        from vqa_tpu_torch.utils.tb import maybe_scalar_writer
+
+        self.scalar_writer = maybe_scalar_writer(log_dir)
+
+    # ------------------------------------------------------------------
+    def augment(self, pixels_u8: torch.Tensor, epoch: int, step: int) -> torch.Tensor:
+        """Device augmentation of a uint8 batch, seeded per (epoch, step)."""
+        self._aug_generator.manual_seed(_augment_seed(self.seed, epoch, step))
+        return device_augment(pixels_u8, self._aug_generator,
+                              image_size=self.model.config.image_size)
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        loss_sum, c1, c5, n = 0.0, 0, 0, 0
+        device_metrics = []
+        profiling = bool(self.profile_dir) and epoch == self.start_epoch
+        step_no = 0
+        for batch in prefetch_to_device(self.train_loader, self.device):
+            bs = int(batch["answer"].shape[0])
+
+            def dispatch(batch=batch, step_no=step_no):
+                images = batch["image"]
+                if images.dtype == torch.uint8:  # augmentation on the device
+                    images = self.augment(images, epoch, step_no)
+                with step_annotation("train", step_no):
+                    return self.train_step(self.state, images, batch["token_ids"],
+                                           batch["attention_mask"], batch["answer"])
+
+            if profiling:
+                with self.step_timer.step(items=bs) as s:
+                    s.result = m = dispatch()
+            else:
+                m = dispatch()
+            device_metrics.append(m)
+            # bound the queue of launched steps: fetch the loss of the step
+            # `depth` back, so the host runs at most `depth` steps ahead
+            depth = 4
+            if len(device_metrics) >= depth:
+                float(device_metrics[-depth]["loss"])
+            n += bs
+            step_no += 1
+        for m in device_metrics:  # one fetch per step at the epoch's end
+            loss_sum += float(m["loss"])
+            c1 += int(m["correct1"])
+            c5 += int(m["correct5"])
+        steps = max(len(device_metrics), 1)
+        return {
+            "train_loss": loss_sum / steps,
+            "train_top1": c1 / max(n, 1),
+            "train_top5": c5 / max(n, 1),
+        }
+
+    def validate(self) -> Dict[str, float]:
+        # sums reduced on the device per batch, fetched one batch late so
+        # the next forward is launched before the fetch waits
+        loss_sum, c1, c5, n = 0.0, 0.0, 0.0, 0.0
+        use_types = bool(self.val_type_vocab)
+        t_correct = t_total = 0.0
+        pending = None
+
+        def consume(out):
+            nonlocal loss_sum, c1, c5, n, t_correct, t_total
+            loss_sum += float(out["loss_sum"])
+            c1 += float(out["correct1"])
+            c5 += float(out["correct5"])
+            n += float(out["n"])
+            if "type_correct" in out:
+                t_correct = t_correct + out["type_correct"].cpu().numpy()
+                t_total = t_total + out["type_total"].cpu().numpy()
+
+        for batch in prefetch_to_device(self.val_loader, self.device):
+            out = self.val_step(batch["image"], batch["token_ids"], batch["attention_mask"],
+                                batch["answer"], batch["valid_mask"],
+                                batch.get("type_ids") if use_types else None)
+            if pending is not None:
+                consume(pending)
+            pending = out
+        if pending is not None:
+            consume(pending)
+        n = max(n, 1)
+        metrics = {"val_loss": loss_sum / n, "val_top1": c1 / n, "val_top5": c5 / n}
+        if use_types and np.ndim(t_total):
+            metrics["val_per_type"] = {
+                qt: float(c) / float(t)
+                for qt, c, t in zip(self.val_type_vocab, t_correct, t_total)
+                if t > 0
+            }
+        return metrics
+
+    # ------------------------------------------------------------------
+    def _payload(self) -> Dict[str, Any]:
+        return {
+            "model_state_dict": self.model.state_dict(),
+            "optimizer_state_dict": self.state.optimizer.state_dict(),
+            "scheduler_step": self.state.step,
+            "step": self.state.step,
+        }
+
+    def save(self, name: str, epoch: int) -> None:
+        if not self.save_checkpoints:
+            return
+        ckpt_lib.save_checkpoint(
+            self.checkpoint_dir, name, self._payload(), self.model.config,
+            {
+                "epoch": epoch,
+                "best_val_accuracy": self.best_val_accuracy,
+                "metrics_history": self.logger.to_dict(),
+                **self.run_meta,
+            },
+        )
+
+    def resume(self, name: str = "latest") -> None:
+        """Restore weights, BN statistics, optimizer state, step, epoch and
+        history. A sidecar flagged ``model_only`` (weights without optimizer
+        state) restores the weights and BN statistics and keeps the fresh
+        optimizer."""
+        payload, _, meta = ckpt_lib.load_checkpoint(self.checkpoint_dir, name,
+                                                    map_location=self.device)
+        self.model.load_state_dict(payload["model_state_dict"], strict=True)
+        if meta.get("model_only", False):
+            print("[Trainer] model-only checkpoint: optimizer starts fresh")
+        else:
+            self.state.optimizer.load_state_dict(payload["optimizer_state_dict"])
+            self.state.step = int(payload["step"])
+        self.start_epoch = int(meta["epoch"]) + 1
+        self.best_val_accuracy = float(meta["best_val_accuracy"])
+        self.logger = MetricsLogger.from_dict(meta["metrics_history"])
+        print(f"[Trainer] Resumed from epoch {meta['epoch']}")
+
+    # ------------------------------------------------------------------
+    def train(self, patience: Optional[int] = None) -> MetricsLogger:
+        patience = patience if patience is not None else self.cfg.early_stop_patience
+        epochs_no_improve = 0
+        epoch = self.start_epoch
+        # SIGTERM takes the KeyboardInterrupt path (an `interrupted` save);
+        # only the main thread may set signal handlers
+        prev_handler = None
+        if threading.current_thread() is threading.main_thread():
+            def _on_sigterm(signum, frame):
+                raise KeyboardInterrupt("SIGTERM")
+
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        try:
+            for epoch in range(self.start_epoch, self.cfg.num_epochs):
+                t0 = time.time()
+                # (seed, epoch)-pinned shuffle: the same order whether the
+                # run got here uninterrupted or resumed
+                if hasattr(self.train_loader, "set_epoch"):
+                    self.train_loader.set_epoch(epoch)
+                trace_dir = self.profile_dir if epoch == self.start_epoch else None
+                with maybe_trace(trace_dir):
+                    train_metrics = self.train_epoch(epoch)
+                if trace_dir:
+                    print(f"[Trainer] trace → {trace_dir}; "
+                          f"step time {self.step_timer.summary()}")
+                val_metrics = self.validate()
+                lr = float(self.schedule(self.state.step))
+                metrics = {**train_metrics, **val_metrics, "lr": lr}
+                # per-type accuracy is a nested dict: history and the scalar
+                # log get namespaced scalars ("val_per_type/<type>")
+                scalars = {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+                flat = dict(scalars)
+                for k, v in metrics.items():
+                    if isinstance(v, dict):
+                        flat.update({f"{k}/{qt}": acc for qt, acc in v.items()})
+                self.logger.log(epoch, flat)
+                if self.scalar_writer is not None:
+                    self.scalar_writer.log_scalars(epoch, flat)
+                dt = time.time() - t0
+                print(f"[Trainer] epoch {epoch}: "
+                      + " ".join(f"{k}={v:.4f}" for k, v in scalars.items())
+                      + f" ({dt:.1f}s)")
+
+                improved = val_metrics["val_top1"] > self.best_val_accuracy
+                if improved:
+                    self.best_val_accuracy = val_metrics["val_top1"]
+                    epochs_no_improve = 0
+                    self.save("latest", epoch)
+                    if self.save_checkpoints:
+                        ckpt_lib.save_best_copy(self.checkpoint_dir)
+                else:
+                    epochs_no_improve += 1
+                if (epoch + 1) % self.cfg.checkpoint_every == 0 and not improved:
+                    self.save("latest", epoch)
+                if epochs_no_improve >= patience:
+                    print(f"[Trainer] early stop after {patience} stale epochs")
+                    break
+            # a completed run always leaves a resumable checkpoint
+            if self.cfg.num_epochs > self.start_epoch:
+                self.save("latest", epoch)
+        except KeyboardInterrupt:
+            print("[Trainer] interrupted — saving checkpoint")
+            self.save("interrupted", epoch)
+            raise
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+            if self.scalar_writer is not None:
+                self.scalar_writer.close()
+        return self.logger
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train the VQA model (PyTorch/CUDA port)")
+    p.add_argument("--questions", default=None)
+    p.add_argument("--annotations", default=None)
+    p.add_argument("--images-dir", default=None)
+    p.add_argument("--subset-size", type=int, default=25000)
+    p.add_argument("--embed-dim", type=int, default=256)
+    p.add_argument("--num-answers", type=int, default=1000)
+    p.add_argument("--no-spatial", action="store_true",
+                   help="ablation: disable spatial attention only")
+    p.add_argument("--no-attention", action="store_true",
+                   help="ablation: disable SE and spatial attention")
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--warmup-epochs", type=int, default=None,
+                   help="linear-warmup epochs before the cosine decay (default: "
+                        "TrainingConfig.warmup_epochs=2; 0 = cosine only)")
+    p.add_argument("--lr-schedule", choices=("step", "epoch"), default=None,
+                   help="cosine granularity: 'step' decays every optimizer step "
+                        "(default), 'epoch' once per epoch")
+    p.add_argument("--min-lr", type=float, default=None,
+                   help="cosine floor (default: TrainingConfig.min_lr=1e-6)")
+    p.add_argument("--patience", type=int, default=10)
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="threads decoding/augmenting samples per batch (0 = inline)")
+    p.add_argument("--label-smoothing", type=float, default=0.0,
+                   help="uniform label smoothing on the CE loss (0 = plain CE)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="microbatches per optimizer step, gradients averaged")
+    p.add_argument("--resume", default=None)
+    p.add_argument("--demo", action="store_true", help="random demo data")
+    p.add_argument("--synthetic", action="store_true",
+                   help="learnable colored-shapes data (data/synthetic.py)")
+    p.add_argument("--spatial", action="store_true",
+                   help="with --synthetic: mix in grid-localized questions "
+                        "(recorded in the checkpoint sidecar)")
+    p.add_argument("--tiny", action="store_true", help="tiny model + data for smoke runs")
+    p.add_argument("--no-bf16", action="store_true",
+                   help="accepted for the JAX CLI's sake: the port computes in f32")
+    p.add_argument("--no-save", action="store_true")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first trained epoch here")
+    p.add_argument("--log-dir", default=None,
+                   help="per-epoch scalars (TensorBoard events, or scalars.jsonl)")
+    p.add_argument("--device-aug", action="store_true",
+                   help="augment on the device (uint8 batches from the loader, "
+                        "crop/flip/jitter on the card)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on; the CPU only when asked (--device cpu)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    from vqa_tpu_torch.data.dataset import create_demo_loaders, create_train_val_loaders
+    from vqa_tpu_torch.utils.config import PATHS
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)  # no card and no --device cpu: raise
+
+    sched_overrides = {}
+    if args.warmup_epochs is not None:
+        sched_overrides["warmup_epochs"] = args.warmup_epochs
+    if args.min_lr is not None:
+        sched_overrides["min_lr"] = args.min_lr
+    if args.lr_schedule is not None:
+        sched_overrides["lr_schedule_granularity"] = args.lr_schedule
+    tcfg = TrainingConfig(
+        num_samples=args.subset_size,
+        batch_size=args.batch_size,
+        learning_rate=args.lr,
+        weight_decay=args.weight_decay,
+        num_epochs=args.epochs,
+        early_stop_patience=args.patience,
+        grad_accum=args.grad_accum,
+        label_smoothing=args.label_smoothing,
+        use_bf16=not args.no_bf16,
+        seed=args.seed,
+        **sched_overrides,
+    )
+    if tcfg.batch_size % tcfg.grad_accum:
+        raise SystemExit(f"--batch-size ({tcfg.batch_size}) must be divisible by "
+                         f"--grad-accum ({tcfg.grad_accum})")
+
+    if args.tiny:
+        from vqa_tpu_torch.utils.config import tiny_model_config
+
+        mcfg = tiny_model_config()
+    else:
+        mcfg = ModelConfig(embed_dim=args.embed_dim, num_answers=args.num_answers)
+
+    import dataclasses
+
+    tokenizer = answer_vocab = None
+    run_meta: Dict[str, Any] = {}
+    if args.synthetic:
+        from vqa_tpu_torch.data.synthetic import create_synthetic_loaders
+
+        syn_samples = min(tcfg.num_samples, 20000)
+        # persisted so an evaluation rebuilds the exact val split
+        run_meta["synthetic"] = {
+            "num_samples": syn_samples, "seed": tcfg.seed, "spatial": bool(args.spatial)}
+        train_loader, val_loader, tokenizer, answer_vocab = create_synthetic_loaders(
+            num_samples=syn_samples, batch_size=tcfg.batch_size,
+            eval_batch_size=tcfg.eval_batch_size, image_size=mcfg.image_size,
+            max_question_length=mcfg.max_question_length, device_augment=args.device_aug,
+            seed=tcfg.seed, num_workers=args.num_workers, spatial=args.spatial)
+        mcfg = dataclasses.replace(mcfg, vocab_size=tokenizer.vocab_size,
+                                   num_answers=answer_vocab.num_answers)
+    use_demo = args.demo and not args.synthetic
+    if not use_demo and not args.synthetic:
+        try:
+            train_loader, val_loader, tokenizer, answer_vocab = create_train_val_loaders(
+                args.questions or PATHS.questions_path,
+                args.annotations or PATHS.annotations_path,
+                args.images_dir or PATHS.images_path,
+                batch_size=tcfg.batch_size, eval_batch_size=tcfg.eval_batch_size,
+                max_samples=tcfg.num_samples, max_question_length=mcfg.max_question_length,
+                vocab_size=mcfg.vocab_size, num_answers=mcfg.num_answers,
+                image_size=mcfg.image_size, seed=tcfg.seed, device_augment=args.device_aug,
+                num_workers=args.num_workers)
+            mcfg = dataclasses.replace(mcfg, vocab_size=tokenizer.vocab_size)
+        except FileNotFoundError as e:
+            print(f"[Trainer] data not found ({e}); falling back to demo data")
+            use_demo = True
+    if use_demo:
+        train_loader, val_loader = create_demo_loaders(
+            batch_size=tcfg.batch_size, eval_batch_size=tcfg.eval_batch_size,
+            num_samples=min(tcfg.num_samples, 256), image_size=mcfg.image_size,
+            max_question_length=mcfg.max_question_length, vocab_size=mcfg.vocab_size,
+            num_answers=mcfg.num_answers, seed=tcfg.seed, num_workers=args.num_workers)
+
+    ablation = {"use_spatial_attention": False} if args.no_spatial else {}
+    model = create_vqa_model(config=mcfg, use_attention=False if args.no_attention else None,
+                             device=device, seed=tcfg.seed, **ablation)
+
+    ckpt_dir = args.checkpoint_dir or PATHS.checkpoint_dir
+    if not args.no_save:
+        if tokenizer is not None:
+            tokenizer.save(os.path.join(ckpt_dir, "tokenizer.json"))
+        if answer_vocab is not None:
+            answer_vocab.save(os.path.join(ckpt_dir, "answer_vocab.json"))
+
+    trainer = Trainer(model, train_loader, val_loader, config=tcfg, checkpoint_dir=ckpt_dir,
+                      save_checkpoints=not args.no_save, seed=tcfg.seed,
+                      profile_dir=args.profile_dir, run_meta=run_meta, log_dir=args.log_dir)
+    if args.resume:
+        trainer.resume(args.resume)
+    logger = trainer.train(patience=args.patience)
+
+    if not args.no_save:
+        hist_path = os.path.join(ckpt_dir, "training_history.json")
+        logger.save(hist_path)
+        print(f"[Trainer] history → {hist_path}")
+    return logger
+
+
+if __name__ == "__main__":
+    main()

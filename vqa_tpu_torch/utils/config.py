@@ -1,11 +1,11 @@
 """Model, inference and path configuration of the port.
 
-Copies of ``PathConfig``/``PATHS``, ``ModelConfig``, ``InferenceConfig``,
-``tiny_model_config`` and the dict round-trip of
+Copies of ``PathConfig``/``PATHS``, ``ModelConfig``, ``TrainingConfig``,
+``InferenceConfig``, ``tiny_model_config`` and the dict round-trip of
 ``vqa_tpu/utils/config.py`` (same fields, same defaults), so configs and
-checkpoint config dicts move between the two packages unchanged. The
-training, mesh and kernel-toggle configs are not ported yet: the port's
-kernels are not behind toggles.
+checkpoint config dicts move between the two packages unchanged. The mesh
+and kernel-toggle configs are not ported: multi-device waits for its
+slice, and the port's kernels are not behind toggles.
 """
 
 from __future__ import annotations
@@ -105,6 +105,45 @@ class ModelConfig:
     answer_dropout: float = 0.3
 
     dropout: float = 0.1
+
+
+@dataclass
+class TrainingConfig:
+    """Training hyperparameters (counterpart of
+    ``vqa_tpu.utils.config.TrainingConfig``, field for field).
+
+    ``use_bf16`` and ``remat`` round-trip but the port's trainer computes
+    in f32, as the JAX trainer does off the TPU, and refuses a ``remat``
+    other than ``"none"``."""
+
+    num_samples: int = 25000
+    train_split: float = 0.8
+    batch_size: int = 32
+    eval_batch_size: int = 64
+    seed: int = 42
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    min_lr: float = 1e-6
+    # linear warmup before the cosine (0 = cosine only)
+    warmup_epochs: int = 2
+    # "step": the cosine decays every optimizer step; "epoch": constant
+    # within an epoch, stepped once per epoch
+    lr_schedule_granularity: str = "step"
+
+    num_epochs: int = 30
+    label_smoothing: float = 0.0
+    # microbatches per optimizer step, gradients averaged
+    grad_accum: int = 1
+    remat: str = "none"
+    grad_clip_norm: float = 1.0
+    early_stop_patience: int = 10
+    checkpoint_every: int = 5
+    log_interval: int = 50
+
+    use_bf16: bool = True
 
 
 @dataclass
