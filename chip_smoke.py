@@ -9,7 +9,9 @@ What it does, failing (non-zero exit, no result line) on any failed check:
 1. prints the card (name and power limit from nvidia-smi) and builds the
    CUDA kernels from ``vqa_tpu_torch/csrc`` with nvcc, timing the build;
 2. builds the serving engine at full width (19,310,316 parameters, seeded
-   random weights) and, at the main path's shapes for batch bucket 32
+   random weights) in f32 (``dtype=torch.float32``: phases 2-8 and 10 (d)
+   hold it to f32 tolerances, while the engine's default on the card is
+   bf16, phase 11) and, at the main path's shapes for batch bucket 32
    (cross-attention on head-transposed views, as the model passes them),
    holds each kernel against its plain PyTorch version on the card and
    times kernel, plain version and — where one PyTorch call computes the
@@ -41,7 +43,8 @@ What it does, failing (non-zero exit, no result line) on any failed check:
 8. load: ``vqa_tpu_torch/tools/load_bench.py`` at its defaults (8 clients
    x 25 /predict) against a full-width server;
 9. supervisor: ``python -m vqa_tpu_torch.serving.supervisor`` with
-   full-width workers on the card and a recycle bound below one worker's
+   full-width workers on the card (each serving the default engine, bf16)
+   and a recycle bound below one worker's
    RSS; a client posts without pause through the first recycle, then the
    supervisor gets SIGTERM: no failed request, exit 0, no worker left;
 10. training, at full width (``ModelConfig()``, 224 px), f32, TF32 off:
@@ -57,11 +60,32 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     run in this process to count kernel launches: none in train steps
     (training mode takes the plain paths), 1, 4 and 2 per validation
     forward, ``latest`` and ``best_model`` written with sidecars; (d) the
-    engine serves that checkpoint, its probabilities within 1e-5 of the
+    f32 engine serves that checkpoint, its probabilities within 1e-5 of the
     trainer's eval forward; (e) a Trainer resumed from ``latest`` takes the
     same first step of epoch 1 as the uninterrupted one; (f) train pairs/s
     and ms per step at batch 32 and 256 (CUDA events over 12 steady steps,
-    the card's busy share from a profiler window, peak memory).
+    the card's busy share from a profiler window, peak memory);
+11. bf16 serving and evaluation, at full width: (a) the bf16 forms of the
+    stem, SE and cross-attention kernels against their bf16 plain versions
+    at the bucket-32 shapes, within one bf16 ulp per element, timed beside
+    their bf16 bounds (bytes over 3.35 TB/s or operations over 989 TFLOP/s)
+    and, for cross-attention, SDPA in bf16; (b) the default engine, bf16 on
+    the card: each request's spread over buckets 1-32 measured first (cuDNN
+    may take another algorithm per batch size), then phase 3's entry
+    points with the bf16 forms launched 1, 4 and 2 times per forward and
+    the f32 forms not at all, a request alone within twice that spread (at
+    least 1e-4) of the same request in a padded batch, attention rows
+    summing to 1 within 3 * 2^-9 (bf16 probabilities, averaged in bf16);
+    its logits through the kernels no further from its bf16 plain versions
+    than those are from the f32 engine's, and the argmax equal to f32's on
+    every row whose f32 margin exceeds twice that bf16 noise; (c) pairs/s
+    and p50/p90 at buckets 1 and 32 beside phase 5's f32, and both
+    forwards' device ms; (d) 8 HTTP clients x 4 /predict on the bf16
+    engine, every answer within the tolerance of (b); (e) ``python -m
+    vqa_tpu_torch.training.evaluate --synthetic`` on phase 10's checkpoint
+    in f32 and ``--bf16``: f32 top-1 equal to the trainer's validation,
+    each evaluation forward launching the f32 or the bf16 forms 1, 4 and 2
+    times, the artifacts written.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -75,13 +99,15 @@ H100 SXM peaks: f32 outside the tensor cores (67 TFLOP/s) for SE and
 cross-attention; for the stem's conv, 3xTF32 on the tensor cores (three
 TF32 products per f32 product at 495 TFLOP/s, so 165 TFLOP/s of f32-accurate
 work), the fastest f32-accurate route the card has and the one the stem
-kernel takes.
+kernel takes. The bf16 forms' bounds take half the bytes and the bf16
+tensor-core peak (989 TFLOP/s).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one JSON line of per-kernel
-numbers (launches counted over the serving main path of phase 3), and
-before that the ``training`` line, the ``serving`` line (load bench, HTTP
-phase, supervisor) and the ``engine`` line.
+numbers for the six forms (launches counted over the f32 engine's main
+path of phase 3 for the f32 forms, over the bf16 engine's of phase 11 (b)
+for the bf16 ones), and before that the ``bf16``, ``training``,
+``serving`` (load bench, HTTP phase, supervisor) and ``engine`` lines.
 """
 
 from __future__ import annotations
@@ -95,6 +121,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from unittest import mock
@@ -105,6 +132,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM, TF32 on the tensor cores, dense
+BF16_FLOP_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores, dense
 BUCKET = 32
 SE_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))  # (H = W, C) at 224 px
 
@@ -315,8 +343,10 @@ def image_bytes(rng, h, w, fmt="PNG") -> bytes:
     return buf.getvalue()
 
 
-def drive_main_path(engine, rng):
-    """The serving calls a user makes; returns the number of forwards."""
+def drive_main_path(engine, rng, alone_tol: float = 1e-4, map_tol: float = 1e-4):
+    """The serving calls a user makes; returns the number of forwards.
+    ``alone_tol``: a request alone against the same request in a padded
+    batch; ``map_tol``: attention map rows against a sum of 1."""
     questions = ["what color is the cat", "how many dogs are there", "is this a man",
                  "what is the woman wearing", "what is on the table"]
     n_classes = engine.model.config.num_answers
@@ -354,8 +384,8 @@ def drive_main_path(engine, rng):
     # padding to a bucket must not change a request's answer
     alone = engine.predict(images[0], qs[0], top_k=1)["confidence"]
     forwards += 1
-    require(abs(alone - float(raw[0].max())) < 1e-4,
-            f"request alone {alone} vs in a padded batch {raw[0].max()}")
+    require(abs(alone - float(raw[0].max())) < alone_tol,
+            f"request alone {alone} vs in a padded batch {raw[0].max()} (tol {alone_tol:.1e})")
 
     att = engine.attention_map(img, questions[0])
     forwards += 1
@@ -363,8 +393,8 @@ def drive_main_path(engine, rng):
     s = engine.model.config.feature_spatial_size
     require(maps.shape == (len(att["attention"]["tokens"]), s, s),
             f"attention maps {maps.shape}")
-    require(np.isfinite(maps).all() and np.allclose(maps.sum((1, 2)), 1, atol=1e-4),
-            "attention maps do not sum to 1 over the image grid")
+    require(np.isfinite(maps).all() and np.allclose(maps.sum((1, 2)), 1, atol=map_tol),
+            f"attention maps do not sum to 1 over the image grid (tol {map_tol:.1e})")
     log(f"attention_map: tokens {att['attention']['tokens']}, maps {maps.shape}")
     return forwards
 
@@ -483,11 +513,11 @@ def http_request(port, method, path, body=None, headers=None, conn=None):
             conn.close()
 
 
-def check_answer(got, want_row, what: str) -> bool:
+def check_answer(got, want_row, what: str, tol: float = 1e-4) -> bool:
     """A /predict payload against the engine's probability row for the same
-    request alone: top-5 sorted, each probability within 1e-4 of the row's,
-    and the top answer the row's (up to a tie within 2e-4). Returns
-    whether the top answers are exactly the same."""
+    request alone: top-5 sorted, each probability within ``tol`` of the
+    row's, and the top answer the row's (up to a tie within 2 tol).
+    Returns whether the top answers are exactly the same."""
     require(got.get("success") is True, f"{what}: {got.get('error')}")
     answers = got["answers"]
     probs = [a["probability"] for a in answers]
@@ -495,10 +525,10 @@ def check_answer(got, want_row, what: str) -> bool:
             f"{what}: answers {answers}")
     for a in answers:
         err = abs(a["probability"] - float(want_row[a["index"]]))
-        require(err <= 1e-4, f"{what}: answer {a['index']} off by {err:.3e} (tol 1e-4)")
-    require(abs(got["confidence"] - float(want_row.max())) <= 1e-4,
+        require(err <= tol, f"{what}: answer {a['index']} off by {err:.3e} (tol {tol:.1e})")
+    require(abs(got["confidence"] - float(want_row.max())) <= tol,
             f"{what}: confidence {got['confidence']} vs {want_row.max()}")
-    require(float(want_row[answers[0]["index"]]) >= float(want_row.max()) - 2e-4,
+    require(float(want_row[answers[0]["index"]]) >= float(want_row.max()) - 2 * tol,
             f"{what}: top answer {answers[0]['index']} is not the request's own")
     return answers[0]["index"] == int(want_row.argmax())
 
@@ -1173,7 +1203,7 @@ def engine_from_checkpoint(torch, trainer, tmp: str, rng) -> float:
     from vqa_tpu_torch.serving.engine import VQAInference
 
     engine = VQAInference(checkpoint_dir=tmp, checkpoint_name="latest",
-                          device=trainer.device).load()
+                          device=trainer.device, dtype=torch.float32).load()
     require(engine.model_loaded_from_checkpoint, "the engine did not load the checkpoint")
     size = trainer.model.config.image_size
     pixels = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
@@ -1278,13 +1308,12 @@ def train_timing(torch, cfg, device, batch: int, steps: int = 12) -> dict:
     return out
 
 
-def drive_training(torch, rng) -> dict:
+def drive_training(torch, rng, tmp: str) -> dict:
     """The training phase at full width (``ModelConfig()``, 224 px), f32,
     TF32 off: (a) one step card vs CPU, (b) overfit one batch, (c) the
-    train CLI with launch counts, (d) its checkpoint in the engine, (e)
-    resume, (f) timing at batch 32 and 256."""
-    import tempfile
-
+    train CLI with launch counts, its checkpoint written to ``tmp``, (d)
+    that checkpoint in the f32 engine, (e) resume, (f) timing at batch 32
+    and 256."""
     from vqa_tpu_torch.utils.config import ModelConfig
 
     device = torch.device("cuda", torch.cuda.current_device())
@@ -1294,15 +1323,383 @@ def drive_training(torch, rng) -> dict:
     t0 = time.perf_counter()
     out = {"card_vs_cpu": step_card_vs_cpu(torch, cfg, device)}
     out["overfit"] = overfit_one_batch(torch, cfg, device)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train.") as tmp:
-        trainer, out["cli"] = drive_train_cli(torch, tmp)
-        out["engine_prob_err"] = engine_from_checkpoint(torch, trainer, tmp, rng)
-        out["resume_loss_err"] = resume_matches(torch, trainer, tmp)
-        del trainer
+    trainer, out["cli"] = drive_train_cli(torch, tmp)
+    out["engine_prob_err"] = engine_from_checkpoint(torch, trainer, tmp, rng)
+    out["resume_loss_err"] = resume_matches(torch, trainer, tmp)
+    del trainer
     out["timing"] = {str(b): train_timing(torch, cfg, device, b) for b in TRAIN_BATCH_SIZES}
     out["seconds"] = time.perf_counter() - t0
     log(f"training phase: {out['seconds']:.1f} s")
     return out
+
+
+# ---- phase 11: bf16 serving and evaluation ---------------------------------
+
+# A bf16 attention-map row is 49 probabilities each rounded to bf16 (relative
+# error at most 2^-9, so the row sums to 1 within 2^-9), then averaged over
+# the two layers and the eight heads, each mean rounded to bf16 again.
+BF16_MAP_TOL = 3 * 2.0 ** -9
+
+
+# The bf16 stem's output is relu(conv * scale + bias), and where the affine
+# nearly cancels the conv the value is ~1e-6: there the f32 sum's own error
+# (each of the kernel and cuDNN's f32 conv within ~1e-6 of an f64
+# reference on the H100) is more than a bf16 ulp of the value. So an
+# element of the stem may also differ by the stem's f32 tolerance, 1e-5.
+STEM_BF16_ATOL = 1e-5
+
+
+def bf16_compare(torch, got, want, atol: float = 0.0) -> dict:
+    """A bf16 output against its plain version, compared as f32, in units
+    of the bf16 spacing at the larger magnitude of the two: the largest
+    error, the elements beyond one ulp (and the largest |value| and error
+    among them), and whether every element is within one ulp + ``atol``."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126))) - 7)
+    d = (g - w).abs()
+    beyond = d > ulp
+    n = int(beyond.sum())
+    return dict(ulps=float((d / ulp).max()), beyond=n,
+                beyond_max_value=float(mag[beyond].max()) if n else 0.0,
+                beyond_max_err=float(d[beyond].max()) if n else 0.0,
+                ok=bool((d <= ulp + atol).all()))
+
+
+def bound16_ms(nbytes: float, flops: float):
+    """The bound of a bf16 form: its bytes over 3.35 TB/s or its operations
+    over the bf16 tensor-core peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernels_bf16(torch, engine, rng):
+    """(a) Each bf16 form against its bf16 plain version on the card at the
+    main path's bucket-32 shapes (within one bf16 ulp per element), with
+    times and bf16 bounds per forward."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.data.preprocess import device_normalize
+    from vqa_tpu_torch.ops.se_kernel import max_active_clusters, se_plan
+
+    dev, model, bf16 = engine.device, engine.model, torch.bfloat16
+    results = {}
+
+    def check(name, got, want, atol=0.0):
+        torch.cuda.synchronize()
+        c, err = bf16_compare(torch, got, want, atol), max_err(got.float(), want.float())
+        log(f"{name}: max abs err {err:.3e}, {c['ulps']:.3f} bf16 ulp; {c['beyond']} "
+            f"elements beyond 1 ulp (largest |value| {c['beyond_max_value']:.3e}, error "
+            f"{c['beyond_max_err']:.3e}; tol 1 ulp + {atol:.0e})")
+        require(got.dtype == bf16 and c["ok"], f"{name} disagrees with its plain version")
+        return err
+
+    # ---- stem --------------------------------------------------------
+    size = model.config.image_size
+    pixels = torch.from_numpy(
+        rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)).to(dev)
+    x = device_normalize(pixels).to(bf16).contiguous()
+    w = model.image_encoder.stem[0].compute("weight")
+    cout = w.shape[0]
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(dev)
+    got = ops.fused_stem(x, w, scale, bias)
+    err = check(f"stem bf16 {tuple(x.shape)} -> {tuple(got.shape)}", got,
+                ops.plain_stem(x, w, scale, bias), STEM_BF16_ATOL)
+    ch = (size - 1) // 2 + 1
+    bnd, by = bound16_ms(2 * (x.numel() + w.numel() + got.numel()) + 8 * cout,
+                         2 * BUCKET * ch * ch * cout * 147)
+    (k_ms, k_call), (p_ms, p_call) = (
+        time_ms(torch, lambda: ops.fused_stem(x, w, scale, bias), 20),
+        time_ms(torch, lambda: ops.plain_stem(x, w, scale, bias), 20))
+    results["stem_bf16"] = dict(
+        route="cuda", source="vqa_tpu_torch/csrc/stem.cu",
+        replaces="vqa_tpu/ops/stem_kernel.py:141", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        call_ms=k_call, plain_call_ms=p_call, bound_ms=bnd, bound_by=by, library_ms=None)
+
+    # ---- SE, at the four stage shapes ---------------------------------
+    se = dict(route="cuda", source="vqa_tpu_torch/csrc/se.cu",
+              replaces="vqa_tpu/ops/se_kernel.py:50", max_abs_err=0.0, ms=0.0,
+              plain_ms=0.0, call_ms=0.0, plain_call_ms=0.0, library_ms=None)
+    se_bytes = se_flops = 0
+    for i, (hw, c) in enumerate(SE_STAGES, start=1):
+        mod = getattr(model.image_encoder, f"stage{i}").attention.se
+        w1, w2 = mod.fc1.compute("weight"), mod.fc2.compute("weight")
+        r = w1.shape[0]
+        xs = torch.relu(torch.from_numpy(
+            rng.standard_normal((BUCKET, hw, hw, c)).astype(np.float32)).to(dev)).to(bf16)
+        plan = se_plan(BUCKET, hw * hw, c, r, 2)
+        active = max_active_clusters(plan, hw * hw, c, r, 8, 2)
+        log(f"se bf16 stage{i} plan: cluster {plan.cluster}, "
+            f"{'resident' if plan.resident(hw * hw) else f'{plan.keep_rows} rows kept'}, split "
+            f"by {'rows' if plan.rows else 'channels'}, {plan.smem_bytes} bytes of shared "
+            f"memory per block, {active} clusters resident at once for {BUCKET} images")
+        se["max_abs_err"] = max(se["max_abs_err"], check(
+            f"se bf16 stage{i} {tuple(xs.shape)} r={r}", ops.fused_se(xs, w1, w2),
+            ops.plain_se(xs, w1, w2)))
+        k_ms, k_call = time_ms(torch, lambda: ops.fused_se(xs, w1, w2), 50)
+        p_ms, p_call = time_ms(torch, lambda: ops.plain_se(xs, w1, w2), 50)
+        nbytes = 2 * (2 * xs.numel() + w1.numel() + w2.numel())
+        flops = 2 * xs.numel() + 4 * BUCKET * c * r + 4 * BUCKET * c
+        log(f"se bf16 stage{i}: kernel {k_ms:.4f} ms on the device ({k_call:.4f} ms per call), "
+            f"plain {p_ms:.4f} ms, bound {bound16_ms(nbytes, flops)[0]:.4f} ms")
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("call_ms", k_call),
+                       ("plain_call_ms", p_call)):
+            se[key] += v
+        se_bytes += nbytes
+        se_flops += flops
+    se["bound_ms"], se["bound_by"] = bound16_ms(se_bytes, se_flops)
+    results["se_bf16"] = se
+
+    # ---- cross-attention, both fusion layers -------------------------
+    cfg = model.config
+    heads, dh = cfg.num_attention_heads, cfg.embed_dim // cfg.num_attention_heads
+    lq, lkv, nlayers = cfg.max_question_length, cfg.feature_spatial_size ** 2, cfg.num_cross_layers
+    q, k, v = (torch.from_numpy(rng.standard_normal((BUCKET, n, heads, dh)).astype(np.float32))
+               .to(dev).to(bf16).transpose(1, 2) for n in (lq, lkv, lkv))
+    sc = math.sqrt(dh)
+    (ctx, wts), (pctx, pw) = (ops.fused_cross_attention(q, k, v, sc),
+                              ops.plain_cross_attention(q, k, v, sc))
+    err = max(check("cross_attention bf16 context", ctx, pctx),
+              check("cross_attention bf16 weights", wts, pw))
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + ctx.numel() + wts.numel())
+    flops = 4 * BUCKET * heads * lq * lkv * dh + 5 * wts.numel()
+    bnd, by = bound16_ms(nlayers * nbytes, nlayers * flops)
+    k_ms, k_call = time_ms(torch, lambda: ops.fused_cross_attention(q, k, v, sc), 200)
+    p_ms, p_call = time_ms(torch, lambda: ops.plain_cross_attention(q, k, v, sc), 200)
+    lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 200)
+    results["cross_attention_bf16"] = dict(
+        route="cuda", source="vqa_tpu_torch/csrc/cross_attention.cu",
+        replaces="vqa_tpu/ops/cross_attention_kernel.py:73", max_abs_err=err,
+        ms=nlayers * k_ms, plain_ms=nlayers * p_ms, call_ms=nlayers * k_call,
+        plain_call_ms=nlayers * p_call, bound_ms=bnd, bound_by=by,
+        library_ms=nlayers * lib_ms)
+    for name, r in results.items():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"{name} per forward: kernel {r['ms']:.4f} ms on the device "
+            f"({r['call_ms']:.4f} ms per call), plain {r['plain_ms']:.4f} ms "
+            f"({r['plain_call_ms']:.4f} ms per call), library {lib} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return results
+
+
+def bucket_spread(engine, rng, n: int = 8) -> dict:
+    """The same request's probabilities at buckets 1, 4, 16 and 32 (the
+    request first, the rest of the batch other requests), against bucket
+    1: the most any probability moves with the batch size. In bf16 this is
+    not 0 where cuDNN takes another algorithm for another batch size."""
+    size = engine.model.config.image_size
+    pixels = rng.integers(0, 256, (n + BUCKET, size, size, 3), dtype=np.uint8)
+    qs = [HTTP_QUESTIONS[i % 5] for i in range(n + BUCKET)]
+    alone = np.stack([engine.predict_probs_from_pixels(pixels[i:i + 1], qs[i:i + 1])[0]
+                      for i in range(n)])
+    spread = {}
+    for bucket in engine.cfg.batch_buckets[1:]:
+        rows = []
+        for i in range(n):
+            others = [n + j for j in range(bucket - 1)]
+            rows.append(engine.predict_probs_from_pixels(
+                pixels[[i] + others], [qs[i]] + [qs[j] for j in others])[0])
+        spread[bucket] = float(np.abs(np.stack(rows) - alone).max())
+    log(f"{engine.dtype} engine: one request's probabilities at buckets "
+        f"{tuple(spread)} against bucket 1, max over {n} requests: "
+        + ", ".join(f"{b}: {v:.3e}" for b, v in spread.items()))
+    return spread
+
+
+def compare_whole_model_bf16(torch, engine16, engine32, rng) -> dict:
+    """(b) Whole-model bf16 logits through the kernels against the same
+    engine's bf16 plain versions on the card: no further apart than the
+    plain bf16 logits are from the f32 engine's (the kernels add no error
+    beyond bf16's own); the argmax agrees with f32 on every row whose f32
+    top-2 margin exceeds twice that bf16 noise."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.data.preprocess import device_normalize
+    from vqa_tpu_torch.ops import cross_attention_kernel, se_kernel, stem_kernel
+
+    size = engine16.model.config.image_size
+    pixels = torch.from_numpy(
+        rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)).to(engine16.device)
+    ids, mask = engine16.tokenizer.encode_batch_np(
+        [HTTP_QUESTIONS[i % 5] for i in range(BUCKET)])
+    ids = torch.from_numpy(ids).long().to(engine16.device)
+    mask = torch.from_numpy(mask).to(engine16.device)
+    with torch.inference_mode():
+        kernel16, _ = engine16.model(device_normalize(pixels), ids, mask)
+        f32, _ = engine32.model(device_normalize(pixels), ids, mask)
+        before = ops.launch_counts()
+        with mock.patch.object(stem_kernel, "fused_stem", stem_kernel.plain_stem), \
+                mock.patch.object(se_kernel, "fused_se", se_kernel.plain_se), \
+                mock.patch.object(cross_attention_kernel, "fused_cross_attention",
+                                  cross_attention_kernel.plain_cross_attention):
+            plain16, _ = engine16.model(device_normalize(pixels), ids, mask)
+        torch.cuda.synchronize()
+    require(ops.launch_counts() == before, "the plain run launched a kernel")
+    require(bool(torch.isfinite(kernel16).all()), "non-finite bf16 logits")
+    noise, err = max_err(plain16, f32), max_err(kernel16, plain16)
+    margin = f32.topk(2, dim=-1).values
+    clear = (margin[:, 0] - margin[:, 1]) > 2 * noise
+    agree = bool((kernel16.argmax(-1) == f32.argmax(-1))[clear].all())
+    log(f"whole-model bf16 logits [{BUCKET}, {kernel16.shape[1]}]: kernels vs plain "
+        f"{err:.3e}, plain bf16 vs f32 {noise:.3e} (bf16's own noise), kernels vs f32 "
+        f"{max_err(kernel16, f32):.3e}; argmax equal to f32 on {int(clear.sum())} rows "
+        f"with a margin over {2 * noise:.3e}: {agree}")
+    require(err <= noise, "the bf16 kernels add error beyond bf16's own")
+    require(agree, "bf16 argmax differs from f32 on a row with a clear margin")
+    return dict(kernels_vs_plain=err, plain_vs_f32=noise, rows_compared=int(clear.sum()))
+
+
+def drive_http_bf16(torch, engine, rng, tol: float) -> dict:
+    """(d) The HTTP server on the default (bf16) engine: 8 clients x 4
+    /predict, one decoded image each; no failed request, every answer
+    within ``tol`` of the engine's answer to the same request alone, and
+    the bf16 forms launched 1, 4 and 2 times per forward."""
+    import http.client
+
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.serving.server import VQAServer
+
+    n_clients, per_client = 8, 4
+    reqs = [(image_bytes(rng, int(h), int(w)), HTTP_QUESTIONS[i % 5])
+            for i, (h, w) in enumerate(rng.integers(64, 400, (n_clients * per_client, 2)))]
+    want = [engine.predict_batch_raw([img], [q])[0] for img, q in reqs]
+    server = VQAServer(engine=engine)  # warms every bucket, as the CLI does
+    thread = threading.Thread(target=server.serve, args=("127.0.0.1", 0), daemon=True)
+    thread.start()
+    while server._httpd is None:
+        time.sleep(0.01)
+    port = server._httpd.server_address[1]
+    ops.reset_launch_counts()
+    results = [None] * len(reqs)
+
+    def client(c):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        for k in range(c * per_client, (c + 1) * per_client):
+            img, q = reqs[k]
+            body, ctype = multipart({"question": q, "top_k": "5"}, [("image", "x.png", img)])
+            status, out = http_request(port, "POST", "/predict", body,
+                                       {"Content-Type": ctype}, conn)
+            results[k] = (status, json.loads(out))
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    require(not any(t.is_alive() for t in threads), "a bf16 /predict client hung")
+    same_top = 0
+    for k, (status, out) in enumerate(results):
+        require(status == 200, f"bf16 /predict {k}: HTTP {status}")
+        same_top += check_answer(out, want[k], f"bf16 /predict {k}", tol)
+    forwards = server.batcher.total_batches
+    launches = ops.launch_counts()
+    server.drain(timeout=30)
+    thread.join(timeout=10)
+    for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(launches[name + "_bf16"] == per_forward * forwards and launches[name] == 0,
+                f"bf16 HTTP: {name} launches {launches} in {forwards} forwards")
+    log(f"bf16 /predict: {len(reqs)} requests from {n_clients} clients in {forwards} batches, "
+        f"every answer within {tol:.3e} of the request alone, top answer identical in "
+        f"{same_top}; launches {launches}")
+    return dict(requests=len(reqs), batches=forwards, tol=tol, top_answer_identical=same_top,
+                launches=launches)
+
+
+def drive_evaluate(torch, tmp: str, val_top1: float, extra=()) -> dict:
+    """(e) ``python -m vqa_tpu_torch.training.evaluate --synthetic`` on the
+    training phase's checkpoint, in this process, in f32 and ``--bf16``:
+    f32 top-1 equal to the trainer's own validation of the same weights on
+    the same split; each evaluation forward launches the f32 forms (f32) or
+    the bf16 forms (--bf16) 1, 4 and 2 times; the artifacts written."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.training import evaluate
+
+    out = {}
+    for flags, form in (((), ""), (("--bf16",), "_bf16")):
+        out_dir = os.path.join(tmp, "eval" + form)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = evaluate.main(["--checkpoint-dir", tmp, "--synthetic", "--output-dir", out_dir,
+                             *flags, *extra])
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        forwards = -(-res["num_samples"] // 64)  # the evaluator's --batch-size
+        other = "_bf16" if not form else ""
+        for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+            require(launches[name + form] == per_forward * forwards
+                    and launches[name + other] == 0,
+                    f"evaluate{' '.join(flags)}: launches {launches} in {forwards} forwards")
+        for f in ("evaluation_results.json", "evaluation_report.txt"):
+            require(os.path.exists(os.path.join(out_dir, f)), f"evaluate: no {f}")
+        out["f32" if not form else "bf16"] = dict(
+            seconds=wall, samples=res["num_samples"], forwards=forwards,
+            top1=res["top1_accuracy"], top5=res["top5_accuracy"], loss=res["loss"],
+            launches=launches)
+        log(f"evaluate --synthetic {' '.join(flags)}: {res['num_samples']} samples in "
+            f"{forwards} forwards, {wall:.1f} s, top-1 {res['top1_accuracy']:.4f}, top-5 "
+            f"{res['top5_accuracy']:.4f}, loss {res['loss']:.6f}; launches {launches}")
+    require(out["f32"]["top1"] == val_top1,
+            f"evaluator top-1 {out['f32']['top1']} vs the trainer's validation {val_top1}")
+    return out
+
+
+def drive_bf16(torch, engine32, tput32, tmp: str, val_top1: float, rng, seed: int,
+               with_profile: bool = False) -> tuple:
+    """Phase 11, bf16 serving and evaluation at full width: (a) the bf16
+    forms against their plain versions, (b) the default engine (bf16 on the
+    card) through the main path's entry points with launch counts, and its
+    logits against its plain versions and f32, (c) pairs/s and latency,
+    (d) HTTP, (e) the evaluator CLI. Returns (bf16 kernel results, summary)."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    t0 = time.perf_counter()
+    engine = VQAInference(model_config=ModelConfig(), device="cuda", seed=seed).load()
+    require(engine.dtype == torch.bfloat16 and engine.model.dtype == torch.bfloat16,
+            f"the default engine on the card computes in {engine.dtype}")
+    with torch.no_grad():
+        kernels = check_kernels_bf16(torch, engine, rng)
+    engine.warmup()
+    spread = bucket_spread(engine, rng)
+    # the tolerance of every bf16 answer against the same request alone:
+    # twice the largest spread measured over buckets 1-32, and no less than
+    # the f32 engine's 1e-4
+    tol = max(1e-4, 2 * max(spread.values()))
+    ops.reset_launch_counts()
+    forwards = drive_main_path(engine, rng, alone_tol=tol, map_tol=BF16_MAP_TOL)
+    launches = ops.launch_counts()
+    log(f"bf16 main path: {forwards} forwards, kernel launches {launches}")
+    for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(launches[name + "_bf16"] == per_forward * forwards and launches[name] == 0,
+                f"bf16 main path: {name} launches {launches} in {forwards} forwards")
+        kernels[name + "_bf16"]["launches"] = launches[name + "_bf16"]
+    out = dict(bucket_spread=spread, answer_tol=tol,
+               whole_model=compare_whole_model_bf16(torch, engine, engine32, rng))
+    tput = throughput(engine, rng)
+    for b in (1, BUCKET):
+        log(f"bucket {b}: bf16 {tput[b]['pairs_per_s']:.1f} pairs/s (p50 "
+            f"{tput[b]['p50_ms']:.3f} ms), f32 {tput32[b]['pairs_per_s']:.1f} pairs/s (p50 "
+            f"{tput32[b]['p50_ms']:.3f} ms) in this call")
+    out["throughput"] = tput
+    if with_profile:
+        profile(torch, engine, rng)
+    pixels = rng.integers(0, 256, (BUCKET, 224, 224, 3), dtype=np.uint8)
+    qs = ["what color is the cat"] * BUCKET
+    out["forward_device_ms"] = {
+        name: time_ms(torch, lambda e=e: e.dispatch_probs_from_pixels(pixels, qs), 12)[0]
+        for name, e in (("bf16", engine), ("f32", engine32))}
+    log(f"forward at bucket {BUCKET} on the device: bf16 "
+        f"{out['forward_device_ms']['bf16']:.3f} ms, f32 {out['forward_device_ms']['f32']:.3f} ms")
+    out["http"] = drive_http_bf16(torch, engine, rng, tol)
+    del engine
+    out["evaluate"] = drive_evaluate(torch, tmp, val_top1)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"bf16 phase: {out['seconds']:.1f} s")
+    return kernels, out
 
 
 def main(argv=None) -> int:
@@ -1337,13 +1734,17 @@ def main(argv=None) -> int:
     log(f"kernel build: {build_s:.1f} s ({_build.library_path()})")
     cfg = ModelConfig()
     log(f"dynamic shared memory per block: stem "
-        f"{_build.load_library().vqa_stem_smem_bytes()} bytes, cross-attention "
+        f"{_build.load_library().vqa_stem_smem_bytes()} bytes (bf16 form "
+        f"{_build.load_library().vqa_stem_bf16_smem_bytes()}), cross-attention "
         f"{smem_bytes(cfg.max_question_length, cfg.feature_spatial_size ** 2, cfg.embed_dim // cfg.num_attention_heads)}"
         f" bytes at the main path's shapes")
 
     rng = np.random.default_rng(args.seed)
-    # loading the engine on the card also turns TF32 off (f32 throughout)
-    engine = VQAInference(model_config=cfg, device="cuda", seed=args.seed).load()
+    # phases 2-8 hold the engine to f32 tolerances, so they build it in f32
+    # (the default on the card is bf16, phase 11); loading it on the card
+    # also turns TF32 off
+    engine = VQAInference(model_config=cfg, device="cuda", seed=args.seed,
+                          dtype=torch.float32).load()
     n_params = count_parameters(engine.model)["total"]
     log(f"engine: full width, {n_params:,} parameters")
     require(n_params == 19_310_316, f"parameter count {n_params}")
@@ -1375,7 +1776,11 @@ def main(argv=None) -> int:
         f"{load['throughput_rps']:.1f} requests/s, {load['server_metrics']['batches']} batches")
     supervisor = drive_supervisor(rng)
     log(f"serving phases: {time.perf_counter() - t0:.1f} s")
-    training = drive_training(torch, rng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train.") as tmp:
+        training = drive_training(torch, rng, tmp)
+        kernels16, bf16 = drive_bf16(torch, engine, tput, tmp, training["cli"]["val_top1"],
+                                     rng, args.seed, args.profile)
+    kernels.update(kernels16)
 
     log(json.dumps({"engine": {
         "params": n_params, "build_s": build_s,
@@ -1386,6 +1791,7 @@ def main(argv=None) -> int:
         "p90_ms_bucket32": tput[BUCKET]["p90_ms"]}}))
     log(json.dumps({"serving": {**load, "http": http, "supervisor": supervisor}}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"bf16": bf16}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: ({"name": name, **r}[k]) for k in keys}

@@ -9,7 +9,9 @@ suite's conftest, which imports JAX:
 Shapes cover the full-width path and the odd geometries the kernels
 accept (tiny widths, odd image sizes, C/r = 1). Tolerances are those of
 the Pallas kernels' tests: stem 1e-5, SE 1e-3, cross-attention 1e-5 on
-the context and 1e-6 on the weights.
+the context and 1e-6 on the weights. The bf16 forms are held to their
+bf16 plain versions within one bf16 ulp per element (both compute in f32
+and round once), at the same shapes.
 """
 
 import math
@@ -187,7 +189,7 @@ def test_tiny_model_kernels_match_plain_and_cpu(cuda):
     counts = ops.launch_counts()
     got = forward_logits(model, *(a.to(cuda) for a in args))
     assert {k: ops.launch_counts()[k] - counts[k] for k in counts} == {
-        "stem": 1, "se": 4, "cross_attention": 2}
+        **dict.fromkeys(ops.KERNELS, 0), "stem": 1, "se": 4, "cross_attention": 2}
     with mock.patch.object(stem_kernel, "fused_stem", stem_kernel.plain_stem), \
             mock.patch.object(se_kernel, "fused_se", se_kernel.plain_se), \
             mock.patch.object(cross_attention_kernel, "fused_cross_attention",
@@ -212,7 +214,8 @@ def test_micro_batcher_on_the_card_answers_each_request_as_alone(cuda):
     from vqa_tpu_torch.serving.engine import VQAInference
     from vqa_tpu_torch.utils.config import tiny_model_config
 
-    engine = VQAInference(model_config=tiny_model_config(), device=cuda, seed=3).load()
+    engine = VQAInference(model_config=tiny_model_config(), device=cuda, seed=3,
+                          dtype=torch.float32).load()
     rng = np.random.default_rng(11)
     requests = []
     for i in range(32):
@@ -239,8 +242,8 @@ def test_micro_batcher_on_the_card_answers_each_request_as_alone(cuda):
     assert not any(t.is_alive() for t in threads)
     forwards = batcher.total_batches
     assert forwards < len(requests)
-    assert ops.launch_counts() == {"stem": forwards, "se": 4 * forwards,
-                                   "cross_attention": 2 * forwards}
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem": forwards,
+                                   "se": 4 * forwards, "cross_attention": 2 * forwards}
     for got, exp in zip(results, want):
         assert abs(got["confidence"] - exp["confidence"]) <= 1e-4
         for a in got["answers"]:
@@ -270,7 +273,7 @@ def test_narrow_stem_runs_unfused_and_matches_cpu(cuda):
     counts = ops.launch_counts()
     got = forward_logits(model, *(a.to(cuda) for a in args))
     assert {k: ops.launch_counts()[k] - counts[k] for k in counts} == {
-        "stem": 0, "se": 4, "cross_attention": 2}
+        **dict.fromkeys(ops.KERNELS, 0), "se": 4, "cross_attention": 2}
     torch.testing.assert_close(got.cpu(), forward_logits(cpu_model, *args),
                                atol=1e-3, rtol=0)
 
@@ -305,7 +308,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         native = chip_smoke.one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
     card = chip_smoke.one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"stem": 0, "se": 0, "cross_attention": 0}
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
     out = chip_smoke.compare_train_steps(torch, cpu[0], cpu[1:], native, lr=1e-4)
     assert not out["failures"], out["failures"]
     out = chip_smoke.compare_train_steps(torch, cpu[0], cpu[1:], card, lr=1e-4)
@@ -352,9 +355,162 @@ def test_validation_forward_launches_the_kernels_and_train_steps_none(cuda):
     for _ in range(2):
         step(state, images, ids, mask, labels)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"stem": 0, "se": 0, "cross_attention": 0}
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
     valid = torch.ones(4, dtype=torch.int32, device=cuda)
     out = make_val_step(model)(images, ids, mask, labels, valid)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"stem": 1, "se": 4, "cross_attention": 2}
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem": 1, "se": 4,
+                                   "cross_attention": 2}
     assert float(out["n"]) == 4.0 and np.isfinite(float(out["loss_sum"]))
+
+
+# ---- the bf16 forms ----------------------------------------------------------
+
+
+def _ulps(got, want) -> float:
+    """Largest |got - want| in bf16 spacings at the larger magnitude."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _stem_ok(got, want) -> bool:
+    """Within one bf16 ulp, or the stem's f32 tolerance where the affine
+    nearly cancels the conv (chip_smoke.STEM_BF16_ATOL)."""
+    import chip_smoke
+
+    return chip_smoke.bf16_compare(torch, got, want, chip_smoke.STEM_BF16_ATOL)["ok"]
+
+
+@pytest.mark.parametrize("b,h,w,cout", [(2, 224, 224, 64), (3, 64, 64, 8),
+                                        (1, 37, 50, 16), (2, 17, 9, 24), (1, 1, 1, 8),
+                                        (33, 224, 224, 64), (32, 224, 224, 64)])
+def test_bf16_stem_kernel_matches_plain(cuda, b, h, w, cout):
+    rng = np.random.default_rng(0)
+    x = _randn(rng, (b, h, w, 3), cuda).bfloat16()
+    wt = _randn(rng, (cout, 3, 7, 7), cuda, 0.05).bfloat16()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(cuda)
+    bias = _randn(rng, (cout,), cuda, 0.1)
+    before = ops.fused_stem_bf16.launches, ops.fused_stem.launches
+    got = ops.fused_stem(x, wt, scale, bias)
+    torch.cuda.synchronize()
+    assert (ops.fused_stem_bf16.launches, ops.fused_stem.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16
+    assert _stem_ok(got, ops.plain_stem(x, wt, scale, bias))
+
+
+@pytest.mark.parametrize("b,h,w,c,r", [
+    (32, 56, 56, 64, 4), (32, 28, 28, 128, 8), (32, 14, 14, 256, 16), (32, 7, 7, 512, 32),
+    (1, 56, 56, 64, 4), (1, 7, 7, 512, 32), (3, 8, 8, 8, 1), (2, 5, 3, 12, 3),
+    (3, 9, 7, 6, 1), (4, 6, 6, 1, 1), (32, 112, 112, 64, 4), (1, 7, 7, 2048, 128)])
+def test_bf16_se_kernel_matches_plain(cuda, b, h, w, c, r):
+    rng = np.random.default_rng(1)
+    x = torch.relu(_randn(rng, (b, h, w, c), cuda)).bfloat16()
+    w1, w2 = _randn(rng, (r, c), cuda, 0.2).bfloat16(), _randn(rng, (c, r), cuda, 0.2).bfloat16()
+    before = ops.fused_se_bf16.launches
+    got = ops.fused_se(x, w1, w2)
+    again = ops.fused_se(x, w1, w2)
+    torch.cuda.synchronize()
+    assert ops.fused_se_bf16.launches == before + 2 and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)  # a fixed order of sums, no atomics
+    assert _ulps(got, ops.plain_se(x, w1, w2)) <= 1
+
+
+def test_bf16_se_kernel_takes_misaligned_input_and_refuses_the_f32_plan(cuda):
+    from vqa_tpu_torch.ops._build import load_library
+    from vqa_tpu_torch.ops.se_kernel import se_plan
+
+    rng = np.random.default_rng(8)
+    x = _randn(rng, (2 * 4 * 4 * 16 + 1,), cuda).bfloat16()[1:].view(2, 4, 4, 16)
+    w1, w2 = _randn(rng, (2, 16), cuda, 0.2).bfloat16(), _randn(rng, (16, 2), cuda, 0.2).bfloat16()
+    assert _ulps(ops.fused_se(x, w1, w2), ops.plain_se(x, w1, w2)) <= 1
+    x = torch.zeros(2, 56, 56, 64, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    w1 = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    w2 = torch.zeros(64, 4, device=cuda, dtype=torch.bfloat16)
+    args = (x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), 2, 56 * 56, 64, 4)
+    stream = torch.cuda.current_stream().cuda_stream
+    for esize, ok in ((2, True), (4, False)):
+        p = se_plan(2, 56 * 56, 64, 4, esize)
+        rc = load_library().vqa_se_bf16(*args, p.cluster, p.keep_rows, int(p.rows),
+                                        p.smem_bytes, stream)
+        assert (rc == 0) is ok
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,h,lq,lkv,d", [(32, 8, 20, 49, 32), (1, 8, 20, 49, 32),
+                                          (1, 2, 5, 7, 8), (3, 1, 1, 1, 4), (1, 2, 6, 70, 16),
+                                          (2, 4, 20, 49, 64), (1, 8, 20, 196, 32),
+                                          (2, 3, 7, 33, 6)])
+def test_bf16_cross_attention_kernel_matches_plain(cuda, b, h, lq, lkv, d):
+    rng = np.random.default_rng(2)
+    q, k, v = (_randn(rng, (b, h, n, d), cuda).bfloat16() for n in (lq, lkv, lkv))
+    before = ops.fused_cross_attention_bf16.launches
+    ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(d))
+    torch.cuda.synchronize()
+    assert ops.fused_cross_attention_bf16.launches == before + 1
+    assert ctx.dtype == w.dtype == torch.bfloat16
+    pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(d))
+    assert _ulps(ctx, pctx) <= 1 and _ulps(w, pw) <= 1
+
+
+@pytest.mark.parametrize("lkv,d,offset", [(49, 32, 0), (49, 32, 1), (49, 32, 4), (70, 8, 2)])
+def test_bf16_cross_attention_kernel_takes_head_views(cuda, lkv, d, offset):
+    """Head views of [B,L,H,d] bf16 projections; offsets of 1 and 2
+    elements leave row starts off 8 bytes (single-element staging), 4 on."""
+    rng = np.random.default_rng(4)
+    b, h, lq = 3, 4, 20
+
+    def view(n):
+        buf = _randn(rng, (b * n * h * d + offset,), cuda).bfloat16()
+        return buf[offset:].view(b, n, h, d).transpose(1, 2)
+
+    q, k, v = view(lq), view(lkv), view(lkv)
+    ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(d))
+    torch.cuda.synchronize()
+    assert ctx.shape == (b, h, lq, d) and ctx.transpose(1, 2).is_contiguous()
+    pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(d))
+    assert _ulps(ctx, pctx) <= 1 and _ulps(w, pw) <= 1
+
+
+def test_tiny_model_bf16_kernels_match_plain_and_f32(cuda):
+    """The bf16 model launches the bf16 forms 1, 4 and 2 times; its logits
+    through the kernels are no further from its bf16 plain versions than
+    those are from the f32 model's."""
+    from vqa_tpu_torch.models import create_vqa_model, forward_logits
+    from vqa_tpu_torch.ops import cross_attention_kernel, se_kernel, stem_kernel
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    cfg = tiny_model_config()
+    m32 = create_vqa_model(config=cfg, device=cuda, seed=5)
+    m16 = create_vqa_model(config=cfg, device=cuda, seed=5, dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    images = rng.standard_normal((8, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    ids = rng.integers(1, cfg.vocab_size, (8, cfg.max_question_length))
+    mask = np.ones_like(ids, dtype=np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (images, ids, mask)]
+    counts = ops.launch_counts()
+    got = forward_logits(m16, *args)
+    assert {k: ops.launch_counts()[k] - counts[k] for k in counts} == {
+        **dict.fromkeys(ops.KERNELS, 0), "stem_bf16": 1, "se_bf16": 4,
+        "cross_attention_bf16": 2}
+    with mock.patch.object(stem_kernel, "fused_stem", stem_kernel.plain_stem), \
+            mock.patch.object(se_kernel, "fused_se", se_kernel.plain_se), \
+            mock.patch.object(cross_attention_kernel, "fused_cross_attention",
+                              cross_attention_kernel.plain_cross_attention):
+        plain = forward_logits(m16, *args)
+    f32 = forward_logits(m32, *args)
+    assert got.dtype == torch.float32
+    assert float((got - plain).abs().max()) <= float((plain - f32).abs().max())
+
+
+def test_default_engine_on_the_card_is_bf16(cuda):
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    engine = VQAInference(model_config=tiny_model_config(), device=cuda).load()
+    assert engine.dtype == engine.model.dtype == torch.bfloat16
+    counts = ops.launch_counts()
+    probs = engine.predict_batch_raw([np.zeros((40, 50, 3), np.uint8)], ["what is this"])
+    assert probs.dtype == np.float32 and abs(float(probs.sum()) - 1) < 1e-5
+    assert ops.launch_counts()["stem_bf16"] == counts["stem_bf16"] + 1

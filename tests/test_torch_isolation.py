@@ -66,3 +66,21 @@ def test_no_forbidden_import_or_library_kernel_in_the_source():
                     and isinstance(node.value, ast.Name) and node.value.id == "torch"):
                 found.append((path, "torch.compile"))
     assert not found, found
+
+
+def test_the_evaluator_and_the_dtype_layers_import_no_jax():
+    """The modules of the bf16 policy and the evaluator, each alone in a
+    fresh interpreter."""
+    code = (
+        "import sys\n"
+        "import vqa_tpu_torch.models.layers, vqa_tpu_torch.training.evaluate as ev\n"
+        "ev.parse_args(['--checkpoint-dir', 'x', '--bf16'])\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

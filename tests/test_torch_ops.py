@@ -103,7 +103,7 @@ def test_wrapper_on_cpu_is_plain_and_not_counted(name):
         got, want = (got,), (want,)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert tops.launch_counts() == {"stem": 0, "se": 0, "cross_attention": 0}
+    assert tops.launch_counts() == dict.fromkeys(tops.KERNELS, 0)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

@@ -4,7 +4,9 @@ The fake-worker cases of ``tests/test_supervisor.py`` run against the
 port's copy: RSS sampling, port picking, the stdout readiness handshake,
 retry of a wedged warmup, stop mid-recycle, the recycle-period warning,
 the restart budget (failed replacement warmups spend it, as in the JAX
-package), crash-loop give-up, and SIGTERM escalation. Then one real
+package), crash-loop give-up, and SIGTERM escalation; the order of the
+echo (a worker's ready line is echoed before it counts as ready, and its
+last line before ``Worker.stop`` returns). Then one real
 worker (``--tiny --device cpu``) serves a request and drains on SIGTERM,
 and the supervisor module is shown to import no torch.
 """
@@ -218,6 +220,78 @@ def test_worker_stop_escalates_to_kill():
         w.stop(drain_grace=2.0)
     finally:
         assert not w.alive()
+
+
+def test_worker_is_ready_only_after_its_ready_line_is_echoed(monkeypatch):
+    """The supervisor prints its "ready" event once ``Worker.ready`` is set;
+    the worker's own ready line must already be in the output by then. The
+    echo is slowed to 0.3 s a line, so a pump that marked readiness before
+    echoing would be caught between the two."""
+    seen_at_ready = []
+
+    class SlowOut:
+        def __init__(self):
+            self.lines = []
+
+        def write(self, s):
+            time.sleep(0.3)
+            self.lines.append(s)
+
+        def flush(self):
+            pass
+
+    out = SlowOut()
+    monkeypatch.setattr(sys, "stdout", out)
+    w = Worker([sys.executable, "-u", "-c",
+                f"import time; print('warming'); print({READY_MARKER + 'x'!r}); "
+                "time.sleep(60)"])
+    try:
+        assert w.ready.wait(30)
+        seen_at_ready.extend(out.lines)
+    finally:
+        w.stop(drain_grace=5.0)
+    assert any(READY_MARKER in ln for ln in seen_at_ready), seen_at_ready
+
+
+def test_worker_stop_echoes_the_childs_last_line(monkeypatch):
+    """``Worker.stop`` returns only once the pump has echoed what the child
+    wrote before it exited: the supervisor exits right after stopping its
+    workers, and a daemon pump still echoing would lose the worker's last
+    line (the server's "drained; exiting"). The echo is slowed to 2 ms a
+    line, so 300 lines written at SIGTERM take ~0.6 s to echo after the
+    child has exited."""
+
+    class SlowOut:
+        def __init__(self):
+            self.lines = []
+
+        def write(self, s):
+            time.sleep(0.002)
+            self.lines.append(s)
+
+        def flush(self):
+            pass
+
+    out = SlowOut()
+    monkeypatch.setattr(sys, "stdout", out)
+    w = Worker([sys.executable, "-c",
+                "import os, signal, sys, time\n"
+                "def bye(*_):\n"
+                "    for i in range(300):\n"
+                "        print(f'draining {i}')\n"
+                "    print('[API] drained; exiting')\n"
+                "    sys.stdout.flush()\n"
+                "    os._exit(0)\n"
+                "signal.signal(signal.SIGTERM, bye)\n"
+                "print('up', flush=True)\n"
+                "time.sleep(60)\n"])
+    deadline = time.monotonic() + 30
+    while not out.lines and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert out.lines, "the fake worker never started"
+    assert w.stop(drain_grace=10.0) == 0
+    assert out.lines[-1].endswith("[API] drained; exiting\n"), out.lines[-3:]
+    assert len(out.lines) == 302
 
 
 def test_real_worker_serves_and_drains_on_sigterm():

@@ -8,6 +8,7 @@
 // nvcc for sm_90a into one shared library loaded with ctypes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define VQA_EXPORT extern "C" __attribute__((visibility("default")))
@@ -24,6 +25,23 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// Element conversions of the kernels' two storage types: f32, and bf16
+// (computed in f32, rounded once to nearest even on the way out, as
+// torch's and XLA's casts round).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename E>
+__device__ __forceinline__ E from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // Opts a kernel into more than 48 KB of dynamic shared memory; a no-op

@@ -37,6 +37,15 @@
 // parameters so the loops unroll: D in {16, 32, 64} with KPL in {1, 2}. One
 // general instantiation (runtime D <= 128, Lkv <= 256) runs every other
 // shape; the launcher refuses anything beyond it.
+//
+// bf16 form (vqa_cross_attention_bf16): q, k and v in bf16, the context and
+// the probabilities written in bf16, everything between in f32, as the TPU
+// kernel upcasts its blocks (cross_attention_kernel.py:41-43) and casts its
+// outputs once (:56-57). Staging converts to f32 on the way into shared
+// memory (8-byte loads of 4 bf16 where aligned: a 32-wide head row is 64
+// bytes), so the rest of the kernel is the f32 one; each output element is
+// rounded once to nearest even. A weights row of 49 keys is 98 bytes, so its
+// stores are single 2-byte stores, coalesced across the lanes.
 
 #include "common.cuh"
 
@@ -48,16 +57,17 @@ constexpr int GENERAL_KPL = 8;  // keys per lane of the general kernel: Lkv <= 2
 constexpr int MAX_D = 128;
 constexpr unsigned FULL = 0xffffffffu;
 
+template <typename E>  // element type in device memory: float or __nv_bfloat16
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* ctx;
-  float* w;
+  const E* q;
+  const E* k;
+  const E* v;
+  E* ctx;
+  E* w;
   long long qs[3], ks[3], vs[3], cs[3];  // strides (batch, head, row) in floats
   int H, Lq, Lkv, D;
   float inv_scale;
-  int vec;  // every row start 16-byte aligned and D % 4 == 0: float4 loads
+  int vec;  // D % 4 == 0 and every row start aligned to 4 elements: vector loads
 };
 
 __host__ __device__ inline int d4_of(int D) { return (D + 3) / 4; }
@@ -75,35 +85,47 @@ __device__ __forceinline__ void cp_async16(float4* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src) : "memory");
 }
 
-// rows [0, rows) of a [rows][D] strided source into shared memory as float4
-// rows of dst_stride4; rows >= valid and columns >= D are zero. Aligned
-// sources go by cp.async, so a thread issues all its copies without waiting
-// on any; the caller waits (cp.async.wait_all) before its __syncthreads.
-__device__ __forceinline__ void stage_rows(float4* dst, int dst_stride4, const float* src,
+// 4 aligned elements into one float4 of shared memory: f32 by cp.async,
+// bf16 by an 8-byte load converted to f32
+__device__ __forceinline__ void copy4(float4* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void copy4(float4* dst, const __nv_bfloat16* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  *dst = make_float4(a.x, a.y, b.x, b.y);
+}
+
+// rows [0, rows) of a [rows][D] strided source into shared memory as f32
+// float4 rows of dst_stride4; rows >= valid and columns >= D are zero.
+// Aligned f32 sources go by cp.async, so a thread issues all its copies
+// without waiting on any; the caller waits (cp.async.wait_all) before its
+// __syncthreads.
+template <typename E>
+__device__ __forceinline__ void stage_rows(float4* dst, int dst_stride4, const E* src,
                                            long long row_stride, int rows, int valid,
                                            int D, int D4, bool vec) {
   for (int i = threadIdx.x; i < rows * D4; i += blockDim.x) {
     const int r = i / D4, c = i - r * D4;
     float4* d = dst + r * dst_stride4 + c;
-    const float* p = src + r * row_stride + 4 * c;
+    const E* p = src + r * row_stride + 4 * c;
     if (r >= valid) {
       *d = make_float4(0.f, 0.f, 0.f, 0.f);
     } else if (vec) {
-      cp_async16(d, p);
+      copy4(d, p);
     } else {
       const int n = min(4, D - 4 * c);
-      float4 val = make_float4(p[0], 0.f, 0.f, 0.f);
-      if (n > 1) val.y = p[1];
-      if (n > 2) val.z = p[2];
-      if (n > 3) val.w = p[3];
+      float4 val = make_float4(vqa::to_f32(p[0]), 0.f, 0.f, 0.f);
+      if (n > 1) val.y = vqa::to_f32(p[1]);
+      if (n > 2) val.z = vqa::to_f32(p[2]);
+      if (n > 3) val.w = vqa::to_f32(p[3]);
       *d = val;
     }
   }
 }
 
-template <int DT, int KPL>  // DT = 0: the general kernel, runtime D
+template <typename E, int DT, int KPL>  // DT = 0: the general kernel, runtime D
 __global__ void __launch_bounds__(32 * MAX_WARPS)
-cross_attention_kernel(const Args a) {
+cross_attention_kernel(const Args<E> a) {
   constexpr int DPL = DT ? (DT + 31) / 32 : MAX_D / 32;  // context dims per lane
   const int D = DT ? DT : a.D;
   const int D4 = d4_of(D), KS4 = kstride4(D), VS = 4 * D4;
@@ -126,8 +148,8 @@ cross_attention_kernel(const Args a) {
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  float* wb = a.w + size_t(bh) * Lq * Lkv;
-  float* cb = a.ctx + b * a.cs[0] + h * a.cs[1];
+  E* wb = a.w + size_t(bh) * Lq * Lkv;
+  E* cb = a.ctx + b * a.cs[0] + h * a.cs[1];
   const float* vsf = reinterpret_cast<const float*>(v_s);
   const float neg_inf = -__int_as_float(0x7f800000);
 
@@ -187,7 +209,7 @@ cross_attention_kernel(const Args a) {
 #pragma unroll
         for (int kk = 0; kk < KPL; ++kk) {
           const int j = kk * 32 + lane;
-          if (kk < kpl && j < Lkv) wb[(r0 + r) * Lkv + j] = s[r][kk];
+          if (kk < kpl && j < Lkv) wb[(r0 + r) * Lkv + j] = vqa::from_f32<E>(s[r][kk]);
         }
       }
     }
@@ -222,25 +244,59 @@ cross_attention_kernel(const Args a) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       if (r0 + r >= Lq) continue;
-      float* crow = cb + (r0 + r) * a.cs[2];
+      E* crow = cb + (r0 + r) * a.cs[2];
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
         const int d = lane + 32 * i;
-        if (d < D) crow[d] = acc[r][i];
+        if (d < D) crow[d] = vqa::from_f32<E>(acc[r][i]);
       }
     }
   }
 }
 
-template <int DT, int KPL>
-cudaError_t launch(const Args& a, int BH, int threads, size_t smem, cudaStream_t stream) {
-  cudaError_t err = vqa::allow_smem(cross_attention_kernel<DT, KPL>, smem);
+template <typename E, int DT, int KPL>
+cudaError_t launch(const Args<E>& a, int BH, int threads, size_t smem, cudaStream_t stream) {
+  cudaError_t err = vqa::allow_smem(cross_attention_kernel<E, DT, KPL>, smem);
   if (err != cudaSuccess) return err;
-  cross_attention_kernel<DT, KPL><<<BH, threads, smem, stream>>>(a);
+  cross_attention_kernel<E, DT, KPL><<<BH, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+// 4 elements at a time need every row start aligned to 4 elements: 16
+// bytes in f32, 8 in bf16
+bool aligned4(const void* p, size_t esize) {
+  return (reinterpret_cast<size_t>(p) & (4 * esize - 1)) == 0;
+}
+
+template <typename E>
+int run(const E* q, const E* k, const E* v, E* ctx, E* w, int B, int H, int Lq, int Lkv, int D,
+        const long long (&st)[12], float inv_scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lkv <= 0 || D <= 0 || D > MAX_D ||
+      Lkv > 32 * GENERAL_KPL || (long long)B * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Lq, Lkv, D);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  Args<E> a{q, k, v, ctx, w, {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
+            {st[9], st[10], st[11]}, H, Lq, Lkv, D, inv_scale, 0};
+  bool vec = D % 4 == 0 && aligned4(q, sizeof(E)) && aligned4(k, sizeof(E)) &&
+             aligned4(v, sizeof(E));
+  for (int i = 0; i < 9; ++i) vec = vec && st[i] % 4 == 0;  // the inputs' strides
+  a.vec = vec;
+  const int warps = min(MAX_WARPS, (Lq + ROWS - 1) / ROWS);
+  const int threads = 32 * warps, BH = B * H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kpl = (Lkv + 31) / 32;
+  if (kpl == 1) {
+    if (D == 16) return launch<E, 16, 1>(a, BH, threads, smem, s);
+    if (D == 32) return launch<E, 32, 1>(a, BH, threads, smem, s);
+    if (D == 64) return launch<E, 64, 1>(a, BH, threads, smem, s);
+  } else if (kpl == 2) {
+    if (D == 16) return launch<E, 16, 2>(a, BH, threads, smem, s);
+    if (D == 32) return launch<E, 32, 2>(a, BH, threads, smem, s);
+    if (D == 64) return launch<E, 64, 2>(a, BH, threads, smem, s);
+  }
+  return launch<E, 0, GENERAL_KPL>(a, BH, threads, smem, s);
+}
 
 }  // namespace
 
@@ -252,29 +308,19 @@ VQA_EXPORT int vqa_cross_attention_f32(
     int Lq, int Lkv, int D, long long qsb, long long qsh, long long qsl, long long ksb,
     long long ksh, long long ksl, long long vsb, long long vsh, long long vsl,
     long long csb, long long csh, long long csl, float inv_scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lkv <= 0 || D <= 0 || D > MAX_D ||
-      Lkv > 32 * GENERAL_KPL || (long long)B * H > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(Lq, Lkv, D);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  Args a{q, k, v, ctx, w, {qsb, qsh, qsl}, {ksb, ksh, ksl}, {vsb, vsh, vsl},
-         {csb, csh, csl}, H, Lq, Lkv, D, inv_scale, 0};
-  bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  const long long in_strides[] = {qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl};
-  for (long long s : in_strides) vec = vec && s % 4 == 0;
-  a.vec = vec;
-  const int warps = min(MAX_WARPS, (Lq + ROWS - 1) / ROWS);
-  const int threads = 32 * warps, BH = B * H;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kpl = (Lkv + 31) / 32;
-  if (kpl == 1) {
-    if (D == 16) return launch<16, 1>(a, BH, threads, smem, st);
-    if (D == 32) return launch<32, 1>(a, BH, threads, smem, st);
-    if (D == 64) return launch<64, 1>(a, BH, threads, smem, st);
-  } else if (kpl == 2) {
-    if (D == 16) return launch<16, 2>(a, BH, threads, smem, st);
-    if (D == 32) return launch<32, 2>(a, BH, threads, smem, st);
-    if (D == 64) return launch<64, 2>(a, BH, threads, smem, st);
-  }
-  return launch<0, GENERAL_KPL>(a, BH, threads, smem, st);
+  const long long st[12] = {qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, csb, csh, csl};
+  return run<float>(q, k, v, ctx, w, B, H, Lq, Lkv, D, st, inv_scale, stream);
+}
+
+// The same in bf16: every tensor bf16, computed in f32.
+VQA_EXPORT int vqa_cross_attention_bf16(
+    const void* q, const void* k, const void* v, void* ctx, void* w, int B, int H,
+    int Lq, int Lkv, int D, long long qsb, long long qsh, long long qsl, long long ksb,
+    long long ksh, long long ksl, long long vsb, long long vsh, long long vsl,
+    long long csb, long long csh, long long csl, float inv_scale, void* stream) {
+  using bf = __nv_bfloat16;
+  const long long st[12] = {qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, csb, csh, csl};
+  return run<bf>(static_cast<const bf*>(q), static_cast<const bf*>(k),
+                 static_cast<const bf*>(v), static_cast<bf*>(ctx), static_cast<bf*>(w), B, H,
+                 Lq, Lkv, D, st, inv_scale, stream);
 }

@@ -52,6 +52,16 @@
 // [C, R]. The launch plan (cluster size, split, kept rows, shared-memory
 // bytes) is computed by ops/se_kernel.py:se_plan and checked here against
 // the same layout.
+//
+// bf16 form (vqa_se_bf16): x, the weights and the output in bf16, every
+// sum, dot product and scale in f32, the output rounded once, as the TPU
+// kernel upcasts its block (se_kernel.py:32-42) and casts once. The kernel
+// is the f32 one over 2-byte elements: kept rows and staged weights stay
+// bf16 in shared memory, so a block holds twice the rows; 16-byte copies
+// carry 8 elements (C % 8 == 0, and channel slices rounded to multiples of
+// 8), else elements are copied one at a time with plain loads (cp.async
+// has no 2-byte size). Sums, pooled means, scales and the exchanged shares
+// are f32 in either form.
 
 #include <cooperative_groups.h>
 
@@ -72,32 +82,34 @@ constexpr int MAX_SMEM = 232448;  // dynamic shared memory one block may use
 constexpr int MAX_WEIGHT_SMEM = 48 * 1024;  // staged weight slices, at most
 constexpr unsigned FULL = 0xffffffffu;
 
-constexpr int round4(int v) { return (v + 3) & ~3; }
+constexpr int round16(int v) { return (v + 15) & ~15; }
 
-// Shared-memory layout in floats for C channels, R hidden units, clusters
-// of n, keep_rows kept rows and the split (rows_mode: each block owns
-// rows x all channels; else all rows x a channel slice of cs = ceil(C/n),
-// rounded to a multiple of 4 where C is one); mirrored by
-// ops/se_kernel.py:_smem_bytes. The weights the block's FCs take (w = cs
-// columns of w1 and rows of w2) are staged when they fit MAX_WEIGHT_SMEM,
-// else read from device memory.
+// Shared-memory layout in bytes for C channels of esize-byte elements
+// (4: f32, 2: bf16), R hidden units, clusters of n, keep_rows kept rows
+// and the split (rows_mode: each block owns rows x all channels; else all
+// rows x a channel slice of cs = ceil(C/n), rounded to a multiple of
+// 16/esize where C is one); mirrored by ops/se_kernel.py:_smem_bytes. The
+// weights the block's FCs take (w = cs columns of w1 and rows of w2) are
+// staged, in the element type, when they fit MAX_WEIGHT_SMEM, else read
+// from device memory. Every vector of sums, means and scales is f32.
 struct Layout {
   int cs, w, xch, pooled, s, hidden, w1s, w2s, red, xs, total;
   bool staged;
-  Layout(int C, int R, int n, int keep_rows, bool rows_mode) {
+  Layout(int C, int R, int n, int keep_rows, bool rows_mode, int esize) {
+    const int per16 = 16 / esize;        // elements in 16 bytes
     cs = (C + n - 1) / n;
-    if (C % 4 == 0) cs = round4(cs);
+    if (C % per16 == 0) cs = (cs + per16 - 1) / per16 * per16;
     w = rows_mode ? C : cs;
-    staged = 8LL * R * w <= MAX_WEIGHT_SMEM;
-    xch = 0;                             // [n][C] sums (rows) or [n][R] shares (channels)
-    pooled = xch + round4(n * (rows_mode ? C : R));  // [w]
-    s = pooled + round4(w);              // [w]
-    hidden = s + round4(w);              // [R]
-    w1s = hidden + round4(R);            // [R][w]
-    w2s = w1s + (staged ? round4(R * w) : 0);  // [w][R]
-    red = w2s + (staged ? round4(R * w) : 0);  // pooling scratch
-    xs = red + round4(w > 4 * THREADS ? w : 4 * THREADS);
-    total = xs + keep_rows * w;          // [keep_rows][w]
+    staged = 2LL * esize * R * w <= MAX_WEIGHT_SMEM;
+    xch = 0;  // f32 [n][C] sums (rows) or [n][R] shares (channels)
+    pooled = xch + round16(4 * n * (rows_mode ? C : R));  // f32 [w]
+    s = pooled + round16(4 * w);                          // f32 [w]
+    hidden = s + round16(4 * w);                          // f32 [R]
+    w1s = hidden + round16(4 * R);                        // [R][w]
+    w2s = w1s + (staged ? round16(esize * R * w) : 0);    // [w][R]
+    red = w2s + (staged ? round16(esize * R * w) : 0);    // f32 pooling scratch
+    xs = red + round16(4 * (w > per16 * THREADS ? w : per16 * THREADS));
+    total = xs + keep_rows * w * esize;  // [keep_rows][w]
   }
 };
 
@@ -111,59 +123,68 @@ int lanes_per_row_log2(int rows, int len) {
 }
 
 struct Params {
-  const float* x;
-  const float* w1;
-  const float* w2;
-  float* out;
+  const void* x;   // [B, HW, C] of the element type
+  const void* w1;  // [R, C]
+  const void* w2;  // [C, R]
+  void* out;       // [B, HW, C]
   int HW, C, R, n, cs, keep_rows, rows_mode;
   int lg1, lg2;  // log2 lanes per row of fc1 and fc2
   int staged;
   float inv_hw;
-  int xch, pooled, s, hidden, w1s, w2s, red, xs;  // Layout offsets
+  int xch, pooled, s, hidden, w1s, w2s, red, xs;  // Layout offsets in bytes
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+
+// one element into shared memory: f32 by cp.async, bf16 by a plain load
+// and store (cp.async has no 2-byte size)
+__device__ __forceinline__ void copy1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy1(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *dst = *src;
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Copy rows x len floats (source row stride lds, destination row stride
-// ldd) into shared memory with cp.async: 16 bytes at a time where every
-// row start and length allow it.
-__device__ __forceinline__ void stage(float* dst, int ldd, const float* src, int lds, int rows,
-                                      int len, int t) {
-  if (len % 4 == 0 && ldd % 4 == 0 && lds % 4 == 0 && aligned16(src) && aligned16(dst)) {
-    const int v = len / 4;
+// Copy rows x len elements (source row stride lds, destination row stride
+// ldd) into shared memory: 16 bytes at a time by cp.async where every row
+// start and length allow it, else one element at a time.
+template <typename E>
+__device__ __forceinline__ void stage(E* dst, int ldd, const E* src, int lds, int rows, int len,
+                                      int t) {
+  constexpr int P = 16 / sizeof(E);  // elements in 16 bytes
+  if (len % P == 0 && ldd % P == 0 && lds % P == 0 && aligned16(src) && aligned16(dst)) {
+    const int v = len / P;
     for (int e = t; e < rows * v; e += THREADS) {
-      const int r = e / v, k = 4 * (e - r * v);
+      const int r = e / v, k = P * (e - r * v);
       cp_async16(dst + r * ldd + k, src + static_cast<size_t>(r) * lds + k);
     }
   } else {
     for (int e = t; e < rows * len; e += THREADS) {
       const int r = e / len, k = e - r * len;
-      cp_async4(dst + r * ldd + k, src + static_cast<size_t>(r) * lds + k);
+      copy1(dst + r * ldd + k, src + static_cast<size_t>(r) * lds + k);
     }
   }
 }
 
 // For rows [0, nrows): done(row, sum over k < len of a[k] * w[row * ldw + k],
 // lane) on each of the row's 2^lg lanes, after a shuffle reduction that
-// leaves the sum on all of them.
-template <typename Done>
-__device__ __forceinline__ void row_dots(const float* a, const float* w, int ldw, int nrows,
+// leaves the sum on all of them. a is f32; w f32 or bf16, read as f32.
+template <typename W, typename Done>
+__device__ __forceinline__ void row_dots(const float* a, const W* w, int ldw, int nrows,
                                          int len, int lg, int t, Done done) {
   const int G = 1 << lg, lane = t & 31;
   const int sub = lane >> lg, gl = lane & (G - 1);
@@ -171,9 +192,9 @@ __device__ __forceinline__ void row_dots(const float* a, const float* w, int ldw
     const int row = base + sub;
     float v = 0.f;
     if (row < nrows) {
-      const float* wr = w + static_cast<size_t>(row) * ldw;
+      const W* wr = w + static_cast<size_t>(row) * ldw;
 #pragma unroll 4
-      for (int k = gl; k < len; k += G) v = fmaf(a[k], wr[k], v);
+      for (int k = gl; k < len; k += G) v = fmaf(a[k], vqa::to_f32(wr[k]), v);
     }
     for (int off = G >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
     if (row < nrows) done(row, v, gl);
@@ -204,60 +225,131 @@ __device__ __forceinline__ uint32_t cluster_id() {
   return v;
 }
 
-// VEC floats moved as one: float4 where x, out and C allow it, else float.
-template <int VEC>
+// Elements moved as one (T, in device and shared memory) and their f32
+// accumulator (A). f32: float4 where x, out and C allow it, else float.
+// bf16: 8 elements (16 bytes) accumulated as 8 floats where they allow it,
+// else one element and a float.
+struct F8 {
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ float2 bf16x2_to_f32(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ unsigned f32_to_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+__device__ __forceinline__ float4 shfl4(const float4& a, int off) {
+  return make_float4(__shfl_xor_sync(FULL, a.x, off), __shfl_xor_sync(FULL, a.y, off),
+                     __shfl_xor_sync(FULL, a.z, off), __shfl_xor_sync(FULL, a.w, off));
+}
+
+template <typename E, int VEC>
 struct Vec;
 template <>
-struct Vec<4> {
+struct Vec<float, 4> {
   using T = float4;
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  static __device__ __forceinline__ void add(T& a, const T& b) {
-    a.x += b.x;
-    a.y += b.y;
-    a.z += b.z;
-    a.w += b.w;
+  using A = float4;
+  static __device__ __forceinline__ A zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ void add(A& a, const A& b) { add4(a, b); }
+  static __device__ __forceinline__ void accum(A& a, const T& x) { add4(a, x); }
+  static __device__ __forceinline__ T scale(const T& x, const A& s) {
+    return make_float4(x.x * s.x, x.y * s.y, x.z * s.z, x.w * s.w);
   }
-  static __device__ __forceinline__ T mul(const T& a, const T& b) {
-    return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
-  }
-  static __device__ __forceinline__ T shfl_xor(const T& a, int off) {
-    return make_float4(__shfl_xor_sync(FULL, a.x, off), __shfl_xor_sync(FULL, a.y, off),
-                       __shfl_xor_sync(FULL, a.z, off), __shfl_xor_sync(FULL, a.w, off));
-  }
-  static __device__ __forceinline__ void copy(T* dst, const T* src) {
-    cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src));
-  }
+  static __device__ __forceinline__ A shfl_xor(const A& a, int off) { return shfl4(a, off); }
+  static __device__ __forceinline__ void copy(T* dst, const T* src) { cp_async16(dst, src); }
 };
 template <>
-struct Vec<1> {
+struct Vec<float, 1> {
   using T = float;
-  static __device__ __forceinline__ T zero() { return 0.f; }
-  static __device__ __forceinline__ void add(T& a, const T& b) { a += b; }
-  static __device__ __forceinline__ T mul(const T& a, const T& b) { return a * b; }
-  static __device__ __forceinline__ T shfl_xor(const T& a, int off) {
+  using A = float;
+  static __device__ __forceinline__ A zero() { return 0.f; }
+  static __device__ __forceinline__ void add(A& a, const A& b) { a += b; }
+  static __device__ __forceinline__ void accum(A& a, const T& x) { a += x; }
+  static __device__ __forceinline__ T scale(const T& x, const A& s) { return x * s; }
+  static __device__ __forceinline__ A shfl_xor(const A& a, int off) {
     return __shfl_xor_sync(FULL, a, off);
   }
   static __device__ __forceinline__ void copy(T* dst, const T* src) { cp_async4(dst, src); }
 };
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  using T = uint4;  // 8 bf16
+  using A = F8;
+  static __device__ __forceinline__ A zero() {
+    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  static __device__ __forceinline__ void add(A& a, const A& b) {
+    add4(a.lo, b.lo);
+    add4(a.hi, b.hi);
+  }
+  static __device__ __forceinline__ void accum(A& a, const T& x) {
+    const float2 e0 = bf16x2_to_f32(x.x), e1 = bf16x2_to_f32(x.y);
+    const float2 e2 = bf16x2_to_f32(x.z), e3 = bf16x2_to_f32(x.w);
+    add4(a.lo, make_float4(e0.x, e0.y, e1.x, e1.y));
+    add4(a.hi, make_float4(e2.x, e2.y, e3.x, e3.y));
+  }
+  static __device__ __forceinline__ T scale(const T& x, const A& s) {
+    const float2 e0 = bf16x2_to_f32(x.x), e1 = bf16x2_to_f32(x.y);
+    const float2 e2 = bf16x2_to_f32(x.z), e3 = bf16x2_to_f32(x.w);
+    return make_uint4(f32_to_bf16x2(e0.x * s.lo.x, e0.y * s.lo.y),
+                      f32_to_bf16x2(e1.x * s.lo.z, e1.y * s.lo.w),
+                      f32_to_bf16x2(e2.x * s.hi.x, e2.y * s.hi.y),
+                      f32_to_bf16x2(e3.x * s.hi.z, e3.y * s.hi.w));
+  }
+  static __device__ __forceinline__ A shfl_xor(const A& a, int off) {
+    return {shfl4(a.lo, off), shfl4(a.hi, off)};
+  }
+  static __device__ __forceinline__ void copy(T* dst, const T* src) { cp_async16(dst, src); }
+};
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  using T = __nv_bfloat16;
+  using A = float;
+  static __device__ __forceinline__ A zero() { return 0.f; }
+  static __device__ __forceinline__ void add(A& a, const A& b) { a += b; }
+  static __device__ __forceinline__ void accum(A& a, const T& x) { a += __bfloat162float(x); }
+  static __device__ __forceinline__ T scale(const T& x, const A& s) {
+    return __float2bfloat16_rn(__bfloat162float(x) * s);
+  }
+  static __device__ __forceinline__ A shfl_xor(const A& a, int off) {
+    return __shfl_xor_sync(FULL, a, off);
+  }
+  static __device__ __forceinline__ void copy(T* dst, const T* src) { *dst = *src; }
+};
 
-template <int VEC>
+template <typename E, int VEC>
 __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Params p) {
-  using V = Vec<VEC>;
+  using V = Vec<E, VEC>;
   using T = typename V::T;
-  extern __shared__ __align__(16) float sm[];
+  using A = typename V::A;
+  extern __shared__ __align__(16) unsigned char smc[];
   cg::cluster_group cluster = cg::this_cluster();
   const int t = threadIdx.x;
   const int q = static_cast<int>(cluster_rank());  // rank in the image's cluster
   const int b = static_cast<int>(cluster_id());    // image
   const int n = p.n, C = p.C, R = p.R, HW = p.HW;
-  float* xch = sm + p.xch;        // pushed by every rank: [n][C] sums or [n][R] shares
-  float* pooled = sm + p.pooled;  // [w] means of this block's channels
-  float* s = sm + p.s;            // [w] their scales
-  float* hidden = sm + p.hidden;  // [R]
-  float* w1s = sm + p.w1s;        // [R][w]: w1's columns [c0, c0 + nc)
-  float* w2s = sm + p.w2s;        // [w][R]: w2's rows [c0, c0 + nc)
-  T* red = reinterpret_cast<T*>(sm + p.red);
-  T* xs = reinterpret_cast<T*>(sm + p.xs);  // [keep][L]
+  const E* w1 = static_cast<const E*>(p.w1);
+  const E* w2 = static_cast<const E*>(p.w2);
+  // pushed by every rank: [n][C] sums or [n][R] shares
+  float* xch = reinterpret_cast<float*>(smc + p.xch);
+  float* pooled = reinterpret_cast<float*>(smc + p.pooled);  // [w] means of this block's channels
+  float* s = reinterpret_cast<float*>(smc + p.s);            // [w] their scales
+  float* hidden = reinterpret_cast<float*>(smc + p.hidden);  // [R]
+  E* w1s = reinterpret_cast<E*>(smc + p.w1s);  // [R][w]: w1's columns [c0, c0 + nc)
+  E* w2s = reinterpret_cast<E*>(smc + p.w2s);  // [w][R]: w2's rows [c0, c0 + nc)
+  A* red = reinterpret_cast<A*>(smc + p.red);
+  T* xs = reinterpret_cast<T*>(smc + p.xs);  // [keep][L]
 
   // this block's rows [r0, r0 + rows) and channels [c0, c0 + nc)
   int r0 = 0, rows = HW, c0 = 0, nc = C;
@@ -271,8 +363,8 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
   const int keep = min(p.keep_rows, rows), L = nc / VEC;
   const size_t C4 = C / VEC;  // vectors per row of x
   const size_t origin = (static_cast<size_t>(b) * HW + r0) * C + c0;
-  const T* xg = reinterpret_cast<const T*>(p.x + origin);
-  T* og = reinterpret_cast<T*>(p.out + origin);
+  const T* xg = reinterpret_cast<const T*>(static_cast<const E*>(p.x) + origin);
+  T* og = reinterpret_cast<T*>(static_cast<E*>(p.out) + origin);
   // thread t owns vector column g of the rows congruent to ph mod P (and,
   // where L > THREADS, the columns g + THREADS, ...): it copies, sums and
   // rescales them
@@ -285,8 +377,8 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
     for (int r = ph; r < keep; r += P) V::copy(xs + r * L + g, xg + r * C4 + g);
   if (p.staged) {
     const int ld = p.rows_mode ? C : p.cs;
-    stage(w1s, ld, p.w1 + c0, C, R, nc, t);
-    stage(w2s, R * nc, p.w2 + static_cast<size_t>(c0) * R, R * nc, 1, R * nc, t);
+    stage(w1s, ld, w1 + c0, C, R, nc, t);
+    stage(w2s, R * nc, w2 + static_cast<size_t>(c0) * R, R * nc, 1, R * nc, t);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   cluster_arrive_relaxed();  // this block has started: peers may push to it
@@ -295,29 +387,29 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
   //    then this thread's own copies
   const int first = keep + (ph - keep % P + P) % P;  // first streamed row of phase ph
   for (int w = t, g = g0; w < work; w += THREADS, g += THREADS) {
-    T acc = V::zero();
+    A acc = V::zero();
 #pragma unroll 4
-    for (int r = first; r < rows; r += P) V::add(acc, xg[r * C4 + g]);
+    for (int r = first; r < rows; r += P) V::accum(acc, xg[r * C4 + g]);
     red[w] = acc;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   for (int w = t, g = g0; w < work; w += THREADS, g += THREADS) {
-    T acc = red[w];
+    A acc = red[w];
 #pragma unroll 4
-    for (int r = ph; r < keep; r += P) V::add(acc, xs[r * L + g]);
+    for (int r = ph; r < keep; r += P) V::accum(acc, xs[r * L + g]);
     red[w] = acc;
   }
   //    then over the P phases, in a fixed order: shuffles within a warp
   //    and the warps in order where L divides 32, else a tree in shared
   //    memory
   if (P > 1 && 32 % L == 0) {
-    T acc = red[t];
+    A acc = red[t];
     for (int off = L; off < 32; off <<= 1) V::add(acc, V::shfl_xor(acc, off));
     __syncthreads();
     if ((t & 31) < L) red[(t >> 5) * L + (t & 31)] = acc;
     __syncthreads();
     if (t < L) {  // red[t] is read by thread t alone
-      T a = red[t];
+      A a = red[t];
       for (int wp = 1; wp < WARPS; ++wp) V::add(a, red[wp * L + t]);
       red[t] = a;
     }
@@ -340,8 +432,8 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
     cluster_wait();  // every peer has started
     for (int e = t; e < n * L; e += THREADS) {
       const int r = e / L, g = e - r * L;
-      reinterpret_cast<T*>(cluster.map_shared_rank(xch, r))[q * L + g] =
-          reinterpret_cast<const T*>(sums)[g];
+      reinterpret_cast<A*>(cluster.map_shared_rank(xch, r))[q * L + g] =
+          reinterpret_cast<const A*>(sums)[g];
     }
     cluster_arrive();
     cluster_wait();  // every rank's sums have landed
@@ -360,7 +452,7 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
   //    share of every hidden unit and pushes it to every rank (the lanes
   //    holding a sum split the ranks between them); one cluster barrier
   //    publishes the shares, summed in rank order
-  const float* wa = p.staged ? w1s : p.w1 + c0;
+  const E* wa = p.staged ? w1s : w1 + c0;
   const int lda = p.staged ? (p.rows_mode ? C : p.cs) : C;
   if (p.rows_mode) {
     row_dots(pooled, wa, lda, R, nc, p.lg1, t, [&](int j, float v, int gl) {
@@ -382,7 +474,7 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
   __syncthreads();
 
   // 5. fc2 and sigmoid for this block's channels
-  const float* wb = p.staged ? w2s : p.w2 + static_cast<size_t>(c0) * R;
+  const E* wb = p.staged ? w2s : w2 + static_cast<size_t>(c0) * R;
   row_dots(hidden, wb, R, nc, R, p.lg2, t, [&](int k, float v, int gl) {
     if (gl == 0) s[k] = 1.f / (1.f + expf(-v));
   });
@@ -390,18 +482,18 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
 
   // 6. rescale: kept rows from shared memory, streamed rows from device
   //    memory again
-  const T* sv = reinterpret_cast<const T*>(s);
+  const A* sv = reinterpret_cast<const A*>(s);
   for (int w = t, g = g0; w < work; w += THREADS, g += THREADS) {
-    const T sg = sv[g];
+    const A sg = sv[g];
     for (int r = ph; r < rows; r += P)
-      og[r * C4 + g] = V::mul(r < keep ? xs[r * L + g] : xg[r * C4 + g], sg);
+      og[r * C4 + g] = V::scale(r < keep ? xs[r * L + g] : xg[r * C4 + g], sg);
   }
 }
 
 // Raises the kernel's shared-memory limit (never lowers it) and allows
 // clusters above 8, once per device and instantiation: the attributes stay
 // set, and setting them on every call costs host time at small batches.
-template <int VEC>
+template <typename E, int VEC>
 cudaError_t prepare(size_t smem, int cluster) {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<size_t> smem_set[MAX_DEVICES];
@@ -414,13 +506,13 @@ cudaError_t prepare(size_t smem, int cluster) {
   if (smem > smem_set[dev].load() || (cluster > 8 && !nonportable_set[dev].load())) {
     std::lock_guard<std::mutex> lock(mu);
     if (smem > smem_set[dev].load()) {
-      err = vqa::allow_smem(se_cluster<VEC>, smem);
+      err = vqa::allow_smem(se_cluster<E, VEC>, smem);
       if (err != cudaSuccess) return err;
       smem_set[dev].store(smem);
     }
     if (cluster > 8 && !nonportable_set[dev].load()) {
-      err = cudaFuncSetAttribute(se_cluster<VEC>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                                 1);
+      err = cudaFuncSetAttribute(se_cluster<E, VEC>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (err != cudaSuccess) return err;
       nonportable_set[dev].store(true);
     }
@@ -428,10 +520,10 @@ cudaError_t prepare(size_t smem, int cluster) {
   return cudaSuccess;
 }
 
-template <int VEC>
+template <typename E, int VEC>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int blocks,
                       int cluster, size_t smem, cudaStream_t st) {
-  const cudaError_t err = prepare<VEC>(smem, cluster);
+  const cudaError_t err = prepare<E, VEC>(smem, cluster);
   cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(THREADS);
@@ -446,22 +538,22 @@ cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int bl
   return err;
 }
 
-// The plan's checks, shared by the launcher and the occupancy query.
+// The plan's checks, shared by the launchers and the occupancy query.
 bool plan_ok(long long B, int HW, int C, int R, int cluster, int keep_rows, int rows_mode,
-             int smem_bytes) {
+             int smem_bytes, int esize) {
   if (B <= 0 || HW <= 0 || C <= 0 || R <= 0 || cluster < 1 || cluster > MAX_CLUSTER ||
       B * cluster > 0x7fffffffLL || static_cast<long long>(HW) * C >= (1LL << 31) ||
       static_cast<long long>(R) * C >= (1LL << 31) || (rows_mode != 0 && rows_mode != 1) ||
       cluster > (rows_mode ? HW : C) || keep_rows < 0 ||
       keep_rows > (rows_mode ? (HW + cluster - 1) / cluster : HW))
     return false;
-  const Layout lay(C, R, cluster, keep_rows, rows_mode);
-  return smem_bytes == static_cast<long long>(lay.total) * 4 && smem_bytes <= MAX_SMEM;
+  const Layout lay(C, R, cluster, keep_rows, rows_mode, esize);
+  return smem_bytes == lay.total && smem_bytes <= MAX_SMEM;
 }
 
-Params make_params(const float* x, const float* w1, const float* w2, float* out, int HW, int C,
-                   int R, int cluster, int keep_rows, int rows_mode) {
-  const Layout lay(C, R, cluster, keep_rows, rows_mode);
+Params make_params(const void* x, const void* w1, const void* w2, void* out, int HW, int C,
+                   int R, int cluster, int keep_rows, int rows_mode, int esize) {
+  const Layout lay(C, R, cluster, keep_rows, rows_mode, esize);
   Params p;
   p.x = x;
   p.w1 = w1;
@@ -491,44 +583,78 @@ Params make_params(const float* x, const float* w1, const float* w2, float* out,
 
 bool host_aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// x, out [B, HW, C]; w1 [R, C]; w2 [C, R]. One launch; the plan comes from
-// ops/se_kernel.py:se_plan and is refused (cudaErrorInvalidValue) unless it
-// matches this file's layout.
-VQA_EXPORT int vqa_se_f32(const float* x, const float* w1, const float* w2, float* out, int B,
-                          int HW, int C, int R, int cluster, int keep_rows, int rows_mode,
-                          int smem_bytes, void* stream) {
-  if (!plan_ok(B, HW, C, R, cluster, keep_rows, rows_mode, smem_bytes))
+// One launch of the form for element type E: 16-byte vectors (WIDE
+// elements) where C and the pointers allow them, else single elements.
+template <typename E>
+int launch_se(const void* x, const void* w1, const void* w2, void* out, int B, int HW, int C,
+              int R, int cluster, int keep_rows, int rows_mode, int smem_bytes, void* stream) {
+  constexpr int WIDE = 16 / sizeof(E);
+  if (!plan_ok(B, HW, C, R, cluster, keep_rows, rows_mode, smem_bytes, sizeof(E)))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec4 = C % 4 == 0 && host_aligned16(x) && host_aligned16(out);
-  const Params p = make_params(x, w1, w2, out, HW, C, R, cluster, keep_rows, rows_mode);
+  const bool wide = C % WIDE == 0 && host_aligned16(x) && host_aligned16(out);
+  const Params p =
+      make_params(x, w1, w2, out, HW, C, R, cluster, keep_rows, rows_mode, sizeof(E));
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = vec4 ? configure<4>(cfg, attr, B * cluster, cluster, smem_bytes, st)
-                         : configure<1>(cfg, attr, B * cluster, cluster, smem_bytes, st);
+  cudaError_t err = wide ? configure<E, WIDE>(cfg, attr, B * cluster, cluster, smem_bytes, st)
+                         : configure<E, 1>(cfg, attr, B * cluster, cluster, smem_bytes, st);
   if (err != cudaSuccess) return err;
-  err = vec4 ? cudaLaunchKernelEx(&cfg, se_cluster<4>, p)
-             : cudaLaunchKernelEx(&cfg, se_cluster<1>, p);
+  err = wide ? cudaLaunchKernelEx(&cfg, se_cluster<E, WIDE>, p)
+             : cudaLaunchKernelEx(&cfg, se_cluster<E, 1>, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// How many clusters of a plan can be resident at once on the current device
-// (cudaOccupancyMaxActiveClusters), into *clusters; vec picks the float4
-// (4) or scalar (1) instantiation.
-VQA_EXPORT int vqa_se_max_active_clusters(int HW, int C, int R, int cluster, int keep_rows,
-                                          int rows_mode, int smem_bytes, int vec,
-                                          int* clusters) {
-  if (!plan_ok(1, HW, C, R, cluster, keep_rows, rows_mode, smem_bytes) ||
-      (vec != 1 && vec != 4))
-    return cudaErrorInvalidValue;
+template <typename E, int VEC>
+int active_clusters(int HW, int C, int R, int cluster, int keep_rows, int rows_mode,
+                    int smem_bytes, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = vec == 4 ? configure<4>(cfg, attr, cluster, cluster, smem_bytes, 0)
-                             : configure<1>(cfg, attr, cluster, cluster, smem_bytes, 0);
+  const cudaError_t err = configure<E, VEC>(cfg, attr, cluster, cluster, smem_bytes, 0);
   if (err != cudaSuccess) return err;
-  return vec == 4 ? cudaOccupancyMaxActiveClusters(clusters, se_cluster<4>, &cfg)
-                  : cudaOccupancyMaxActiveClusters(clusters, se_cluster<1>, &cfg);
+  return cudaOccupancyMaxActiveClusters(clusters, se_cluster<E, VEC>, &cfg);
+}
+
+}  // namespace
+
+// x, out [B, HW, C]; w1 [R, C]; w2 [C, R]. One launch; the plan comes from
+// ops/se_kernel.py:se_plan and is refused (cudaErrorInvalidValue) unless it
+// matches this file's layout for 4-byte elements.
+VQA_EXPORT int vqa_se_f32(const float* x, const float* w1, const float* w2, float* out, int B,
+                          int HW, int C, int R, int cluster, int keep_rows, int rows_mode,
+                          int smem_bytes, void* stream) {
+  return launch_se<float>(x, w1, w2, out, B, HW, C, R, cluster, keep_rows, rows_mode,
+                          smem_bytes, stream);
+}
+
+// The same in bf16 (x, w1, w2 and out), computed in f32; the plan is
+// se_plan's for 2-byte elements.
+VQA_EXPORT int vqa_se_bf16(const void* x, const void* w1, const void* w2, void* out, int B,
+                           int HW, int C, int R, int cluster, int keep_rows, int rows_mode,
+                           int smem_bytes, void* stream) {
+  return launch_se<__nv_bfloat16>(x, w1, w2, out, B, HW, C, R, cluster, keep_rows, rows_mode,
+                                  smem_bytes, stream);
+}
+
+// How many clusters of a plan can be resident at once on the current device
+// (cudaOccupancyMaxActiveClusters), into *clusters; esize picks the form
+// (4: f32, 2: bf16) and vec its 16-byte (4 or 8 elements) or single-element
+// (1) instantiation.
+VQA_EXPORT int vqa_se_max_active_clusters(int HW, int C, int R, int cluster, int keep_rows,
+                                          int rows_mode, int smem_bytes, int vec, int esize,
+                                          int* clusters) {
+  if ((esize != 4 && esize != 2) || (vec != 1 && vec != 16 / esize) ||
+      !plan_ok(1, HW, C, R, cluster, keep_rows, rows_mode, smem_bytes, esize))
+    return cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  if (esize == 4)
+    return vec == 1 ? active_clusters<float, 1>(HW, C, R, cluster, keep_rows, rows_mode,
+                                                smem_bytes, clusters)
+                    : active_clusters<float, 4>(HW, C, R, cluster, keep_rows, rows_mode,
+                                                smem_bytes, clusters);
+  return vec == 1 ? active_clusters<bf, 1>(HW, C, R, cluster, keep_rows, rows_mode, smem_bytes,
+                                           clusters)
+                  : active_clusters<bf, 8>(HW, C, R, cluster, keep_rows, rows_mode, smem_bytes,
+                                           clusters);
 }

@@ -3,7 +3,8 @@
 Counterpart of ``vqa_tpu/models/attention_modules.py:37-94,142-161``.
 Modules take and return NCHW tensors in ``torch.channels_last`` memory, so
 an NHWC view of the same memory is free. In eval mode ``SEAttention`` calls
-the SE kernel (``ops/se_kernel.py``) on its own ``fc1`` / ``fc2`` weights —
+the SE kernel (``ops/se_kernel.py``) on its own ``fc1`` / ``fc2`` weights
+in the compute dtype (the bf16 form on a bf16 model) —
 the JAX model computes the same function unfused. ``CBAMBlock`` and
 ``SelfAttention2D`` are off the serving path and not ported yet.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from vqa_tpu_torch.models.layers import Conv2d, Linear
 from vqa_tpu_torch.ops import se_kernel
 
 
@@ -26,15 +28,16 @@ class SEAttention(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         reduced = max(channels // reduction, 1)
-        self.fc1 = nn.Linear(channels, reduced, bias=False)
-        self.fc2 = nn.Linear(reduced, channels, bias=False)
+        self.fc1 = Linear(channels, reduced, bias=False)
+        self.fc2 = Linear(reduced, channels, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        w1, w2 = self.fc1.compute("weight"), self.fc2.compute("weight")
         if self.training:
-            out = se_kernel.plain_se(nhwc, self.fc1.weight, self.fc2.weight)
+            out = se_kernel.plain_se(nhwc, w1, w2)
         else:
-            out = se_kernel.fused_se(nhwc, self.fc1.weight, self.fc2.weight)
+            out = se_kernel.fused_se(nhwc, w1, w2)
         return out.permute(0, 3, 1, 2)
 
 
@@ -45,7 +48,7 @@ class SpatialAttention(nn.Module):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("Kernel size must be odd")
-        self.conv = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
+        self.conv = Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         max_pool = x.amax(dim=1, keepdim=True)

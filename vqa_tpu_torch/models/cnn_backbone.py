@@ -11,8 +11,9 @@ so the NHWC views the stem and SE kernels read cost no copy. In eval mode,
 where the stem kernel takes the geometry (``stem_kernel.stem_takes``: 3
 input channels, a multiple of 8 up to 64 features), the stem runs as one
 fused kernel (``ops/stem_kernel.py``) with BN folded into a per-channel
-affine, as ``cnn_backbone.py:294-308`` gates and folds it; otherwise, and
-in training mode, it runs conv → BN → ReLU → maxpool.
+affine, as ``cnn_backbone.py:294-308`` gates and folds it (the affine f32,
+the conv weight in the compute dtype, as the JAX backbone passes them);
+otherwise, and in training mode, it runs conv → BN → ReLU → maxpool.
 
 Parameter names follow the reference state_dict layout (``stem.0`` conv,
 ``stem.1`` BN, ``stageN.blocks.i.conv1`` …, ``downsample.0/1``). BN uses
@@ -31,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vqa_tpu_torch.models.attention_modules import AttentionWrapper
+from vqa_tpu_torch.models.layers import Conv2d
 from vqa_tpu_torch.ops import stem_kernel
 
 BN_EPS = 1e-5
@@ -61,14 +63,14 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(out_channels, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(out_channels, eps=BN_EPS)
         self.downsample = None
         if stride != 1 or in_channels != out_channels:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False),
+                Conv2d(in_channels, out_channels, 1, stride, 0, bias=False),
                 BatchNorm2d(out_channels, eps=BN_EPS),
             )
 
@@ -116,7 +118,7 @@ class CustomResNet(nn.Module):
         c = list(stage_channels or [base_channels * m for m in (1, 2, 4, 8)])
         self.output_channels = c[-1]
         self.stem = nn.Sequential(
-            nn.Conv2d(in_channels, c[0], 7, 2, 3, bias=False),
+            Conv2d(in_channels, c[0], 7, 2, 3, bias=False),
             BatchNorm2d(c[0], eps=BN_EPS),
             nn.ReLU(),
             nn.MaxPool2d(3, 2, 1),
@@ -132,7 +134,7 @@ class CustomResNet(nn.Module):
         conv, bn = self.stem[0], self.stem[1]
         scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
         bias = bn.bias - bn.running_mean * scale
-        out = stem_kernel.fused_stem(x_nhwc.contiguous(), conv.weight, scale, bias)
+        out = stem_kernel.fused_stem(x_nhwc.contiguous(), conv.compute("weight"), scale, bias)
         return out.permute(0, 3, 1, 2)  # NCHW view of NHWC memory
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,9 @@ In eval mode with no key/value mask — the condition of the JAX code at
 kernel (``ops/cross_attention_kernel.py``), which reads the head-transposed
 projections as strided views and writes the context head-merged, so neither
 side makes a copy; in training mode, or with a mask, it runs as matmul →
-masked fill (-1e9) → f32 softmax → dropout → matmul, as the JAX einsum path
-does.
+masked fill (-1e9) → f32 softmax (cast back to the compute dtype) →
+dropout → matmul, as the JAX einsum path does. In bf16 the kernel's bf16
+form returns bf16 context and weights, as the Pallas kernel does.
 
 Parameter names follow the reference state_dict layout
 (``layers.i.cross_attention.W_q``, ``layers.i.ffn.0`` / ``ffn.3``).
@@ -25,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from vqa_tpu_torch.models.layers import LayerNorm, Linear
 from vqa_tpu_torch.ops import cross_attention_kernel
 
 NEG_INF = -1e9
@@ -40,7 +42,7 @@ class CrossAttention(nn.Module):
             raise ValueError("embed_dim must be divisible by num_heads")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         for name in ("W_q", "W_k", "W_v", "W_o"):
-            setattr(self, name, nn.Linear(embed_dim, embed_dim, bias=False))
+            setattr(self, name, Linear(embed_dim, embed_dim, bias=False))
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, query: torch.Tensor, key_value: torch.Tensor,
@@ -65,7 +67,7 @@ class CrossAttention(nn.Module):
             if key_value_mask is not None:
                 scores = scores.masked_fill(
                     key_value_mask[:, None, None, :] == 0, NEG_INF)
-            weights = torch.softmax(scores.float(), dim=-1)
+            weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
             ctx = torch.matmul(self.dropout(weights), v)
 
         # the kernel's context is a view of [B,Lq,H,dh] memory: no copy here
@@ -79,14 +81,14 @@ class MultiHeadCrossAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int = 8, dropout: float = 0.1):
         super().__init__()
         hidden = 4 * embed_dim
-        self.norm_query = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.norm_kv = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm_query = LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm_kv = LayerNorm(embed_dim, eps=LN_EPS)
         self.cross_attention = CrossAttention(embed_dim, num_heads, dropout)
         self.dropout = nn.Dropout(dropout)
-        self.norm_ffn = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm_ffn = LayerNorm(embed_dim, eps=LN_EPS)
         self.ffn = nn.Sequential(
-            nn.Linear(embed_dim, hidden), nn.ReLU(), nn.Dropout(dropout),
-            nn.Linear(hidden, embed_dim), nn.Dropout(dropout),
+            Linear(embed_dim, hidden), nn.ReLU(), nn.Dropout(dropout),
+            Linear(hidden, embed_dim), nn.Dropout(dropout),
         )
 
     def forward(self, query: torch.Tensor, key_value: torch.Tensor,

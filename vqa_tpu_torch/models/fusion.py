@@ -18,28 +18,33 @@ import torch
 import torch.nn as nn
 
 from vqa_tpu_torch.models.cross_attention import StackedCrossAttention
+from vqa_tpu_torch.models.layers import ComputeCopies, LayerNorm, Linear
 from vqa_tpu_torch.models.text_encoder import LN_EPS, masked_mean
 
 
-class ImageFeatureProjector(nn.Module):
+class ImageFeatureProjector(ComputeCopies, nn.Module):
     """[B,H,W,C] → [B,H·W,D] via Linear + LN + Dropout, plus learnable
-    position embeddings."""
+    position embeddings (added in the compute dtype, as ``fusion.py:53``
+    casts them)."""
+
+    copied = ("position_embedding",)
 
     def __init__(self, in_channels: int, embed_dim: int, spatial_size: int = 7,
                  dropout: float = 0.1):
         super().__init__()
         self.projection = nn.Sequential(
-            nn.Linear(in_channels, embed_dim),
-            nn.LayerNorm(embed_dim, eps=LN_EPS),
+            Linear(in_channels, embed_dim),
+            LayerNorm(embed_dim, eps=LN_EPS),
             nn.Dropout(dropout),
         )
         self.position_embedding = nn.Parameter(
             torch.zeros(1, spatial_size * spatial_size, embed_dim))
+        self.init_copies()
 
     def forward(self, image_features: torch.Tensor) -> torch.Tensor:
         b, h, w, c = image_features.shape
         x = self.projection(image_features.reshape(b, h * w, c))
-        return x + self.position_embedding[:, : h * w]
+        return x + self.compute("position_embedding")[:, : h * w]
 
 
 class GatingMechanism(nn.Module):
@@ -47,7 +52,7 @@ class GatingMechanism(nn.Module):
 
     def __init__(self, embed_dim: int):
         super().__init__()
-        self.gate = nn.Sequential(nn.Linear(2 * embed_dim, embed_dim), nn.Sigmoid())
+        self.gate = nn.Sequential(Linear(2 * embed_dim, embed_dim), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         g = self.gate(torch.cat([x, y], dim=-1))
@@ -67,7 +72,7 @@ class MultimodalFusion(nn.Module):
         self.cross_attention = StackedCrossAttention(
             embed_dim, num_heads, num_cross_layers, dropout)
         self.gate = GatingMechanism(embed_dim) if use_gating else None
-        self.output_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.output_norm = LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, image_features: torch.Tensor, text_features: torch.Tensor,
                 text_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:

@@ -7,7 +7,9 @@ masked-mean pooled output.
 
 Parity with the flax modules: every LayerNorm uses eps 1e-6 (flax's
 default; torch's is 1e-5); masked scores are filled with -1e9, not -inf;
-softmax runs in f32; pooling divides by the mask count clipped at 1. The
+softmax runs in f32 and its weights return to the compute dtype; the PE
+table is added in the compute dtype; pooling divides by the mask count
+clipped at 1. The
 PE table lives in a persistent ``pe`` buffer [1, L, D] so the reference
 state_dict key ``text_encoder.positional_encoding.pe`` loads strictly.
 """
@@ -20,6 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from vqa_tpu_torch.models.layers import ComputeCopies, Embedding, LayerNorm, Linear
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
@@ -39,17 +43,21 @@ def sinusoidal_position_encoding(max_length: int, embed_dim: int) -> np.ndarray:
     return pe
 
 
-class PositionalEncoding(nn.Module):
-    """Add the sinusoidal table, then dropout."""
+class PositionalEncoding(ComputeCopies, nn.Module):
+    """Add the sinusoidal table (in the compute dtype, as the JAX module
+    casts it), then dropout."""
+
+    copied = ("pe",)
 
     def __init__(self, embed_dim: int, max_length: int = 512, dropout: float = 0.1):
         super().__init__()
         pe = torch.from_numpy(sinusoidal_position_encoding(max_length, embed_dim))
         self.register_buffer("pe", pe[None], persistent=True)
         self.dropout = nn.Dropout(dropout)
+        self.init_copies()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dropout(x + self.pe[:, : x.shape[1]])
+        return self.dropout(x + self.compute("pe")[:, : x.shape[1]])
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -62,7 +70,7 @@ class MultiHeadSelfAttention(nn.Module):
             raise ValueError("embed_dim must be divisible by num_heads")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         for name in ("W_q", "W_k", "W_v", "W_o"):
-            setattr(self, name, nn.Linear(embed_dim, embed_dim, bias=False))
+            setattr(self, name, Linear(embed_dim, embed_dim, bias=False))
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor,
@@ -77,7 +85,7 @@ class MultiHeadSelfAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
         if attention_mask is not None:
             scores = scores.masked_fill(attention_mask[:, None, None, :] == 0, NEG_INF)
-        weights = torch.softmax(scores.float(), dim=-1)
+        weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
         ctx = torch.matmul(self.dropout(weights), v)
         ctx = ctx.transpose(1, 2).reshape(b, L, self.embed_dim)
         return self.W_o(ctx)
@@ -88,8 +96,8 @@ class FeedForwardNetwork(nn.Module):
 
     def __init__(self, embed_dim: int, hidden_dim: int, dropout: float = 0.1):
         super().__init__()
-        self.fc1 = nn.Linear(embed_dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, embed_dim)
+        self.fc1 = Linear(embed_dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, embed_dim)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -102,9 +110,9 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, ffn_hidden_dim: int,
                  dropout: float = 0.1):
         super().__init__()
-        self.norm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(embed_dim, eps=LN_EPS)
         self.self_attention = MultiHeadSelfAttention(embed_dim, num_heads, dropout)
-        self.norm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(embed_dim, eps=LN_EPS)
         self.ffn = FeedForwardNetwork(embed_dim, ffn_hidden_dim, dropout)
         self.dropout = nn.Dropout(dropout)
 
@@ -123,13 +131,13 @@ class TransformerTextEncoder(nn.Module):
                  dropout: float = 0.1):
         super().__init__()
         self.embed_dim = embed_dim
-        self.token_embedding = nn.Embedding(vocab_size, embed_dim)
+        self.token_embedding = Embedding(vocab_size, embed_dim)
         self.positional_encoding = PositionalEncoding(embed_dim, max_length, dropout)
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, num_heads, ffn_hidden_dim, dropout)
             for _ in range(num_layers)
         )
-        self.final_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.final_norm = LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, token_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None

@@ -14,6 +14,13 @@ from a seeded ``torch.Generator`` on the CPU with the JAX package's schemes
 (Kaiming-normal fan-out convs, Xavier-uniform attention and answer head,
 LeCun-normal other dense layers, N(0, d^-1/2) embeddings with a zero PAD
 row, N(0, 0.02) position embeddings), then moved to the device.
+
+``dtype`` is the JAX model's compute dtype (``vqa_model.py:151``): f32, or
+bf16 for inference (``models/layers.py``: parameters stay f32 in the
+state_dict, every Linear/Conv/Embedding computes from a bf16 copy of its
+weights made at build or load, norms take f32 statistics, the stem, SE and
+cross-attention kernels run their bf16 forms, and the logits are f32).
+Training a bf16 model is not ported: ``train()`` raises.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch.nn as nn
 
 from vqa_tpu_torch.models.cnn_backbone import CustomResNet
 from vqa_tpu_torch.models.fusion import MultimodalFusion, attention_visualization
+from vqa_tpu_torch.models.layers import COMPUTE_DTYPES, Linear
 from vqa_tpu_torch.models.text_encoder import TransformerTextEncoder
 from vqa_tpu_torch.utils.config import ModelConfig
 
@@ -38,9 +46,9 @@ class AnswerHead(nn.Module):
                  dropout: float = 0.3):
         super().__init__()
         self.classifier = nn.Sequential(
-            nn.Linear(input_dim, hidden_dim), nn.ReLU(), nn.Dropout(dropout),
-            nn.Linear(hidden_dim, hidden_dim // 2), nn.ReLU(), nn.Dropout(dropout),
-            nn.Linear(hidden_dim // 2, num_answers),
+            Linear(input_dim, hidden_dim), nn.ReLU(), nn.Dropout(dropout),
+            Linear(hidden_dim, hidden_dim // 2), nn.ReLU(), nn.Dropout(dropout),
+            Linear(hidden_dim // 2, num_answers),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,11 +57,15 @@ class AnswerHead(nn.Module):
 
 class VQAModel(nn.Module):
     """``logits, aux = model(images, token_ids, mask, return_aux=...)`` with
-    images [B, H, W, 3] NHWC f32 (normalized)."""
+    images [B, H, W, 3] NHWC f32 (normalized), cast to the compute dtype
+    as the JAX model's first conv casts them; logits are f32."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = self.config = config
+        self.dtype = torch.float32
+        # weights loaded into a bf16 model refresh its bf16 copies
+        self.register_load_state_dict_post_hook(VQAModel._refresh_copies)
         self.image_encoder = CustomResNet(
             in_channels=cfg.in_channels, base_channels=cfg.base_channels,
             stage_channels=tuple(cfg.stage_channels),
@@ -75,10 +87,33 @@ class VQAModel(nn.Module):
         self.answer_head = AnswerHead(
             cfg.embed_dim, cfg.embed_dim * 2, cfg.num_answers, cfg.answer_dropout)
 
+    def _refresh_copies(self, _incompatible_keys) -> None:
+        self.set_compute_dtype(self.dtype)
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "VQAModel":
+        """Compute in ``dtype`` (f32 or bf16) from now on: (re)make every
+        layer's copy of its weights in it from the current f32 weights."""
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"the port computes in float32 or bfloat16, got {dtype}")
+        if dtype != torch.float32 and self.training:
+            raise NotImplementedError(
+                "training in bf16 is not ported (ROADMAP A.7b); train in float32")
+        self.dtype = dtype
+        for m in self.modules():
+            if m is not self and hasattr(m, "set_compute_dtype"):
+                m.set_compute_dtype(dtype)
+        return self
+
+    def train(self, mode: bool = True) -> "VQAModel":
+        if mode and self.dtype != torch.float32:
+            raise NotImplementedError(
+                "training in bf16 is not ported (ROADMAP A.7b); build the model in float32")
+        return super().train(mode)
+
     def forward(self, images: torch.Tensor, token_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 return_aux: bool = False):
-        image_features = self.image_encoder(images)
+        image_features = self.image_encoder(images.to(self.dtype))
         text_features, text_pooled = self.text_encoder(token_ids, attention_mask)
         fused, fusion_aux = self.fusion(image_features, text_features, attention_mask)
         # logits always f32 for a stable softmax
@@ -153,9 +188,11 @@ def create_vqa_model(
     use_attention: Optional[bool] = None,
     device="cuda",
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
     **overrides,
 ) -> VQAModel:
-    """Build a seeded model in eval mode on ``device``.
+    """Build a seeded model in eval mode on ``device``, computing in
+    ``dtype`` (f32, or bf16 for inference).
 
     ``use_attention=False`` disables both SE and spatial attention (the
     ``--no-attention`` ablation); ``overrides`` replace config fields.
@@ -171,7 +208,7 @@ def create_vqa_model(
             cfg, use_se_attention=use_attention, use_spatial_attention=use_attention)
     model = VQAModel(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(device).eval().set_compute_dtype(dtype)
 
 
 def count_parameters(model: VQAModel) -> Dict[str, int]:

@@ -47,14 +47,20 @@ _SIGNATURES = {
     # name: argtypes (restype is int, a cudaError_t)
     "vqa_stem_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vqa_stem_smem_bytes": [],
+    "vqa_stem_bf16_smem_bytes": [],
     # x, w1, w2, out, B, HW, C, R, the plan (cluster, kept rows, split by
     # rows, shared-memory bytes), stream
     "vqa_se_f32": [_P] * 4 + [_I] * 8 + [_P],
-    # HW, C, R, the plan, vec, out: clusters
-    "vqa_se_max_active_clusters": [_I] * 8 + [ctypes.POINTER(_I)],
+    # HW, C, R, the plan, vec, element bytes, out: clusters
+    "vqa_se_max_active_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
     # q, k, v, ctx, w, B, H, Lq, Lkv, D, 12 strides (batch, head, row of
     # q, k, v, ctx), 1/scale, stream
     "vqa_cross_attention_f32": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # the bf16 forms: the same arguments, x/w/q/k/v and outputs in bf16 (the
+    # stem's scale and bias stay f32)
+    "vqa_stem_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vqa_se_bf16": [_P] * 4 + [_I] * 8 + [_P],
+    "vqa_cross_attention_bf16": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,13 +151,24 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
 
 
-def require(t, name: str, shape=None, device=None) -> None:
-    """Raise unless ``t`` is a contiguous f32 tensor (of ``shape``, on
-    ``device``): what every kernel of this package takes."""
+# the element types the kernels take: each kernel has an f32 and a bf16 form
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtype(t, name: str, dtype=None) -> None:
+    """Raise unless ``t`` is f32 or bf16 (``dtype`` where given)."""
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def require(t, name: str, shape=None, device=None, dtype=None) -> None:
+    """Raise unless ``t`` is a contiguous f32 or bf16 tensor (of ``dtype``
+    and ``shape``, on ``device``): what every kernel of this package takes."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    check_dtype(t, name, dtype)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -4,7 +4,9 @@ Counterpart of ``vqa_tpu/ops/cross_attention_kernel.py``.
 ``fused_cross_attention`` launches the hand-written CUDA kernel
 ``csrc/cross_attention.cu`` on CUDA tensors and computes
 ``plain_cross_attention`` on CPU tensors. Layout [B, H, L, d] as in the
-JAX package; f32 throughout.
+JAX package. f32 inputs give f32 outputs; bf16 inputs launch the kernel's
+bf16 form (``fused_cross_attention_bf16``), which computes in f32 and
+writes both outputs in bf16, as the Pallas kernel does for bf16 blocks.
 
 q, k and v may be strided views — the model passes head-transposed views
 of its [B, L, H, d] projections — as long as the last dimension has unit
@@ -19,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from vqa_tpu_torch.ops._build import check, count_launch, load_library, stream_of
+from vqa_tpu_torch.ops._build import check, check_dtype, count_launch, load_library, stream_of
 
 MAX_D = 128       # head width the kernel takes
 MAX_LKV = 256     # keys per slice the kernel takes
@@ -39,8 +41,7 @@ def _validate(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        check_dtype(t, name, q.dtype if name != "q" else None)
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B,H,L,d], got {tuple(t.shape)}")
         if t.stride(-1) != 1:
@@ -68,38 +69,63 @@ def fused_cross_attention(
     """Attention core with the probabilities.
 
     Args:
-        q: [B, H, L_q, d] queries.
-        k, v: [B, H, L_kv, d] keys / values.
+        q: [B, H, L_q, d] queries, f32 or bf16.
+        k, v: [B, H, L_kv, d] keys / values, q's dtype.
         scale: divisor of the scores (√d).
 
     Returns:
-        (context [B, H, L_q, d], weights [B, H, L_q, L_kv]); on the card
-        the context is a view of [B, L_q, H, d] memory.
+        (context [B, H, L_q, d], weights [B, H, L_q, L_kv]) in q's dtype;
+        on the card the context is a view of [B, L_q, H, d] memory.
     """
     _validate(q, k, v)
     if q.device.type == "cpu":
         return plain_cross_attention(q, k, v, scale)
+    if q.dtype == torch.bfloat16:
+        return _launch(q, k, v, scale, "vqa_cross_attention_bf16", fused_cross_attention_bf16)
+    return _launch(q, k, v, scale, "vqa_cross_attention_f32", fused_cross_attention)
+
+
+def fused_cross_attention_bf16(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 form: q, k, v and both outputs bf16, f32 inside (the plain
+    version on CPU tensors). ``fused_cross_attention`` routes bf16 here."""
+    _validate(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"fused_cross_attention_bf16 takes bfloat16, got {q.dtype}")
+    if q.device.type == "cpu":
+        return plain_cross_attention(q, k, v, scale)
+    return _launch(q, k, v, scale, "vqa_cross_attention_bf16", fused_cross_attention_bf16)
+
+
+def _launch(q, k, v, scale, launcher: str, counter):
     b, h, lq, d = q.shape
     lkv = k.shape[2]
-    ctx = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device).transpose(1, 2)
-    w = torch.empty((b, h, lq, lkv), dtype=torch.float32, device=q.device)
+    ctx = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    w = torch.empty((b, h, lq, lkv), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, ctx) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):  # a new thread's current device is 0
-        rc = load_library().vqa_cross_attention_f32(
+        rc = getattr(load_library(), launcher)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(), w.data_ptr(),
             b, h, lq, lkv, d, *strides, 1.0 / scale, stream_of(q))
     check(rc, "cross_attention")
-    count_launch(fused_cross_attention)
+    count_launch(counter)
     return ctx, w
 
 
 fused_cross_attention.launches = 0
+fused_cross_attention_bf16.launches = 0
 
 
 def plain_cross_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same function in plain PyTorch ops (CPU path and on-card oracle)."""
+    """The same function in plain PyTorch ops (CPU path and on-card oracle).
+    bf16 inputs are computed in f32 and both outputs rounded once to bf16,
+    as the kernel's bf16 form does."""
+    if q.dtype == torch.bfloat16:
+        ctx, w = plain_cross_attention(q.float(), k.float(), v.float(), scale)
+        return ctx.to(torch.bfloat16), w.to(torch.bfloat16)
     scores = torch.matmul(q, k.transpose(-1, -2)) / scale
     w = torch.softmax(scores.float(), dim=-1)
     return torch.matmul(w, v), w

@@ -12,6 +12,11 @@ Shapes: x [B, H, W, 3] → [B, PH, PW, cout] with CH = ceil(H/2) conv rows
 and PH = ceil(CH/2) pool rows (224 → 112 → 56). Any H, W; 3 input
 channels and cout a multiple of 8 up to 64 (``stem_takes``). Everything
 else raises; the backbone routes other stems to its unfused layers.
+
+bf16 x and w launch the kernel's bf16 form (``fused_stem_bf16``): one
+bf16 tensor-core product per tap (exact in f32) accumulated in f32, the
+folded scale and bias f32, the output rounded once to bf16, as the Pallas
+kernel computes with w cast to x's dtype and an f32 affine.
 """
 
 from __future__ import annotations
@@ -43,9 +48,9 @@ def _validate(x, w, scale, bias) -> None:
         raise ValueError(
             f"the stem kernel takes NHWC x [B,H,W,3] and cout a multiple of 8 up to "
             f"{MAX_COUT}, got x {tuple(x.shape)} and weight {tuple(w.shape)}")
-    require(w, "w", (cout, 3, 7, 7), x.device)
-    require(scale, "scale", (cout,), x.device)
-    require(bias, "bias", (cout,), x.device)
+    require(w, "w", (cout, 3, 7, 7), x.device, x.dtype)
+    require(scale, "scale", (cout,), x.device, torch.float32)
+    require(bias, "bias", (cout,), x.device, torch.float32)
 
 
 def fused_stem(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -53,36 +58,60 @@ def fused_stem(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """relu(conv7x7/2(x, w) * scale + bias), then maxpool 3x3/2 pad 1.
 
     Args:
-        x: [B, H, W, 3] NHWC f32 (normalized pixels).
-        w: [cout, 3, 7, 7] OIHW conv weight.
-        scale: [cout] folded BN scale, gamma / sqrt(var + eps).
-        bias: [cout] folded BN bias, beta - mean * scale.
+        x: [B, H, W, 3] NHWC f32 or bf16 (normalized pixels).
+        w: [cout, 3, 7, 7] OIHW conv weight, x's dtype.
+        scale: [cout] folded BN scale, gamma / sqrt(var + eps), f32.
+        bias: [cout] folded BN bias, beta - mean * scale, f32.
 
     Returns:
-        [B, PH, PW, cout] NHWC, contiguous.
+        [B, PH, PW, cout] NHWC in x's dtype, contiguous.
     """
     _validate(x, w, scale, bias)
     if x.device.type == "cpu":
         return plain_stem(x, w, scale, bias)
+    if x.dtype == torch.bfloat16:
+        return _launch(x, w, scale, bias, "vqa_stem_bf16", fused_stem_bf16)
+    return _launch(x, w, scale, bias, "vqa_stem_f32", fused_stem)
+
+
+def fused_stem_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """The bf16 form: x, w and the output bf16, scale and bias f32 (the
+    plain version on CPU tensors). ``fused_stem`` routes bf16 here."""
+    _validate(x, w, scale, bias)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_stem_bf16 takes bfloat16, got {x.dtype}")
+    if x.device.type == "cpu":
+        return plain_stem(x, w, scale, bias)
+    return _launch(x, w, scale, bias, "vqa_stem_bf16", fused_stem_bf16)
+
+
+def _launch(x, w, scale, bias, launcher: str, counter) -> torch.Tensor:
     b, h, wd, _ = x.shape
     cout = w.shape[0]
     ph, pw = stem_output_hw(h, wd)
-    out = torch.empty((b, ph, pw, cout), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, ph, pw, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):  # a new thread's current device is 0
-        rc = load_library().vqa_stem_f32(
+        rc = getattr(load_library(), launcher)(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, h, wd, cout, stream_of(x))
     check(rc, "stem")
-    count_launch(fused_stem)
+    count_launch(counter)
     return out
 
 
 fused_stem.launches = 0
+fused_stem_bf16.launches = 0
 
 
 def plain_stem(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
-    """The same function in plain PyTorch ops (CPU path and on-card oracle)."""
+    """The same function in plain PyTorch ops (CPU path and on-card oracle).
+    bf16 inputs go through the f32 function on their exact f32 values (each
+    bf16 product is exact in f32, the sums f32) and the output is rounded
+    once to bf16, as the kernel's bf16 form does."""
+    if x.dtype == torch.bfloat16:
+        return plain_stem(x.float(), w.float(), scale, bias).to(torch.bfloat16)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=2, padding=3)
     y = torch.relu(y * scale[:, None, None] + bias[:, None, None])
     y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)

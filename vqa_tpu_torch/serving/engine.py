@@ -22,10 +22,16 @@ else a seeded random model. The JAX package's Orbax checkpoints are not
 read yet: export one with ``python -m vqa_tpu.compat.torch_export`` first.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU,
-and raises when no CUDA device is present. It computes in f32 and, on the
-card, turns TF32 off for cuDNN convolutions and matmuls: cuDNN's TF32
-default keeps ~3 decimal digits per conv, which over the backbone's 17
-convs would spend the whole 1e-3 logit budget the port is held to.
+and raises when no CUDA device is present. Its compute dtype is the JAX
+engine's (``engine.py:83-87``): ``dtype=None`` picks bf16 on the card and
+f32 on the CPU, and an explicit ``dtype`` overrides either. In bf16 the
+model computes from bf16 copies of its weights and runs the kernels' bf16
+forms (``models/layers.py``); pixels are normalized in f32 and then cast,
+and the logits, probabilities and attention maps come back f32. On the
+card the engine turns TF32 off for cuDNN convolutions and matmuls, which
+matters for f32: cuDNN's TF32 default keeps ~3 decimal digits per conv,
+which over the backbone's 17 convs would spend the whole 1e-3 logit budget
+the f32 port is held to.
 """
 
 from __future__ import annotations
@@ -69,15 +75,16 @@ _REFERENCE_CONFIG_KEYS = (
 )
 
 
-def load_reference_checkpoint(path: str, device) -> VQAModel:
-    """A reference-schema ``.pth`` → a model on ``device``, loaded strictly."""
+def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAModel:
+    """A reference-schema ``.pth`` → a model on ``device``, loaded strictly,
+    computing in ``dtype``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     state_dict = ckpt.get("model_state_dict", ckpt)
     ref_cfg = ckpt.get("config", {}) if isinstance(ckpt, dict) else {}
     cfg = ModelConfig(**{k: ref_cfg[k] for k in _REFERENCE_CONFIG_KEYS if k in ref_cfg})
     model = create_vqa_model(config=cfg, device="cpu")
     model.load_state_dict(state_dict, strict=True)
-    return model.to(device)
+    return model.to(device).set_compute_dtype(dtype)
 
 
 class VQAInference:
@@ -91,6 +98,7 @@ class VQAInference:
         model_config: Optional[ModelConfig] = None,
         device="cuda",
         seed: int = 0,
+        dtype: Optional[torch.dtype] = None,
     ):
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_name = checkpoint_name
@@ -98,6 +106,8 @@ class VQAInference:
         self._model_config = model_config
         self.device = resolve_device(device)
         self.seed = seed
+        # the JAX engine's policy: bf16 off the CPU unless a dtype is given
+        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.model: Optional[VQAModel] = None
         self.tokenizer: Optional[Tokenizer] = None
         self.answer_vocab: Optional[AnswerVocabulary] = None
@@ -115,7 +125,8 @@ class VQAInference:
             path = os.path.join(self.checkpoint_dir, self.checkpoint_name)
             if ckpt_lib.checkpoint_exists(self.checkpoint_dir, self.checkpoint_name):
                 self.model = ckpt_lib.load_model_for_inference(
-                    self.checkpoint_dir, self.checkpoint_name, device=self.device)
+                    self.checkpoint_dir, self.checkpoint_name, device=self.device,
+                    dtype=self.dtype)
                 loaded = True
                 print(f"[Inference] loaded checkpoint {self.checkpoint_name}")
             elif os.path.isdir(path):
@@ -125,14 +136,14 @@ class VQAInference:
                     "`python -m vqa_tpu.compat.torch_export --checkpoint-dir ... "
                     "--out X.pth` and load the .pth")
             elif path.endswith(".pth") and os.path.exists(path):
-                self.model = load_reference_checkpoint(path, self.device)
+                self.model = load_reference_checkpoint(path, self.device, self.dtype)
                 loaded = True
                 print(f"[Inference] loaded PyTorch checkpoint {path}")
         if not loaded:
             print("[Inference] no checkpoint — using randomly initialized model")
             self.model = create_vqa_model(
                 config=self._model_config or ModelConfig(), device=self.device,
-                seed=self.seed)
+                seed=self.seed, dtype=self.dtype)
         self.model_loaded_from_checkpoint = loaded
         mcfg = self.model.config
 

@@ -45,6 +45,8 @@ import threading
 import time
 
 READY_MARKER = "[API] serving on "
+# how long Worker.stop waits for the pump to echo an exited child's last lines
+PUMP_JOIN_S = 5.0
 
 
 def rss_mb(pid: int) -> float:
@@ -77,18 +79,20 @@ class Worker:
     def _pump(self):
         assert self.proc.stdout is not None
         for line in self.proc.stdout:
-            # Spot readiness BEFORE echoing: if our own stdout is a pipe
-            # whose reader died (observed: harness killed mid-recycle), the
-            # echo raises BrokenPipeError — that must not stop us from
-            # marking the worker ready, or the recycle wedges on a worker
-            # that is in fact serving.
-            if READY_MARKER in line:
-                self.ready.set()
+            # Echo, then mark readiness: whoever waits on ``ready`` (the
+            # supervisor's "ready" event) comes after the worker's own line
+            # in our output. If our own stdout is a pipe whose reader died
+            # (observed: harness killed mid-recycle), the echo raises
+            # BrokenPipeError — that must not stop us from marking the
+            # worker ready, or the recycle wedges on a worker that is in
+            # fact serving.
             try:
                 sys.stdout.write(f"[worker {self.proc.pid}] {line}")
                 sys.stdout.flush()
             except OSError:
                 pass  # keep draining the child's pipe so it never blocks
+            if READY_MARKER in line:
+                self.ready.set()
 
     @property
     def pid(self) -> int:
@@ -98,15 +102,19 @@ class Worker:
         return self.proc.poll() is None
 
     def stop(self, drain_grace: float):
-        """SIGTERM (worker drains in-flight requests), escalate to kill."""
-        if not self.alive():
-            return self.proc.poll()
-        self.proc.send_signal(signal.SIGTERM)
-        try:
-            return self.proc.wait(timeout=drain_grace)
-        except subprocess.TimeoutExpired:
-            self.proc.kill()
-            return self.proc.wait()
+        """SIGTERM (worker drains in-flight requests), escalate to kill;
+        then wait, at most ``PUMP_JOIN_S``, until the pump has echoed the
+        child's last lines (the server's "drained; exiting" arrives just
+        before the child exits, and the supervisor may exit right after)."""
+        if self.alive():
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=drain_grace)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._pump_thread.join(timeout=PUMP_JOIN_S)
+        return self.proc.returncode
 
 
 def _event(kind: str, t0: float, **kw):

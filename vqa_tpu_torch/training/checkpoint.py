@@ -147,13 +147,16 @@ def checkpoint_exists(base_dir: str, name: str) -> bool:
     return os.path.exists(stem + _DATA) and os.path.exists(stem + _META)
 
 
-def load_model_for_inference(base_dir: str, name: str = "best_model", device="cuda"):
+def load_model_for_inference(base_dir: str, name: str = "best_model", device="cuda",
+                             dtype=None):
     """The model of a checkpoint, rebuilt from the sidecar's full config
-    (CNN geometry included), loaded strictly, in eval mode on ``device``."""
+    (CNN geometry included), loaded strictly, in eval mode on ``device``,
+    computing in ``dtype`` (default f32, as the JAX loader's; the weights
+    stay f32)."""
     from vqa_tpu_torch.models.vqa_model import create_vqa_model, resolve_device
 
     device = resolve_device(device)
     payload, cfg, _ = load_checkpoint(base_dir, name)
     model = create_vqa_model(config=cfg, device="cpu")
     model.load_state_dict(payload["model_state_dict"], strict=True)
-    return model.to(device).eval()
+    return model.to(device).eval().set_compute_dtype(dtype or torch.float32)
