@@ -69,7 +69,11 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     stem, SE and cross-attention kernels against their bf16 plain versions
     at the bucket-32 shapes, within one bf16 ulp per element, timed beside
     their bf16 bounds (bytes over 3.35 TB/s or operations over 989 TFLOP/s)
-    and, for cross-attention, SDPA in bf16; (b) the default engine, bf16 on
+    and, for cross-attention, SDPA in bf16; the stem also at buckets 1 and
+    8, each with its launch plan (``stem_plan``; the library's shared
+    memory must match it, and the engine's stem must take the TMA route)
+    and cuDNN's bf16 channels_last conv alone as a yardstick (conv only,
+    not the same function); (b) the default engine, bf16 on
     the card: each request's spread over buckets 1-32 measured first (cuDNN
     may take another algorithm per batch size), then phase 3's entry
     points with the bf16 forms launched 1, 4 and 2 times per forward and
@@ -134,6 +138,7 @@ F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12    # H100 SXM, TF32 on the tensor cores, dense
 BF16_FLOP_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores, dense
 BUCKET = 32
+STEM_BUCKETS = (1, 8, BUCKET)  # the bf16 stem is timed at these batch buckets (phase 11 (a))
 SE_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))  # (H = W, C) at 224 px
 
 
@@ -1377,12 +1382,16 @@ def bound16_ms(nbytes: float, flops: float):
 def check_kernels_bf16(torch, engine, rng):
     """(a) Each bf16 form against its bf16 plain version on the card at the
     main path's bucket-32 shapes (within one bf16 ulp per element), with
-    times and bf16 bounds per forward."""
+    times and bf16 bounds per forward; the stem also at buckets 1 and 8,
+    with its launch plan (the library's shared memory held to stem_plan's)
+    and cuDNN's bf16 conv alone as a yardstick."""
     import torch.nn.functional as F
 
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.data.preprocess import device_normalize
+    from vqa_tpu_torch.ops._build import load_library
     from vqa_tpu_torch.ops.se_kernel import max_active_clusters, se_plan
+    from vqa_tpu_torch.ops.stem_kernel import stem_plan
 
     dev, model, bf16 = engine.device, engine.model, torch.bfloat16
     results = {}
@@ -1396,28 +1405,52 @@ def check_kernels_bf16(torch, engine, rng):
         require(got.dtype == bf16 and c["ok"], f"{name} disagrees with its plain version")
         return err
 
-    # ---- stem --------------------------------------------------------
+    # ---- stem, at buckets 1, 8 and 32 ---------------------------------
     size = model.config.image_size
-    pixels = torch.from_numpy(
-        rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)).to(dev)
-    x = device_normalize(pixels).to(bf16).contiguous()
     w = model.image_encoder.stem[0].compute("weight")
     cout = w.shape[0]
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(dev)
     bias = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(dev)
-    got = ops.fused_stem(x, w, scale, bias)
-    err = check(f"stem bf16 {tuple(x.shape)} -> {tuple(got.shape)}", got,
-                ops.plain_stem(x, w, scale, bias), STEM_BF16_ATOL)
     ch = (size - 1) // 2 + 1
-    bnd, by = bound16_ms(2 * (x.numel() + w.numel() + got.numel()) + 8 * cout,
-                         2 * BUCKET * ch * ch * cout * 147)
-    (k_ms, k_call), (p_ms, p_call) = (
-        time_ms(torch, lambda: ops.fused_stem(x, w, scale, bias), 20),
-        time_ms(torch, lambda: ops.plain_stem(x, w, scale, bias), 20))
+    buckets = {}
+    for b in STEM_BUCKETS:
+        pixels = torch.from_numpy(
+            rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)).to(dev)
+        x = device_normalize(pixels).to(bf16).contiguous()
+        plan = stem_plan(b, size, size, cout, 2, x.data_ptr() % 16 == 0)
+        lib_smem = load_library().vqa_stem_bf16_smem_bytes()
+        log(f"stem bf16 plan at B={b}: tiles of {plan.tile[0]}x{plan.tile[1]} pool outputs, "
+            f"{plan.tiles} tiles, {plan.blocks_per_sm} blocks per SM (grid {plan.grid}), "
+            f"{plan.smem_bytes} bytes of shared memory per block (the library's layout: "
+            f"{lib_smem}), the patch by "
+            f"{'TMA' if plan.tma else 'plain loads'}")
+        require(lib_smem == plan.smem_bytes,
+                f"stem_plan's {plan.smem_bytes} bytes of shared memory against the library's "
+                f"{lib_smem}")
+        require(plan.tma, f"the engine's stem at B={b} does not take the TMA route")
+        got = ops.fused_stem(x, w, scale, bias)
+        err = check(f"stem bf16 {tuple(x.shape)} -> {tuple(got.shape)}", got,
+                    ops.plain_stem(x, w, scale, bias), STEM_BF16_ATOL)
+        bnd, by = bound16_ms(2 * (x.numel() + w.numel() + got.numel()) + 8 * cout,
+                             2 * b * ch * ch * cout * 147)
+        (k_ms, k_call), (p_ms, p_call) = (
+            time_ms(torch, lambda: ops.fused_stem(x, w, scale, bias), 20),
+            time_ms(torch, lambda: ops.plain_stem(x, w, scale, bias), 20))
+        # cuDNN's bf16 conv alone on the same NHWC memory (channels_last): a
+        # yardstick for the conv, not the same function (no BN, ReLU or pool)
+        xc = x.permute(0, 3, 1, 2)
+        conv_ms, _ = time_ms(torch, lambda: F.conv2d(xc, w, stride=2, padding=3), 20)
+        log(f"stem bf16 at B={b}: kernel {k_ms:.4f} ms on the device ({k_call:.4f} ms per "
+            f"call), plain {p_ms:.4f} ms, bound {bnd:.4f} ms ({by}); cuDNN bf16 conv only "
+            f"(not the same function) {conv_ms:.4f} ms")
+        buckets[b] = dict(max_abs_err=err, ms=k_ms, call_ms=k_call, plain_ms=p_ms,
+                          plain_call_ms=p_call, bound_ms=bnd, bound_by=by,
+                          cudnn_conv_only_ms=conv_ms)
     results["stem_bf16"] = dict(
         route="cuda", source="vqa_tpu_torch/csrc/stem.cu",
-        replaces="vqa_tpu/ops/stem_kernel.py:141", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        call_ms=k_call, plain_call_ms=p_call, bound_ms=bnd, bound_by=by, library_ms=None)
+        replaces="vqa_tpu/ops/stem_kernel.py:141", **buckets[BUCKET], library_ms=None,
+        buckets=buckets)
+    results["stem_bf16"]["max_abs_err"] = max(r["max_abs_err"] for r in buckets.values())
 
     # ---- SE, at the four stage shapes ---------------------------------
     se = dict(route="cuda", source="vqa_tpu_torch/csrc/se.cu",

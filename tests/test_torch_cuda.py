@@ -382,21 +382,74 @@ def _stem_ok(got, want) -> bool:
     return chip_smoke.bf16_compare(torch, got, want, chip_smoke.STEM_BF16_ATOL)["ok"]
 
 
-@pytest.mark.parametrize("b,h,w,cout", [(2, 224, 224, 64), (3, 64, 64, 8),
-                                        (1, 37, 50, 16), (2, 17, 9, 24), (1, 1, 1, 8),
-                                        (33, 224, 224, 64), (32, 224, 224, 64)])
-def test_bf16_stem_kernel_matches_plain(cuda, b, h, w, cout):
+def _bf16_stem_case(cuda, b, h, w, cout, offset=0):
+    """x [b,h,w,3] bf16 (a view ``offset`` elements into its storage), w,
+    scale and bias: the kernel's output against plain_stem, with the route
+    stem_plan chose and the launch counters checked."""
+    from vqa_tpu_torch.ops.stem_kernel import stem_plan
+
     rng = np.random.default_rng(0)
     x = _randn(rng, (b, h, w, 3), cuda).bfloat16()
+    if offset:
+        base = torch.zeros(x.numel() + offset, dtype=torch.bfloat16, device=cuda)
+        base[offset:] = x.reshape(-1)
+        x = base[offset:].view(b, h, w, 3)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
     wt = _randn(rng, (cout, 3, 7, 7), cuda, 0.05).bfloat16()
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(cuda)
     bias = _randn(rng, (cout,), cuda, 0.1)
+    plan = stem_plan(b, h, w, cout, 2, x.data_ptr() % 16 == 0)
     before = ops.fused_stem_bf16.launches, ops.fused_stem.launches
     got = ops.fused_stem(x, wt, scale, bias)
     torch.cuda.synchronize()
     assert (ops.fused_stem_bf16.launches, ops.fused_stem.launches) == (before[0] + 1, before[1])
     assert got.dtype == torch.bfloat16
     assert _stem_ok(got, ops.plain_stem(x, wt, scale, bias))
+    return plan
+
+
+# TMA where W % 8 == 0 and x is 16-byte aligned, else plain loads; B = 1,
+# 8, 32 and 64 at 224 px, 33 (a ragged last wave), odd sizes on both routes
+@pytest.mark.parametrize("b,h,w,cout", [(2, 224, 224, 64), (3, 64, 64, 8),
+                                        (1, 37, 50, 16), (2, 17, 9, 24), (1, 1, 1, 8),
+                                        (33, 224, 224, 64), (32, 224, 224, 64),
+                                        (2, 224, 222, 64), (1, 224, 224, 64),
+                                        (8, 224, 224, 64), (64, 224, 224, 64),
+                                        (2, 37, 40, 16)])
+def test_bf16_stem_kernel_matches_plain(cuda, b, h, w, cout):
+    plan = _bf16_stem_case(cuda, b, h, w, cout)
+    assert plan.tma == (w % 8 == 0)
+
+
+# a view with a storage offset: not 16-byte aligned, so the plain-load route
+@pytest.mark.parametrize("b,h,w,cout,offset", [(2, 224, 224, 64, 1), (1, 64, 64, 8, 3)])
+def test_bf16_stem_kernel_takes_an_unaligned_x(cuda, b, h, w, cout, offset):
+    assert not _bf16_stem_case(cuda, b, h, w, cout, offset).tma
+
+
+def test_bf16_stem_kernel_refuses_an_inconsistent_plan(cuda):
+    """The launcher checks the plan against its own layout and refuses TMA
+    where x cannot take it, rather than launching a kernel that faults."""
+    from vqa_tpu_torch.ops._build import load_library
+    from vqa_tpu_torch.ops.stem_kernel import stem_plan
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for w, offset in ((64, 0), (60, 0), (64, 1)):
+        base = torch.zeros(2 * 64 * w * 3 + offset, dtype=torch.bfloat16, device=cuda)
+        x = base[offset:].view(2, 64, w, 3)
+        wt = torch.zeros(64, 3, 7, 7, dtype=torch.bfloat16, device=cuda)
+        sb = torch.zeros(64, device=cuda)
+        out = torch.empty(2, 16, (w + 3) // 4, 64, dtype=torch.bfloat16, device=cuda)
+        p = stem_plan(2, 64, w, 64, 2, x.data_ptr() % 16 == 0)
+        args = (x.data_ptr(), wt.data_ptr(), sb.data_ptr(), sb.data_ptr(), out.data_ptr(), 2, 64,
+                w, 64)
+        assert p.tma == (w == 64 and offset == 0)
+        assert lib.vqa_stem_bf16(*args, int(p.tma), p.smem_bytes, stream) == 0
+        assert lib.vqa_stem_bf16(*args, int(p.tma), p.smem_bytes + 16, stream) != 0
+        if not p.tma:
+            assert lib.vqa_stem_bf16(*args, 1, p.smem_bytes, stream) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("b,h,w,c,r", [

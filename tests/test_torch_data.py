@@ -324,6 +324,15 @@ def test_prefetch_to_device_yields_the_batches_as_tensors():
                 assert g[k] == v
 
 
+def test_prefetch_to_device_defaults_to_the_card():
+    """The JAX helper places batches on the default device (the chip); the
+    port's takes the card unless the caller passes "cpu"."""
+    import inspect
+
+    sig = inspect.signature(pipeline.prefetch_to_device)
+    assert sig.parameters["device"].default == "cuda"
+
+
 def test_prefetch_to_device_raises_the_producers_error():
     def broken():
         yield {"x": np.zeros(2)}

@@ -54,10 +54,12 @@ def _ready(batch: dict, event, device: torch.device) -> dict:
     return batch
 
 
-def prefetch_to_device(iterable: Iterable[dict], device="cpu", size: int = 2
+def prefetch_to_device(iterable: Iterable[dict], device="cuda", size: int = 2
                        ) -> Iterator[dict]:
     """Yield the batches of ``iterable`` (dicts of numpy arrays plus scalar
-    metadata) with every array as a tensor on ``device``.
+    metadata) with every array as a tensor on ``device``: the card unless
+    the caller passes ``"cpu"``, as the JAX helper places batches on the
+    default device.
 
     ``size`` bounds how many numpy batches the producer thread holds ready
     (2 = double buffering). An exception in the producer is raised in the

@@ -58,7 +58,8 @@ _SIGNATURES = {
     "vqa_cross_attention_f32": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     # the bf16 forms: the same arguments, x/w/q/k/v and outputs in bf16 (the
     # stem's scale and bias stay f32)
-    "vqa_stem_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the stem's: + the plan (TMA, shared-memory bytes)
+    "vqa_stem_bf16": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "vqa_se_bf16": [_P] * 4 + [_I] * 8 + [_P],
     "vqa_cross_attention_bf16": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
 }
