@@ -56,7 +56,8 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     whole within 10x that noise; parameters within 2·lr (a first AdamW
     step is near a sign function); (b) the Trainer's step overfits one batch of 32
     (loss halved in 30 steps at lr 1e-3); (c) ``python -m
-    vqa_tpu_torch.training.train --synthetic --epochs 1 --device-aug``,
+    vqa_tpu_torch.training.train --synthetic --epochs 1 --device-aug
+    --no-bf16`` (f32, which (d) and phase 11 (e) hold to f32 tolerances),
     run in this process to count kernel launches: none in train steps
     (training mode takes the plain paths), 1, 4 and 2 per validation
     forward, ``latest`` and ``best_model`` written with sidecars; (d) the
@@ -89,7 +90,30 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     vqa_tpu_torch.training.evaluate --synthetic`` on phase 10's checkpoint
     in f32 and ``--bf16``: f32 top-1 equal to the trainer's validation,
     each evaluation forward launching the f32 or the bf16 forms 1, 4 and 2
-    times, the artifacts written.
+    times, the artifacts written;
+12. bf16 training at full width: (a) one bf16 train step on the card
+    against the same step on the CPU (batch 8, dropout off), each beside
+    its f32 step: per tensor, clipped gradients and BN statistics within
+    twice the CPU's own bf16 noise plus floors (a stated few tensors within
+    four times it), the card's own noise at most twice the CPU's,
+    parameters within 2·lr;
+    (b) ``python -m vqa_tpu_torch.training.train --synthetic --epochs 12
+    --batch-size 64 --subset-size 2000 --device-aug --num-workers 4`` (bf16,
+    the default on the card) in this process: no kernel in any train step,
+    each validation forward launching the bf16 forms 1, 4 and 2 times and
+    the f32 forms none, val top-1 and top-5 and seconds per epoch, best
+    val top-1 >= 0.70 (JAX on its chip: 0.8025), then ``evaluate
+    --synthetic --bf16`` on its best_model; (c) bf16 train ms per step,
+    pairs/s, busy share and peak memory at batch 32 and 256 beside phase 10
+    (f)'s f32; (d) remat none, stages and full at batch 256 in bf16 from
+    the same weights and dropout masks, the first step with deterministic
+    cuDNN: its loss equal to none's, its clipped gradients and BN
+    statistics within 1e-6 (bit equality logged), BN counted once, ms per step and peak
+    memory; (e) a batch with one NaN pixel stops a ``debug_nans`` step with
+    FloatingPointError; (f) one f32 step with ``stem_s2d`` against the
+    same step without it: the loss within 1e-5, the rest held as phase 10
+    (a) holds the card's step as the trainer runs it, to the noise of the
+    plain step on the batch in another order and with cuDNN off.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -110,8 +134,10 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit; before that, one JSON line of per-kernel
 numbers for the six forms (launches counted over the f32 engine's main
 path of phase 3 for the f32 forms, over the bf16 engine's of phase 11 (b)
-for the bf16 ones), and before that the ``bf16``, ``training``,
-``serving`` (load bench, HTTP phase, supervisor) and ``engine`` lines.
+for the bf16 ones; beside them, ``launches_bf16_training_validation``,
+each form's launches over phase 12 (b)'s validation forwards), and before
+that the ``bf16_training``, ``bf16``, ``training``, ``serving`` (load
+bench, HTTP phase, supervisor) and ``engine`` lines.
 """
 
 from __future__ import annotations
@@ -998,13 +1024,14 @@ def synthetic_batch(cfg, batch: int, seed: int = 0):
     return [b["image"], b["token_ids"], b["attention_mask"], b["answer"]]
 
 
-def one_train_step(torch, cfg, where, arrays, lr: float, seed: int = 11):
-    """(model after one train step from seeded weights, its metrics)."""
+def one_train_step(torch, cfg, where, arrays, lr: float, seed: int = 11, **model_kw):
+    """(model after one train step from seeded weights, its metrics);
+    ``model_kw`` (``dtype``, ``stem_s2d``) go to ``create_vqa_model``."""
     from vqa_tpu_torch.models import create_vqa_model
     from vqa_tpu_torch.training.train import TrainState, make_train_step
     from vqa_tpu_torch.utils.config import TrainingConfig
 
-    model = create_vqa_model(config=cfg, device=where, seed=seed)
+    model = create_vqa_model(config=cfg, device=where, seed=seed, **model_kw)
     state = TrainState.create(
         model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
     metrics = make_train_step(model)(state, *(torch.from_numpy(a).to(where) for a in arrays))
@@ -1065,7 +1092,7 @@ def compare_train_steps(torch, cpu, cpu_noise, card, lr: float) -> dict:
     card_params = dict(m_card.named_parameters())
     param_err, flipped = 0.0, 0
     for name, p in m_cpu.named_parameters():
-        d = (card_params[name].detach().cpu() - p.detach()).abs()
+        d = (card_params[name].detach().cpu() - p.detach().cpu()).abs()
         param_err = max(param_err, float(d.max()))
         flipped += int((d > lr).sum())
     if param_err > 2 * lr + 1e-6:
@@ -1149,56 +1176,73 @@ def overfit_one_batch(torch, cfg, device, steps: int = 30) -> dict:
     return dict(first_loss=losses[0], last_loss=losses[-1], steps=steps)
 
 
-def drive_train_cli(torch, tmp: str, extra=()) -> tuple:
-    """(c) ``python -m vqa_tpu_torch.training.train --synthetic --epochs 1``,
-    in this process so the kernel launches of each train epoch and each
-    validation can be counted. Returns (the CLI's Trainer, a summary)."""
+def drive_train_cli(torch, tmp: str, extra=(), argv=None, form: str = "") -> tuple:
+    """(c) ``python -m vqa_tpu_torch.training.train --synthetic --epochs 1``
+    (or ``argv``), in this process so the kernel launches of each train
+    epoch and each validation can be counted: no kernel in any train
+    epoch; each validation forward launches the forms of ``form`` ("" f32,
+    "_bf16") of the stem, SE and cross-attention 1, 4 and 2 times, and the
+    other forms none. Returns (the CLI's Trainer, a summary with the
+    launches and seconds of every epoch)."""
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.training import checkpoint as ckpt_lib
     from vqa_tpu_torch.training import train as train_mod
 
-    seen = {}
+    seen = {"trainer": None, "epochs": []}
     train_epoch, validate = train_mod.Trainer.train_epoch, train_mod.Trainer.validate
 
     def counted_train_epoch(self, epoch):
         seen["trainer"] = self
         ops.reset_launch_counts()
+        t0 = time.perf_counter()
         out = train_epoch(self, epoch)
-        seen["train_launches"] = ops.launch_counts()
-        seen["train_steps"] = len(self.train_loader)
+        seen["epochs"].append(dict(epoch=epoch, train_launches=ops.launch_counts(),
+                                   train_steps=len(self.train_loader),
+                                   train_s=time.perf_counter() - t0))
         return out
 
     def counted_validate(self):
         ops.reset_launch_counts()
+        t0 = time.perf_counter()
         out = validate(self)
-        seen["val_launches"] = ops.launch_counts()
-        seen["val_forwards"] = len(self.val_loader)
+        seen["epochs"][-1].update(val_launches=ops.launch_counts(),
+                                  val_forwards=len(self.val_loader),
+                                  val_s=time.perf_counter() - t0,
+                                  val_top1=out["val_top1"], val_top5=out["val_top5"])
         return out
 
-    argv = ["--synthetic", "--epochs", "1", "--subset-size", "640", "--device-aug",
-            "--num-workers", "4", "--checkpoint-dir", tmp, *extra]
+    if argv is None:
+        argv = ["--synthetic", "--epochs", "1", "--subset-size", "640", "--device-aug",
+                "--num-workers", "4"]
+    argv = [*argv, "--checkpoint-dir", tmp, *extra]
     t0 = time.perf_counter()
     with mock.patch.object(train_mod.Trainer, "train_epoch", counted_train_epoch), \
             mock.patch.object(train_mod.Trainer, "validate", counted_validate):
         logger = train_mod.main(argv)
     wall = time.perf_counter() - t0
     trainer = seen["trainer"]
-    log(f"train CLI ({' '.join(argv)}): {wall:.1f} s; {seen['train_steps']} train steps "
-        f"launched {seen['train_launches']}; {seen['val_forwards']} validation forwards "
-        f"launched {seen['val_launches']}; history {logger.history}")
-    require(all(math.isfinite(v[0]) for v in logger.history.values()), "non-finite metrics")
-    require(all(v == 0 for v in seen["train_launches"].values()),
-            f"kernels launched during train steps: {seen['train_launches']}")
-    for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
-        require(seen["val_launches"][name] == per_forward * seen["val_forwards"],
-                f"validation: {name} launched {seen['val_launches'][name]} times in "
-                f"{seen['val_forwards']} forwards")
+    other = "_bf16" if not form else ""
+    for e in seen["epochs"]:
+        log(f"train CLI epoch {e['epoch']}: {e['train_steps']} train steps in "
+            f"{e['train_s']:.1f} s launched {e['train_launches']}; {e['val_forwards']} "
+            f"validation forwards in {e['val_s']:.1f} s launched {e['val_launches']}; val "
+            f"top-1 {e['val_top1']:.4f}, top-5 {e['val_top5']:.4f}")
+        require(all(v == 0 for v in e["train_launches"].values()),
+                f"kernels launched during train steps: {e['train_launches']}")
+        for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+            require(e["val_launches"][name + form] == per_forward * e["val_forwards"]
+                    and e["val_launches"][name + other] == 0,
+                    f"validation: launches {e['val_launches']} in {e['val_forwards']} forwards")
+    log(f"train CLI ({' '.join(argv)}): {wall:.1f} s; history {logger.history}")
+    require(all(math.isfinite(v) for vs in logger.history.values() for v in vs
+                if isinstance(v, float)), "non-finite metrics")
     for name in ("latest", "best_model"):
         require(ckpt_lib.checkpoint_exists(tmp, name), f"no {name} checkpoint with sidecar")
-    return trainer, dict(seconds=wall, train_steps=seen["train_steps"],
-                         train_launches=seen["train_launches"],
-                         val_forwards=seen["val_forwards"], val_launches=seen["val_launches"],
-                         val_top1=logger.history["val_top1"][0])
+    first = seen["epochs"][0]
+    return trainer, dict(seconds=wall, train_steps=first["train_steps"],
+                         train_launches=first["train_launches"],
+                         val_forwards=first["val_forwards"], val_launches=first["val_launches"],
+                         val_top1=logger.history["val_top1"][-1], epochs=seen["epochs"])
 
 
 def engine_from_checkpoint(torch, trainer, tmp: str, rng) -> float:
@@ -1260,10 +1304,12 @@ def resume_matches(torch, trainer, tmp: str) -> float:
     return err
 
 
-def train_timing(torch, cfg, device, batch: int, steps: int = 12) -> dict:
-    """(f) Train pairs/s and ms per step at ``batch``: CUDA events over
-    ``steps`` steady steps after 3 warm-up steps, the device's busy share
-    from a profiler window of 5 steps, and peak memory."""
+def train_timing(torch, cfg, device, batch: int, steps: int = 12, dtype=None,
+                 remat: str = "none") -> dict:
+    """(f) Train pairs/s and ms per step at ``batch`` (f32 unless ``dtype``,
+    with ``remat``): CUDA events over ``steps`` steady steps after 3
+    warm-up steps, the device's busy share from a profiler window of 5
+    steps, and peak memory."""
     from torch.profiler import ProfilerActivity, profile
 
     from vqa_tpu_torch.models import create_vqa_model
@@ -1279,9 +1325,10 @@ def train_timing(torch, cfg, device, batch: int, steps: int = 12) -> dict:
         rng.integers(0, cfg.num_answers, batch).astype(np.int32))]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    model = create_vqa_model(config=cfg, device=device, seed=13)
+    model = create_vqa_model(config=cfg, device=device, seed=13,
+                             dtype=dtype or torch.float32)
     state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 100)
-    step = make_train_step(model)
+    step = make_train_step(model, remat=remat)
     for _ in range(3):
         step(state, *args)
     torch.cuda.synchronize(device)
@@ -1304,8 +1351,10 @@ def train_timing(torch, cfg, device, batch: int, steps: int = 12) -> dict:
     require(math.isfinite(float(m["loss"])), "non-finite loss in the timed steps")
     out = dict(batch=batch, step_ms=step_ms, pairs_per_s=batch / step_ms * 1e3,
                device_busy_ms_per_step=busy_ms / window,
-               device_busy_share=busy_ms / wall_ms, peak_memory_bytes=peak, steps=steps)
-    log(f"train step at B={batch}: {step_ms:.3f} ms ({out['pairs_per_s']:.1f} pairs/s, CUDA "
+               device_busy_share=busy_ms / wall_ms, peak_memory_bytes=peak, steps=steps,
+               dtype=str(model.dtype).replace("torch.", ""), remat=remat)
+    log(f"train step at B={batch}, {out['dtype']}, remat {remat}: {step_ms:.3f} ms "
+        f"({out['pairs_per_s']:.1f} pairs/s, CUDA "
         f"events over {steps} steps); profiled window: card busy {busy_ms / window:.3f} ms "
         f"per step, {100 * out['device_busy_share']:.1f}% of the wall time; peak memory "
         f"{peak / 2**30:.2f} GiB")
@@ -1328,7 +1377,9 @@ def drive_training(torch, rng, tmp: str) -> dict:
     t0 = time.perf_counter()
     out = {"card_vs_cpu": step_card_vs_cpu(torch, cfg, device)}
     out["overfit"] = overfit_one_batch(torch, cfg, device)
-    trainer, out["cli"] = drive_train_cli(torch, tmp)
+    # f32 (--no-bf16): (d) and phase 11 (e) hold f32 tolerances against it
+    trainer, out["cli"] = drive_train_cli(torch, tmp, extra=("--no-bf16",))
+    require(trainer.model.dtype == torch.float32, f"--no-bf16 trained in {trainer.model.dtype}")
     out["engine_prob_err"] = engine_from_checkpoint(torch, trainer, tmp, rng)
     out["resume_loss_err"] = resume_matches(torch, trainer, tmp)
     del trainer
@@ -1336,6 +1387,328 @@ def drive_training(torch, rng, tmp: str) -> dict:
     out["seconds"] = time.perf_counter() - t0
     log(f"training phase: {out['seconds']:.1f} s")
     return out
+
+
+# ---- phase 12: bf16 training -------------------------------------------------
+#
+# The card's bf16 step against the CPU's bf16 step, both from the same weights
+# and batch (dropout off). At random initialisation bf16 noise is large and
+# lumpy: a ReLU unit whose input is near zero flips its mask in one rounding
+# and not the other, which moves every gradient behind it by O(1). Each
+# tensor is held, in L2, to the CPU's own bf16 noise alone (its bf16 step
+# against its f32 step): twice that, plus a floor of the CPU's median
+# relative noise times the tensor and phase 10 (a)'s floors. One tensor of
+# each kind may pass that bound, within BF16_STEP_CAP times it, for a mask
+# flip by chance (the card's readings: none past it, the nearest at 52% at
+# full width and 74% at the cuda test's tiny width). What the card's rounding adds is held
+# apart: its own median noise at most twice the CPU's. The loss: twice the
+# CPU's own noise plus 2^-8 of it. Parameters: 2·lr (+1e-6), a first AdamW
+# step being near lr·sign(g).
+BF16_STEP_ALLOWED = {"grad": 1, "bn": 1}
+BF16_STEP_CAP = 4.0
+BF16_STEP_BATCH = 8  # full width on the CPU in bf16: a few seconds a step
+SYNTHETIC_ARGV = ("--synthetic", "--epochs", "12", "--batch-size", "64", "--subset-size",
+                  "2000", "--device-aug", "--num-workers", "4")
+SYNTHETIC_MIN_TOP1 = 0.70  # JAX on its chip: 0.8025; chance ~0.09
+REMAT_BATCH = 256
+
+
+def _l2(t) -> float:
+    return float(t.double().norm())
+
+
+def compare_bf16_steps(torch, runs, lr: float) -> dict:
+    """``runs`` maps cpu32, cpu16, card32, card16 to (model, metrics) of one
+    train step from the same weights and batch; returns the distances and
+    ``failures`` against the bounds above."""
+    failures = []
+    loss = {k: float(m["loss"]) for k, (_, m) in runs.items()}
+    loss_noise = abs(loss["cpu16"] - loss["cpu32"])
+    loss_err = abs(loss["card16"] - loss["cpu16"])
+    if loss_err > 2 * loss_noise + 2 ** -8 * abs(loss["cpu16"]):
+        failures.append(f"loss off by {loss_err:.3e} (the CPU's noise {loss_noise:.3e})")
+
+    def named(model, kind):
+        items = model.named_parameters() if kind == "grad" else model.named_buffers()
+        return {k: (v.grad if kind == "grad" else v).detach().cpu().double()
+                for k, v in items
+                if kind == "grad" or k.endswith(("running_mean", "running_var"))}
+
+    def median_rel(a, b):
+        return float(np.median([_l2(a[k] - b[k]) / _l2(b[k]) for k in b if _l2(b[k]) > 0]))
+
+    out = dict(loss={k: v for k, v in loss.items()}, loss_err=loss_err, loss_noise=loss_noise)
+    for kind in ("grad", "bn"):
+        t = {k: named(m, kind) for k, (m, _) in runs.items()}
+        ref = t["cpu32"]
+        m_cpu = median_rel(t["cpu16"], ref)
+        m_card = median_rel(t["card16"], t["card32"])
+        top = max(float(v.abs().max()) for v in ref.values())
+        shares = []
+        for name, r in ref.items():
+            err = _l2(t["card16"][name] - t["cpu16"][name])
+            noise = _l2(t["cpu16"][name] - r)
+            scale = float(r.abs().max()) if kind == "grad" else max(1.0, float(r.abs().max()))
+            bound = (2 * noise + m_cpu * _l2(r) + STEP_REL_FLOOR * scale * math.sqrt(r.numel())
+                     + (STEP_GLOBAL_FLOOR * top * math.sqrt(r.numel()) if kind == "grad" else 0))
+            shares.append((err / bound, name, err, noise))
+        shares.sort(reverse=True)
+        past = [x for x in shares if x[0] > 1]
+        failures += [f"{kind} {n}: err {e:.3e} > {BF16_STEP_CAP}x the bound (CPU noise {z:.3e})"
+                     for f, n, e, z in past if f > BF16_STEP_CAP]
+        if len(past) > BF16_STEP_ALLOWED[kind]:
+            failures.append(f"{len(past)} {kind} tensors past the bound (allowed "
+                            f"{BF16_STEP_ALLOWED[kind]})")
+        if m_card > 2 * m_cpu:
+            failures.append(f"{kind}: the card's own bf16 noise {m_card:.3e} > 2x the CPU's "
+                            f"{m_cpu:.3e}")
+        out[kind] = dict(cpu_noise=m_cpu, card_noise=m_card, n_past_bound=len(past), worst=[
+            dict(name=n, err=e, cpu_noise=z, share_of_bound=f) for f, n, e, z in shares[:4]])
+    card_params = dict(runs["card16"][0].named_parameters())
+    param_err = max(float((card_params[n].detach().cpu() - p.detach()).abs().max())
+                    for n, p in runs["cpu16"][0].named_parameters())
+    if param_err > 2 * lr + 1e-6:
+        failures.append(f"parameters off by {param_err:.3e} > 2·lr")
+    dtypes = {p.dtype for m, _ in runs.values() for p in m.parameters()}
+    if dtypes != {torch.float32}:
+        failures.append(f"parameters in {dtypes}")
+    out.update(param_err=param_err, failures=failures)
+    return out
+
+
+def bf16_step_card_vs_cpu(torch, cfg, device, lr: float = 1e-4,
+                          batch: int = BF16_STEP_BATCH) -> dict:
+    """(a) One bf16 step on the card against the same step on the CPU, each
+    beside its f32 step, from the same weights and synthetic batch."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, dropout=0.0, answer_dropout=0.0)
+    arrays = synthetic_batch(cfg, batch, seed=1)
+    runs = {}
+    for name, where, dtype in (("cpu32", "cpu", torch.float32), ("cpu16", "cpu", torch.bfloat16),
+                               ("card32", device, torch.float32),
+                               ("card16", device, torch.bfloat16)):
+        t0 = time.perf_counter()
+        runs[name] = one_train_step(torch, cfg, where, arrays, lr, dtype=dtype)
+        log(f"train step, {name}: loss {float(runs[name][1]['loss']):.7f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+    r = compare_bf16_steps(torch, runs, lr)
+    for kind in ("grad", "bn"):
+        log(f"bf16 card vs CPU, {kind}: own median relative bf16 noise CPU "
+            f"{r[kind]['cpu_noise']:.3e}, card {r[kind]['card_noise']:.3e}; "
+            f"{r[kind]['n_past_bound']} tensors past the bound (allowed "
+            f"{BF16_STEP_ALLOWED[kind]}, each within {BF16_STEP_CAP}x); nearest: " + "; ".join(
+                f"{w['name']} err {w['err']:.3e} CPU noise {w['cpu_noise']:.3e} "
+                f"({100 * w['share_of_bound']:.0f}%)" for w in r[kind]["worst"]))
+    log(f"bf16 card vs CPU, one step at B={batch} (lr {lr}): losses {r['loss']}, err "
+        f"{r['loss_err']:.3e} (CPU noise {r['loss_noise']:.3e}); params max err "
+        f"{r['param_err']:.3e} (tol 2·lr)")
+    require(not r["failures"], "bf16 train step card vs CPU: " + "; ".join(r["failures"][:5]))
+    del r["failures"]
+    r.update(lr=lr, batch=batch)
+    return r
+
+
+def synthetic_run(torch, tmp: str) -> tuple:
+    """(b) ``python -m vqa_tpu_torch.training.train`` with SYNTHETIC_ARGV
+    (bf16, the default on the card), launches counted per epoch, then
+    ``evaluate --synthetic --bf16`` on its best_model. Returns (summary,
+    the bf16 forms' launches over every validation forward)."""
+    from vqa_tpu_torch.training import checkpoint as ckpt_lib
+
+    trainer, cli = drive_train_cli(torch, tmp, argv=SYNTHETIC_ARGV, form="_bf16")
+    require(trainer.model.dtype == torch.bfloat16,
+            f"the train CLI on the card trained in {trainer.model.dtype}")
+    epochs = cli["epochs"]
+    best = max(e["val_top1"] for e in epochs)
+    best_epoch = ckpt_lib.load_checkpoint_meta(tmp, "best_model")["epoch"]
+    log(f"synthetic run: val top-1 per epoch {[round(e['val_top1'], 4) for e in epochs]}, "
+        f"top-5 {[round(e['val_top5'], 4) for e in epochs]}, seconds per epoch "
+        f"{[round(e['train_s'] + e['val_s'], 1) for e in epochs]}; best {best:.4f} at epoch "
+        f"{best_epoch} (JAX on its chip: 0.8025)")
+    require(best >= SYNTHETIC_MIN_TOP1, f"synthetic run: best val top-1 {best} < "
+            f"{SYNTHETIC_MIN_TOP1}")
+    launches = {name: sum(e["val_launches"][name] for e in epochs)
+                for name in epochs[0]["val_launches"]}
+    n = len(trainer.val_loader.dataset)
+    del trainer
+    # the evaluator runs the same bf16 forms on the same split, in batches of
+    # 64; one answer either way is allowed
+    ev = drive_evaluate(torch, tmp, best, forms=("_bf16",), top1_tol=1.0 / n)
+    return dict(cli, best_val_top1=best, best_epoch=best_epoch, evaluate=ev), launches
+
+
+REMAT_TOL = 1e-6  # stages/full against none: loss, clipped gradients, BN statistics
+
+
+def remat_check(torch, cfg, device, batch: int = REMAT_BATCH, lr: float = 1e-4) -> dict:
+    """(d) none, stages and full from the same weights, batch and dropout
+    seed, bf16. The first step runs with deterministic cuDNN algorithms,
+    so that what differs is the recomputation alone: its loss equal to
+    none's, its clipped gradients (each parameter's ``.grad`` after the
+    step) and BN statistics within REMAT_TOL, BN counted once; peak memory of
+    the first step and ms per step over 6 more (cuDNN as the trainer runs
+    it)."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    rng = np.random.default_rng(batch + 1)
+    size, L = cfg.image_size, cfg.max_question_length
+    args = [torch.from_numpy(a).to(device) for a in (
+        rng.standard_normal((batch, size, size, 3)).astype(np.float32),
+        rng.integers(4, cfg.vocab_size, (batch, L)).astype(np.int32),
+        np.ones((batch, L), np.int32),
+        rng.integers(0, cfg.num_answers, batch).astype(np.int32))]
+    out, first = {}, {}
+    for mode in ("none", "stages", "full"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        model = create_vqa_model(config=cfg, device=device, seed=14, dtype=torch.bfloat16)
+        state = TrainState.create(
+            model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
+        step = make_train_step(model, remat=mode)
+        torch.manual_seed(21)  # the same dropout masks for the three
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+            loss = float(step(state, *args)["loss"])
+        peak = torch.cuda.max_memory_allocated(device)
+        first[mode] = (loss, {k: p.grad.detach().float().cpu()
+                              for k, p in model.named_parameters()},
+                       {k: b.detach().float().cpu() for k, b in model.named_buffers()
+                        if k.endswith(("running_mean", "running_var"))})
+        tracked = int(model.image_encoder.stem[1].num_batches_tracked)
+        step(state, *args)
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(6):
+            step(state, *args)
+        end.record()
+        end.synchronize()
+        out[mode] = dict(first_loss=loss, peak_memory_bytes=peak,
+                         step_ms=start.elapsed_time(end) / 6, bn_batches_tracked=tracked)
+        require(tracked == 1, f"remat {mode}: BN counted {tracked} updates in one step")
+        del model, state, step
+    _, grads0, bn0 = first["none"]
+    for mode in ("stages", "full"):
+        loss, grads, bn = first[mode]
+        errs = dict(loss=abs(loss - first["none"][0]),
+                    grad=max(float((grads[k] - g).abs().max()) for k, g in grads0.items()),
+                    bn=max(float((bn[k] - b).abs().max()) for k, b in bn0.items()))
+        equal = (loss == first["none"][0] and all(torch.equal(grads[k], g) for k, g in grads0.items())
+                 and all(torch.equal(bn[k], b) for k, b in bn0.items()))
+        out[mode].update({f"{k}_err_vs_none": v for k, v in errs.items()}, bit_equal=equal)
+        require(loss == first["none"][0], f"remat {mode}: first loss {loss} != none's")
+        for k, v in errs.items():
+            require(v <= REMAT_TOL, f"remat {mode}: {k} off by {v:.3e} from none's")
+    for mode, r in out.items():
+        log(f"remat {mode} at B={batch}, bf16: {r['step_ms']:.3f} ms per step, peak "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, first loss {r['first_loss']:.7f}"
+            + (f" (vs none: loss {r['loss_err_vs_none']:.3e}, clipped gradients "
+               f"{r['grad_err_vs_none']:.3e}, BN {r['bn_err_vs_none']:.3e}, tol {REMAT_TOL}; "
+               f"bit-equal {r['bit_equal']})" if mode != "none" else ""))
+    return out
+
+
+def debug_nans_check(torch, cfg, device) -> str:
+    """(e) A batch with one NaN pixel stops a --debug-nans step."""
+    import warnings
+
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    arrays = synthetic_batch(cfg, BF16_STEP_BATCH, seed=3)
+    arrays[0][2, cfg.image_size // 2, cfg.image_size // 3, 1] = np.nan
+    model = create_vqa_model(config=cfg, device=device, seed=15, dtype=torch.bfloat16)
+    state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 10)
+    step = make_train_step(model, debug_nans=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # anomaly mode's traceback of the forward
+            step(state, *(torch.from_numpy(a).to(device) for a in arrays))
+    except FloatingPointError as e:
+        log(f"--debug-nans: a batch with one NaN pixel stopped the step: {str(e)[:160]}")
+        require(state.step == 0, "the NaN step updated the parameters")
+        return str(e)[:400]
+    raise SystemExit("chip_smoke: FAILED: a NaN batch passed a --debug-nans step")
+
+
+def s2d_check(torch, cfg, device, lr: float = 1e-4, batch: int = 32) -> dict:
+    """(f) One f32 step (TF32 off) with ``stem_s2d`` against the same step
+    without it, on the card: the loss within 1e-5, and phase 10 (a)'s
+    bounds for the step as the trainer runs it (``compare_train_steps``'
+    ``cudnn_failures``: top-k counts, BN statistics per tensor, the
+    gradients as a whole within 10x the noise, parameters within 2·lr).
+    The noise is that of the plain step on the batch in another order and
+    with cuDNN off."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, dropout=0.0, answer_dropout=0.0)
+    arrays = synthetic_batch(cfg, batch, seed=4)
+    perm = np.random.default_rng(1).permutation(batch)
+    runs = {}
+    for name, data, cudnn, kw in (("plain", arrays, True, {}),
+                                  ("plain_permuted", [a[perm] for a in arrays], True, {}),
+                                  ("plain_cudnn_off", arrays, False, {}),
+                                  ("s2d", arrays, True, dict(stem_s2d=True))):
+        with torch.backends.cudnn.flags(enabled=cudnn, deterministic=False, benchmark=False,
+                                        allow_tf32=False):
+            runs[name] = one_train_step(torch, cfg, device, data, lr, **kw)
+    r = compare_train_steps(torch, runs["plain"], [runs["plain_permuted"],
+                                                   runs["plain_cudnn_off"]], runs["s2d"], lr)
+    for kind in ("grad", "bn"):
+        log(f"--stem-s2d vs plain, {kind}: relative L2 error {r[kind]['rel_l2_err']:.3e} (the "
+            f"plain step's own noise {r[kind]['rel_l2_noise']:.3e}), max per-tensor error "
+            f"{r[kind]['max_rel_err']:.3e} of the tensor's max")
+    log(f"--stem-s2d at B={batch}, f32: loss err {r['loss_err']:.3e} (tol {STEP_LOSS_TOL}; "
+        f"noise {r['loss_noise']:.3e}), params max err {r['param_err']:.3e} (tol 2·lr)")
+    require(r["loss_err"] <= 1e-5, f"s2d step: loss off by {r['loss_err']:.3e}")
+    require(not r["cudnn_failures"], "s2d step vs plain: " + "; ".join(r["cudnn_failures"][:5]))
+    del r["failures"], r["cudnn_failures"]
+    r["batch"] = batch
+    return r
+
+
+def drive_bf16_training(torch, tmp: str, f32_timing: dict) -> tuple:
+    """Phase 12, bf16 training at full width (``ModelConfig()``, 224 px):
+    (a) card vs CPU, (b) the 12-epoch synthetic run and its evaluation,
+    (c) timing beside phase 10 (f)'s f32, (d) remat, (e) --debug-nans,
+    (f) --stem-s2d. Returns (summary, the bf16 forms' launches over the
+    run's validation forwards)."""
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = ModelConfig()
+    t0 = time.perf_counter()
+    out, seconds = {}, {}
+
+    def phase(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t
+        log(f"phase 12 ({name}): {seconds[name]:.1f} s")
+        return result
+
+    out["card_vs_cpu"] = phase("a", lambda: bf16_step_card_vs_cpu(torch, cfg, device))
+    out["synthetic"], launches = phase("b", lambda: synthetic_run(torch, tmp))
+    out["timing"] = phase("c", lambda: {str(b): train_timing(torch, cfg, device, b,
+                                                              dtype=torch.bfloat16)
+                                        for b in TRAIN_BATCH_SIZES})
+    for b in TRAIN_BATCH_SIZES:
+        bf, f = out["timing"][str(b)], f32_timing[str(b)]
+        log(f"train step at B={b}: bf16 {bf['step_ms']:.3f} ms ({bf['pairs_per_s']:.1f} "
+            f"pairs/s, busy {100 * bf['device_busy_share']:.1f}%, peak "
+            f"{bf['peak_memory_bytes'] / 2**30:.2f} GiB), f32 {f['step_ms']:.3f} ms "
+            f"({f['pairs_per_s']:.1f} pairs/s, busy {100 * f['device_busy_share']:.1f}%, peak "
+            f"{f['peak_memory_bytes'] / 2**30:.2f} GiB) in this call")
+    out["remat"] = phase("d", lambda: remat_check(torch, cfg, device))
+    out["debug_nans"] = phase("e", lambda: debug_nans_check(torch, cfg, device))
+    out["stem_s2d"] = phase("f", lambda: s2d_check(torch, cfg, device))
+    out["phase_seconds"] = seconds
+    out["seconds"] = time.perf_counter() - t0
+    log(f"bf16 training phase: {out['seconds']:.1f} s")
+    return out, launches
 
 
 # ---- phase 11: bf16 serving and evaluation ---------------------------------
@@ -1641,17 +2014,20 @@ def drive_http_bf16(torch, engine, rng, tol: float) -> dict:
                 launches=launches)
 
 
-def drive_evaluate(torch, tmp: str, val_top1: float, extra=()) -> dict:
+def drive_evaluate(torch, tmp: str, val_top1: float, extra=(), forms=("", "_bf16"),
+                   top1_tol: float = 0.0) -> dict:
     """(e) ``python -m vqa_tpu_torch.training.evaluate --synthetic`` on the
-    training phase's checkpoint, in this process, in f32 and ``--bf16``:
-    f32 top-1 equal to the trainer's own validation of the same weights on
-    the same split; each evaluation forward launches the f32 forms (f32) or
+    training phase's checkpoint, in this process, in f32 and ``--bf16``
+    (``forms``): the first form's top-1 equal to the trainer's own
+    validation of the same weights on the same split (within
+    ``top1_tol``); each evaluation forward launches the f32 forms (f32) or
     the bf16 forms (--bf16) 1, 4 and 2 times; the artifacts written."""
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.training import evaluate
 
     out = {}
-    for flags, form in (((), ""), (("--bf16",), "_bf16")):
+    for form in forms:
+        flags = ("--bf16",) if form else ()
         out_dir = os.path.join(tmp, "eval" + form)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1674,8 +2050,9 @@ def drive_evaluate(torch, tmp: str, val_top1: float, extra=()) -> dict:
         log(f"evaluate --synthetic {' '.join(flags)}: {res['num_samples']} samples in "
             f"{forwards} forwards, {wall:.1f} s, top-1 {res['top1_accuracy']:.4f}, top-5 "
             f"{res['top5_accuracy']:.4f}, loss {res['loss']:.6f}; launches {launches}")
-    require(out["f32"]["top1"] == val_top1,
-            f"evaluator top-1 {out['f32']['top1']} vs the trainer's validation {val_top1}")
+    first = out["bf16" if forms[0] else "f32"]
+    require(abs(first["top1"] - val_top1) <= top1_tol,
+            f"evaluator top-1 {first['top1']} vs the trainer's validation {val_top1}")
     return out
 
 
@@ -1814,6 +2191,11 @@ def main(argv=None) -> int:
         kernels16, bf16 = drive_bf16(torch, engine, tput, tmp, training["cli"]["val_top1"],
                                      rng, args.seed, args.profile)
     kernels.update(kernels16)
+    del engine
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_train.") as tmp:
+        bf16_training, val_launches = drive_bf16_training(torch, tmp, training["timing"])
+    for name in kernels:  # f32 forms: 0, checked by synthetic_run
+        kernels[name]["launches_bf16_training_validation"] = val_launches[name]
 
     log(json.dumps({"engine": {
         "params": n_params, "build_s": build_s,
@@ -1825,8 +2207,10 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": {**load, "http": http, "supervisor": supervisor}}))
     log(json.dumps({"training": training}))
     log(json.dumps({"bf16": bf16}))
+    log(json.dumps({"bf16_training": bf16_training}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_bf16_training_validation")
     log(json.dumps({"kernels": [{k: ({"name": name, **r}[k]) for k in keys}
                                 for name, r in kernels.items()]}))
     log(card)

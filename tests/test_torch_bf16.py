@@ -22,9 +22,9 @@
 - The policy's contract: a bf16 model's state_dict is the f32 one (keys,
   dtypes, values) and its checkpoint loads unchanged; its bf16 weight
   copies are the f32 weights rounded; weights loaded later refresh them;
-  training it raises; the wrappers raise on f16 and f64 and on mixed
-  dtypes; the engine computes in f32 on the CPU unless asked for bf16; the
-  SE plan for 2-byte elements.
+  training mode drops them and keeps f32 parameters; the wrappers raise
+  on f16 and f64 and on mixed dtypes; the engine computes in f32 on the
+  CPU unless asked for bf16; the SE plan for 2-byte elements.
 """
 
 import jax
@@ -240,8 +240,15 @@ def test_bf16_model_keeps_the_f32_state_dict_and_checkpoint(tmp_path):
     loaded.load_state_dict(other.state_dict())
     fc1 = loaded.text_encoder.layers[0].ffn.fc1
     assert torch.equal(fc1.compute_weight, other.text_encoder.layers[0].ffn.fc1.weight.to(BF16))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        loaded.train()
+    # training mode works and keeps the f32 parameters; it drops the bf16
+    # copies, which leaving it remakes
+    loaded.train()
+    assert loaded.training and loaded.dtype == BF16
+    assert all(p.dtype == torch.float32 for p in loaded.parameters())
+    assert loaded.text_encoder.layers[0].ffn.fc1.compute_weight is None
+    loaded.eval()
+    assert torch.equal(loaded.text_encoder.layers[0].ffn.fc1.compute_weight,
+                       other.text_encoder.layers[0].ffn.fc1.weight.to(BF16))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         m32.set_compute_dtype(torch.float16)
 

@@ -567,3 +567,94 @@ def test_default_engine_on_the_card_is_bf16(cuda):
     probs = engine.predict_batch_raw([np.zeros((40, 50, 3), np.uint8)], ["what is this"])
     assert probs.dtype == np.float32 and abs(float(probs.sum()) - 1) < 1e-5
     assert ops.launch_counts()["stem_bf16"] == counts["stem_bf16"] + 1
+
+
+# ---- bf16 training -----------------------------------------------------------
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16 step from the same weights and batch (dropout off), tiny
+    width, each side beside its f32 step, with chip_smoke.py's phase 12 (a)
+    bound (``compare_bf16_steps``): per tensor within twice the CPU's own
+    bf16 noise plus floors (a stated few tensors within four times it),
+    the card's own noise at most twice the CPU's, parameters within 2·lr,
+    everything f32."""
+    import dataclasses
+
+    import chip_smoke
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    cfg = dataclasses.replace(tiny_model_config(), dropout=0.0, answer_dropout=0.0)
+    arrays = [a.numpy() for a in _train_batch(cfg, 8, 15)]
+    runs = {name: chip_smoke.one_train_step(torch, cfg, where, arrays, 1e-4, seed=4, dtype=dtype)
+            for name, where, dtype in (("cpu32", "cpu", torch.float32),
+                                       ("cpu16", "cpu", torch.bfloat16),
+                                       ("card32", cuda, torch.float32),
+                                       ("card16", cuda, torch.bfloat16))}
+    out = chip_smoke.compare_bf16_steps(torch, runs, lr=1e-4)
+    assert not out["failures"], out["failures"]
+
+
+def test_remat_lowers_peak_memory_on_the_card(cuda):
+    """Full width, B = 32, bf16: the first step's loss the same for the
+    three modes; over the second step (the optimizer state already made),
+    the memory taken beyond what the step starts with is under 3/4 of
+    none's with "stages", and within 5% of none's with "full", whose one
+    segment rematerialises every activation before the backward."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
+
+    cfg = ModelConfig()
+    batch = [a.to(cuda) for a in _train_batch(cfg, 32, 16)]
+    peak, loss = {}, {}
+    for mode in ("none", "stages", "full"):
+        model = create_vqa_model(config=cfg, device=cuda, seed=6, dtype=torch.bfloat16)
+        state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 10)
+        step = make_train_step(model, remat=mode)
+        torch.manual_seed(3)
+        loss[mode] = float(step(state, *batch)["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        start = torch.cuda.memory_allocated(cuda)
+        step(state, *batch)
+        torch.cuda.synchronize()
+        peak[mode] = torch.cuda.max_memory_allocated(cuda) - start
+        del model, state, step
+    assert peak["stages"] < 0.75 * peak["none"], peak
+    assert peak["full"] <= 1.05 * peak["none"], peak
+    assert loss["stages"] == pytest.approx(loss["none"], abs=1e-6)
+    assert loss["full"] == pytest.approx(loss["none"], abs=1e-6)
+
+
+def test_bf16_trainer_validation_launches_the_bf16_forms_and_train_steps_none(cuda):
+    """A tiny bf16 Trainer epoch: no kernel in the train steps; each
+    validation forward launches the bf16 stem, SE and cross-attention 1, 4
+    and 2 times and the f32 forms none."""
+    from vqa_tpu_torch.data.dataset import create_demo_loaders
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import TrainingConfig, tiny_model_config
+
+    cfg = tiny_model_config()
+    train_loader, val_loader = create_demo_loaders(
+        batch_size=4, eval_batch_size=4, num_samples=16, image_size=cfg.image_size,
+        max_question_length=cfg.max_question_length, vocab_size=cfg.vocab_size,
+        num_answers=cfg.num_answers)
+    model = create_vqa_model(config=cfg, device=cuda, seed=5, dtype=torch.bfloat16)
+    trainer = Trainer(model, train_loader, val_loader,
+                      config=TrainingConfig(warmup_epochs=0, num_epochs=1),
+                      save_checkpoints=False)
+    ops.reset_launch_counts()
+    metrics = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert np.isfinite(metrics["train_loss"])
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    out = trainer.validate()
+    torch.cuda.synchronize()
+    n = len(val_loader)
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem_bf16": n,
+                                   "se_bf16": 4 * n, "cross_attention_bf16": 2 * n}
+    assert np.isfinite(out["val_loss"])

@@ -144,14 +144,20 @@ def test_bn_running_stats_match_flax_after_train_forwards(jax_train_forward, for
 # One train step
 # ---------------------------------------------------------------------------
 
-CASES = {"plain": (1, 0.0), "grad_accum2": (2, 0.0), "label_smoothing": (1, 0.1)}
+# each case with activation recomputation off (the case's own name), and
+# with remat "stages" and "full" on both sides (JAX's remat step is its
+# plain one recomputed)
+BASE_CASES = {"plain": (1, 0.0), "grad_accum2": (2, 0.0), "label_smoothing": (1, 0.1)}
+CASES = {**{name: (*c, "none") for name, c in BASE_CASES.items()},
+         **{f"{name}-remat_{r}": (*c, r) for name, c in BASE_CASES.items()
+            for r in ("stages", "full")}}
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(grad_accum, label_smoothing):
+def _jax_step(grad_accum, label_smoothing, remat="none"):
     jmodel, _ = _jax_model()
     return jax_train.make_train_step(jmodel, grad_accum=grad_accum,
-                                     label_smoothing=label_smoothing)
+                                     label_smoothing=label_smoothing, remat=remat)
 
 
 def _jax_state(cfg):
@@ -175,16 +181,18 @@ def one_step():
     """Per case: (port model after one step, its metrics, JAX state after
     one step, JAX metrics)."""
     out = {}
-    for name, (accum, smoothing) in CASES.items():
+    for name, (accum, smoothing, remat) in CASES.items():
         kw = dict(learning_rate=1e-4, warmup_epochs=0, num_epochs=3,
-                  label_smoothing=smoothing, grad_accum=accum)
+                  label_smoothing=smoothing, grad_accum=accum, remat=remat)
         model = _port_model()
         images, ids, mask, labels = _batch(model.config, seed=1)
         state = port_train.TrainState.create(model, TrainingConfig(**kw), STEPS_PER_EPOCH)
-        step = port_train.make_train_step(model, grad_accum=accum, label_smoothing=smoothing)
+        step = port_train.make_train_step(model, grad_accum=accum, label_smoothing=smoothing,
+                                          remat=remat)
         m = step(state, *(torch.from_numpy(a) for a in (images, ids, mask, labels)))
-        jstate, jm = _jax_step(accum, smoothing)(_jax_state(JaxTrainingConfig(**kw)), images,
-                                                 ids, mask, labels, jax.random.PRNGKey(0))
+        jstate, jm = _jax_step(accum, smoothing, remat)(
+            _jax_state(JaxTrainingConfig(**kw)), images, ids, mask, labels,
+            jax.random.PRNGKey(0))
         out[name] = (model, m, jstate, jm)
     return out
 
@@ -277,15 +285,21 @@ def test_three_steps_with_warmup_follow_jax():
     _close_state(model, tree, ["batch_stats"], 1e-5)
 
 
-def test_grad_accum_rejects_indivisible_batch_and_remat_is_not_ported():
+def test_grad_accum_rejects_indivisible_batch_and_remat_an_unknown_mode():
     model = _port_model()
     state = port_train.TrainState.create(model, TrainingConfig(), STEPS_PER_EPOCH)
     batch = [torch.from_numpy(a) for a in _batch(model.config, seed=2)]
     with pytest.raises(ValueError, match="not divisible"):
         port_train.make_train_step(model, grad_accum=3)(state, *batch)
-    for remat in ("full", "stages"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_train.make_train_step(model, remat=remat)
+    match = "expected 'none', 'full' or 'stages'"
+    with pytest.raises(ValueError, match=match):
+        port_train.make_train_step(model, remat="bogus")
+    # JAX's raises when its step is traced
+    jmodel, _ = _jax_model()
+    with pytest.raises(ValueError, match=match):
+        jax_train.make_train_step(jmodel, remat="bogus")(
+            _jax_state(JaxTrainingConfig()), *_batch(model.config, seed=2),
+            jax.random.PRNGKey(0))
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +346,8 @@ def test_clipping_keeps_gradients_under_the_bound():
     for p in model.parameters():
         p.grad = torch.full_like(p, 1e-3)
     before = [p.grad.clone() for p in model.parameters()]
-    state.apply_gradients()
+    state.clip_gradients()
+    state.update()
     assert all(torch.equal(a, p.grad) for a, p in zip(before, model.parameters()))
 
 

@@ -15,12 +15,15 @@ from a seeded ``torch.Generator`` on the CPU with the JAX package's schemes
 LeCun-normal other dense layers, N(0, d^-1/2) embeddings with a zero PAD
 row, N(0, 0.02) position embeddings), then moved to the device.
 
-``dtype`` is the JAX model's compute dtype (``vqa_model.py:151``): f32, or
-bf16 for inference (``models/layers.py``: parameters stay f32 in the
-state_dict, every Linear/Conv/Embedding computes from a bf16 copy of its
-weights made at build or load, norms take f32 statistics, the stem, SE and
-cross-attention kernels run their bf16 forms, and the logits are f32).
-Training a bf16 model is not ported: ``train()`` raises.
+``dtype`` is the JAX model's compute dtype (``vqa_model.py:151``): f32 or
+bf16 (``models/layers.py``: parameters, BN's running statistics and the
+state_dict stay f32; every Linear/Conv/Embedding computes from a bf16 copy
+of its weights in eval mode, remade whenever the model leaves training
+mode, and from a differentiable bf16 cast of the f32 parameter in training
+mode; norms take f32 statistics; in eval mode the stem, SE and
+cross-attention kernels run their bf16 forms; the logits are f32).
+``stem_s2d`` runs the stem conv as the JAX ``StemConv(s2d=True)`` does
+(``models/cnn_backbone.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from vqa_tpu_torch.models.cnn_backbone import CustomResNet
+from vqa_tpu_torch.models.cnn_backbone import CustomResNet, run_segment
 from vqa_tpu_torch.models.fusion import MultimodalFusion, attention_visualization
 from vqa_tpu_torch.models.layers import COMPUTE_DTYPES, Linear
 from vqa_tpu_torch.models.text_encoder import TransformerTextEncoder
@@ -60,7 +63,7 @@ class VQAModel(nn.Module):
     images [B, H, W, 3] NHWC f32 (normalized), cast to the compute dtype
     as the JAX model's first conv casts them; logits are f32."""
 
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, stem_s2d: bool = False):
         super().__init__()
         cfg = self.config = config
         self.dtype = torch.float32
@@ -71,6 +74,7 @@ class VQAModel(nn.Module):
             stage_channels=tuple(cfg.stage_channels),
             num_blocks=tuple(cfg.blocks_per_stage), use_se=cfg.use_se_attention,
             use_spatial=cfg.use_spatial_attention, se_reduction=cfg.se_reduction,
+            stem_s2d=stem_s2d,
         )
         self.text_encoder = TransformerTextEncoder(
             vocab_size=cfg.vocab_size, embed_dim=cfg.embed_dim,
@@ -91,29 +95,41 @@ class VQAModel(nn.Module):
         self.set_compute_dtype(self.dtype)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "VQAModel":
-        """Compute in ``dtype`` (f32 or bf16) from now on: (re)make every
-        layer's copy of its weights in it from the current f32 weights."""
+        """Compute in ``dtype`` (f32 or bf16) from now on. In eval mode every
+        layer (re)makes its copy of its weights in it from the current f32
+        weights; in training mode each forward casts them."""
         if dtype not in COMPUTE_DTYPES:
             raise ValueError(f"the port computes in float32 or bfloat16, got {dtype}")
-        if dtype != torch.float32 and self.training:
-            raise NotImplementedError(
-                "training in bf16 is not ported (ROADMAP A.7b); train in float32")
         self.dtype = dtype
         for m in self.modules():
             if m is not self and hasattr(m, "set_compute_dtype"):
-                m.set_compute_dtype(dtype)
+                m.set_compute_dtype(dtype, copies=not self.training)
         return self
 
     def train(self, mode: bool = True) -> "VQAModel":
-        if mode and self.dtype != torch.float32:
-            raise NotImplementedError(
-                "training in bf16 is not ported (ROADMAP A.7b); build the model in float32")
-        return super().train(mode)
+        """Entering training mode drops the eval copies of the weights (the
+        optimizer is about to change the weights); leaving it remakes them
+        from the weights as they are then, so an eval forward never sees a
+        stale copy."""
+        was = self.training
+        super().train(mode)
+        if mode != was:
+            self.set_compute_dtype(self.dtype)
+        return self
 
     def forward(self, images: torch.Tensor, token_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
-        image_features = self.image_encoder(images.to(self.dtype))
+                return_aux: bool = False, segment=None):
+        """``segment(fn, *args)``, when given, runs each of the model's
+        remat segments: the stem, each backbone stage and the rest of the
+        model after the backbone, so that only their outputs are kept
+        between them (the stage-boundary tags of the JAX backbone)."""
+        image_features = self.image_encoder(images.to(self.dtype), segment=segment)
+        return (segment or run_segment)(self._after_backbone, image_features, token_ids,
+                                        attention_mask, return_aux)
+
+    def _after_backbone(self, image_features: torch.Tensor, token_ids: torch.Tensor,
+                        attention_mask: Optional[torch.Tensor], return_aux: bool):
         text_features, text_pooled = self.text_encoder(token_ids, attention_mask)
         fused, fusion_aux = self.fusion(image_features, text_features, attention_mask)
         # logits always f32 for a stable softmax
@@ -189,13 +205,16 @@ def create_vqa_model(
     device="cuda",
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
+    stem_s2d: bool = False,
     **overrides,
 ) -> VQAModel:
     """Build a seeded model in eval mode on ``device``, computing in
-    ``dtype`` (f32, or bf16 for inference).
+    ``dtype`` (f32 or bf16).
 
     ``use_attention=False`` disables both SE and spatial attention (the
-    ``--no-attention`` ablation); ``overrides`` replace config fields.
+    ``--no-attention`` ablation); ``stem_s2d`` takes the space-to-depth
+    stem conv (same parameters, same function); ``overrides`` replace
+    config fields.
     """
     device = resolve_device(device)
     cfg = config or ModelConfig()
@@ -206,7 +225,7 @@ def create_vqa_model(
     if use_attention is not None:
         cfg = dataclasses.replace(
             cfg, use_se_attention=use_attention, use_spatial_attention=use_attention)
-    model = VQAModel(cfg)
+    model = VQAModel(cfg, stem_s2d=stem_s2d)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval().set_compute_dtype(dtype)
 

@@ -6,8 +6,17 @@ and cosine decay to 1e-6 (per step, or per epoch), global-norm clip 1.0,
 gradient accumulation over microbatches, per-epoch validation with
 per-question-type accuracy, best-model tracking, early stop, a checkpoint
 every ``checkpoint_every`` epochs and a final ``latest``, resume, and
-SIGTERM routed to an ``interrupted`` save — on one CUDA device, in f32
-(the JAX trainer is f32 on every backend but the TPU), with TF32 off.
+SIGTERM routed to an ``interrupted`` save, activation recomputation
+(``remat``) and a NaN check (``debug_nans``) — on one CUDA device.
+
+The CLI's dtype policy is the JAX trainer's with the card in the TPU's
+place (``vqa_tpu/training/train.py:983``): the model computes in bf16 when
+``use_bf16`` (the default) and the device is the card, in f32 with
+``--no-bf16`` or on the CPU. The Trainer takes the model as it is built
+(``create_vqa_model(..., dtype=)``). In bf16 the parameters, the gradients
+that the clip and AdamW see, the optimizer state, BN's running statistics
+and the checkpoints stay f32, as in JAX (``models/layers.py``). f32 runs
+with TF32 off.
 
 Where the two packages' mechanics differ:
 
@@ -26,16 +35,32 @@ Where the two packages' mechanics differ:
   and cross-attention take their plain paths, as the JAX model's training
   path does: no kernel of ``vqa_tpu_torch.ops`` launches. Validation runs
   in eval mode, through the stem, SE and cross-attention kernels;
-- ``remat`` (activation recomputation) is not ported: a re-run of the
-  forward in training mode would update BN's running statistics twice.
+- ``remat`` is non-reentrant ``torch.utils.checkpoint`` where JAX takes
+  ``jax.checkpoint``: ``"full"`` one segment over the forward and the
+  loss, ``"stages"`` segments that the model cuts at the stem's and each
+  stage's output (``VQAModel.forward(segment=)``; JAX's
+  ``save_only_these_names("resnet_stem", "resnet_stage1".."4")``:
+  everything else, text encoder, fusion and head included, is
+  recomputed; the [B, answers] logits are kept, where JAX recomputes the
+  loss from them too). The recomputation replays the dropout masks
+  (``preserve_rng_state``) and leaves BN's running statistics alone
+  (``cnn_backbone.recomputing``), as JAX drops its recomputed batch_stats;
+- ``debug_nans`` stands for ``jax_debug_nans``: the forward and backward
+  run under ``torch.autograd.set_detect_anomaly`` (the backward names the
+  op that made a NaN), and the loss and the gradients' global norm are
+  checked once per step before the update; either raises
+  ``FloatingPointError``, which the Trainer tags with the epoch and step.
 
-    python -m vqa_tpu_torch.training.train --synthetic --epochs 12           # on the card
+    python -m vqa_tpu_torch.training.train --synthetic --epochs 12 --batch-size 64 \
+        --subset-size 2000 --device-aug                    # on the card, bf16
+    python -m vqa_tpu_torch.training.train --synthetic --no-bf16 --remat stages  # f32
     python -m vqa_tpu_torch.training.train --synthetic --tiny --device cpu --epochs 1
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import signal
@@ -46,9 +71,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from vqa_tpu_torch.data.pipeline import prefetch_to_device
 from vqa_tpu_torch.data.preprocess import device_augment
+from vqa_tpu_torch.models.cnn_backbone import recomputing
 from vqa_tpu_torch.models.vqa_model import VQAModel, create_vqa_model, resolve_device
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
 from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
@@ -139,16 +166,20 @@ class TrainState:
         optimizer, schedule = make_optimizer(model, cfg, steps_per_epoch)
         return cls(model, optimizer, schedule, cfg.grad_clip_norm)
 
-    def apply_gradients(self) -> None:
-        """Clip the gradients by their global norm (optax's rule), set the
-        learning rate to ``schedule(step)``, update, count the step. No
-        host synchronisation."""
+    def clip_gradients(self) -> torch.Tensor:
+        """Clip the gradients by their global norm (optax's rule); returns
+        that norm (before clipping) on the device."""
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         keep = norm < self.grad_clip_norm
         one = torch.ones_like(norm)
         torch._foreach_div_(grads, torch.where(keep, one, norm))
         torch._foreach_mul_(grads, torch.where(keep, one, one * self.grad_clip_norm))
+        return norm
+
+    def update(self) -> None:
+        """Set the learning rate to ``schedule(step)``, update, count the
+        step."""
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -156,8 +187,31 @@ class TrainState:
         self.step += 1
 
 
+REMAT_MODES = ("none", "full", "stages")
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward, with
+    the same dropout masks and without a second BN statistics update."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=True,
+        context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+
+
+def _nan_error(run):
+    """``run()`` under autograd's anomaly mode; its report of a NaN made in
+    the backward is raised as ``FloatingPointError``."""
+    with torch.autograd.set_detect_anomaly(True):
+        try:
+            return run()
+        except RuntimeError as e:
+            if "returned nan values" not in str(e):
+                raise
+            raise FloatingPointError(str(e)) from e
+
+
 def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float = 0.0,
-                    remat: str = "none"):
+                    remat: str = "none", debug_nans: bool = False):
     """``train_step(state, images, token_ids, mask, labels) → metrics``:
     forward in training mode, CE loss, backward, clip, AdamW update, BN's
     running statistics updated by the forward. The metrics (``loss``,
@@ -168,17 +222,51 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
     one after another (BN normalising each with its own statistics and
     updating its running statistics once per microbatch), sums their
     gradients, divides by ``grad_accum`` and updates once; the loss is
-    the mean of the microbatches' losses."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md §A: remat); "
-            "recomputing the forward in training mode would update BN's "
-            "running statistics twice")
+    the mean of the microbatches' losses.
+
+    ``remat`` is ``"none"``, ``"full"`` or ``"stages"`` (the module
+    docstring); each microbatch is recomputed on its own. ``debug_nans``
+    raises ``FloatingPointError`` on a non-finite loss or gradient before
+    the update (one host synchronisation per step)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: expected 'none', 'full' or 'stages'")
+
+    def loss_of(logits, labels):
+        return F.cross_entropy(logits, labels.long(), label_smoothing=label_smoothing)
+
+    def whole(images, token_ids, mask, labels):
+        logits, _ = model(images, token_ids.long(), mask)
+        return loss_of(logits, labels), logits
 
     def forward_loss(images, token_ids, mask, labels):
-        logits, _ = model(images, token_ids.long(), mask)
-        loss = F.cross_entropy(logits, labels.long(), label_smoothing=label_smoothing)
+        if remat == "full":
+            loss, logits = _checkpointed(whole, images, token_ids, mask, labels)
+        else:  # with "stages" the model cuts its own segments
+            logits, _ = model(images, token_ids.long(), mask,
+                              segment=_checkpointed if remat == "stages" else None)
+            loss = loss_of(logits, labels)
         return loss, logits.detach()
+
+    def backward(images, token_ids, mask, labels):
+        """Forward and backward of the batch → (loss, top-1 and top-5
+        counts), the averaged gradients in each parameter's ``.grad``."""
+        if grad_accum == 1:
+            loss, logits = forward_loss(images, token_ids, mask, labels)
+            loss.backward()
+            c1, c5 = topk_correct(logits, labels, k=5)
+            return loss.detach(), c1, c5
+        m = images.shape[0] // grad_accum
+        loss = c1 = c5 = 0
+        for i in range(grad_accum):
+            part = slice(i * m, (i + 1) * m)
+            mb_loss, logits = forward_loss(images[part], token_ids[part], mask[part],
+                                           labels[part])
+            mb_loss.backward()
+            f1, f5 = topk_correct(logits, labels[part], k=5)
+            loss, c1, c5 = loss + mb_loss.detach(), c1 + f1, c5 + f5
+        torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
+                            grad_accum)
+        return loss / grad_accum, c1, c5
 
     def train_step(state: TrainState, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
         n = images.shape[0]
@@ -186,25 +274,21 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
             raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        if grad_accum == 1:
-            loss, logits = forward_loss(images, token_ids, mask, labels)
-            loss.backward()
-            c1, c5 = topk_correct(logits, labels, k=5)
+        batch = (images, token_ids, mask, labels)
+        if debug_nans:
+            loss, c1, c5 = _nan_error(lambda: backward(*batch))
         else:
-            m = n // grad_accum
-            loss = c1 = c5 = 0
-            for i in range(grad_accum):
-                part = slice(i * m, (i + 1) * m)
-                mb_loss, logits = forward_loss(images[part], token_ids[part], mask[part],
-                                               labels[part])
-                mb_loss.backward()
-                f1, f5 = topk_correct(logits, labels[part], k=5)
-                loss, c1, c5 = loss + mb_loss.detach(), c1 + f1, c5 + f5
-            loss = loss / grad_accum
-            torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
-                                grad_accum)
-        state.apply_gradients()
-        return {"loss": loss.detach(), "correct1": c1, "correct5": c5}
+            loss, c1, c5 = backward(*batch)
+        norm = state.clip_gradients()
+        if debug_nans:
+            finite = torch.isfinite(torch.stack([loss.float(), norm])).tolist()
+            if not all(finite):
+                what = "loss" if not finite[0] else "gradient norm"
+                raise FloatingPointError(
+                    f"non-finite {what} (loss {float(loss)}, gradient norm {float(norm)}) "
+                    f"at optimizer step {state.step}")
+        state.update()
+        return {"loss": loss, "correct1": c1, "correct5": c5}
 
     return train_step
 
@@ -267,7 +351,9 @@ def _augment_seed(seed: int, epoch: int, step: int) -> int:
 
 class Trainer:
     """Owns the model, optimizer state and steps; the JAX Trainer's
-    contract on one device (the model's)."""
+    contract on one device (the model's), in the model's compute dtype.
+    ``debug_nans`` makes every train step check its loss and gradients
+    (``make_train_step``)."""
 
     def __init__(
         self,
@@ -281,6 +367,7 @@ class Trainer:
         profile_dir: Optional[str] = None,
         run_meta: Optional[Dict[str, Any]] = None,
         log_dir: Optional[str] = None,
+        debug_nans: bool = False,
     ):
         self.model = model
         self.cfg = config or TrainingConfig()
@@ -288,7 +375,7 @@ class Trainer:
         self.val_loader = val_loader
         self.device = next(model.parameters()).device
         if self.device.type == "cuda":
-            # f32 throughout: TF32 would keep ~3 digits per conv and matmul
+            # f32 is f32 throughout: TF32 would keep ~3 digits per conv and matmul
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.checkpoint_dir = checkpoint_dir
@@ -301,7 +388,7 @@ class Trainer:
         self.schedule = self.state.schedule
         self.train_step = make_train_step(
             model, grad_accum=self.cfg.grad_accum, label_smoothing=self.cfg.label_smoothing,
-            remat=self.cfg.remat)
+            remat=self.cfg.remat, debug_nans=debug_nans)
         self.val_type_vocab = getattr(val_loader, "type_vocab", None)
         self.val_step = make_val_step(
             model, num_types=len(self.val_type_vocab) if self.val_type_vocab else 0)
@@ -344,11 +431,14 @@ class Trainer:
                     return self.train_step(self.state, images, batch["token_ids"],
                                            batch["attention_mask"], batch["answer"])
 
-            if profiling:
-                with self.step_timer.step(items=bs) as s:
-                    s.result = m = dispatch()
-            else:
-                m = dispatch()
+            try:
+                if profiling:
+                    with self.step_timer.step(items=bs) as s:
+                        s.result = m = dispatch()
+                else:
+                    m = dispatch()
+            except FloatingPointError as e:
+                raise FloatingPointError(f"epoch {epoch}, step {step_no}: {e}") from e
             device_metrics.append(m)
             # bound the queue of launched steps: fetch the loss of the step
             # `depth` back, so the host runs at most `depth` steps ahead
@@ -522,6 +612,12 @@ class Trainer:
 # CLI
 # ---------------------------------------------------------------------------
 
+def compute_dtype(use_bf16: bool, device: torch.device) -> torch.dtype:
+    """The JAX trainer's policy (``vqa_tpu/training/train.py:983``), the card
+    in the TPU's place: bf16 where asked for and the device is the card."""
+    return torch.bfloat16 if use_bf16 and device.type == "cuda" else torch.float32
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train the VQA model (PyTorch/CUDA port)")
     p.add_argument("--questions", default=None)
@@ -534,6 +630,9 @@ def parse_args(argv=None):
                    help="ablation: disable spatial attention only")
     p.add_argument("--no-attention", action="store_true",
                    help="ablation: disable SE and spatial attention")
+    p.add_argument("--stem-s2d", action="store_true",
+                   help="space-to-depth stem conv plan (same parameters, same math; "
+                        "models/cnn_backbone.py StemConv)")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -553,6 +652,10 @@ def parse_args(argv=None):
                    help="uniform label smoothing on the CE loss (0 = plain CE)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches per optimizer step, gradients averaged")
+    p.add_argument("--remat", choices=REMAT_MODES, default="none",
+                   help="activation recomputation in the backward: 'stages' keeps only "
+                        "the stem's and the CNN stages' outputs, 'full' recomputes the "
+                        "whole forward")
     p.add_argument("--resume", default=None)
     p.add_argument("--demo", action="store_true", help="random demo data")
     p.add_argument("--synthetic", action="store_true",
@@ -562,7 +665,8 @@ def parse_args(argv=None):
                         "(recorded in the checkpoint sidecar)")
     p.add_argument("--tiny", action="store_true", help="tiny model + data for smoke runs")
     p.add_argument("--no-bf16", action="store_true",
-                   help="accepted for the JAX CLI's sake: the port computes in f32")
+                   help="compute in f32 on the card (default there: bf16; the CPU is "
+                        "always f32)")
     p.add_argument("--no-save", action="store_true")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--seed", type=int, default=42)
@@ -570,6 +674,10 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of the first trained epoch here")
     p.add_argument("--log-dir", default=None,
                    help="per-epoch scalars (TensorBoard events, or scalars.jsonl)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="stop at the first non-finite loss or gradient with "
+                        "FloatingPointError (anomaly mode names the backward op; one host "
+                        "sync per step)")
     p.add_argument("--device-aug", action="store_true",
                    help="augment on the device (uint8 batches from the loader, "
                         "crop/flip/jitter on the card)")
@@ -600,6 +708,7 @@ def main(argv=None):
         num_epochs=args.epochs,
         early_stop_patience=args.patience,
         grad_accum=args.grad_accum,
+        remat=args.remat,
         label_smoothing=args.label_smoothing,
         use_bf16=not args.no_bf16,
         seed=args.seed,
@@ -657,9 +766,13 @@ def main(argv=None):
             max_question_length=mcfg.max_question_length, vocab_size=mcfg.vocab_size,
             num_answers=mcfg.num_answers, seed=tcfg.seed, num_workers=args.num_workers)
 
+    dtype = compute_dtype(tcfg.use_bf16, device)
+    print(f"[Trainer] compute dtype {str(dtype).replace('torch.', '')} on {device}"
+          + (" (--no-bf16)" if not tcfg.use_bf16 else ""))
     ablation = {"use_spatial_attention": False} if args.no_spatial else {}
     model = create_vqa_model(config=mcfg, use_attention=False if args.no_attention else None,
-                             device=device, seed=tcfg.seed, **ablation)
+                             device=device, seed=tcfg.seed, dtype=dtype,
+                             stem_s2d=args.stem_s2d, **ablation)
 
     ckpt_dir = args.checkpoint_dir or PATHS.checkpoint_dir
     if not args.no_save:
@@ -670,7 +783,8 @@ def main(argv=None):
 
     trainer = Trainer(model, train_loader, val_loader, config=tcfg, checkpoint_dir=ckpt_dir,
                       save_checkpoints=not args.no_save, seed=tcfg.seed,
-                      profile_dir=args.profile_dir, run_meta=run_meta, log_dir=args.log_dir)
+                      profile_dir=args.profile_dir, run_meta=run_meta, log_dir=args.log_dir,
+                      debug_nans=args.debug_nans)
     if args.resume:
         trainer.resume(args.resume)
     logger = trainer.train(patience=args.patience)

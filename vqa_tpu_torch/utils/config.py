@@ -112,9 +112,9 @@ class TrainingConfig:
     """Training hyperparameters (counterpart of
     ``vqa_tpu.utils.config.TrainingConfig``, field for field).
 
-    ``use_bf16`` and ``remat`` round-trip but the port's trainer computes
-    in f32, as the JAX trainer does off the TPU, and refuses a ``remat``
-    other than ``"none"``."""
+    ``use_bf16`` asks for bf16 compute where the device is the card (the
+    JAX trainer's TPU), f32 elsewhere; ``remat`` is ``"none"``, ``"full"``
+    or ``"stages"`` (``training/train.py``)."""
 
     num_samples: int = 25000
     train_split: float = 0.8
