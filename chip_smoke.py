@@ -113,7 +113,28 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     FloatingPointError; (f) one f32 step with ``stem_s2d`` against the
     same step without it: the loss within 1e-5, the rest held as phase 10
     (a) holds the card's step as the trainer runs it, to the noise of the
-    plain step on the batch in another order and with cuDNN off.
+    plain step on the batch in another order and with cuDNN off;
+13. multi-device at full width, each rank a process of this script
+    (``--worker``) with a hard time limit: (a) a launched world of one
+    (``RANK=0 WORLD_SIZE=1``) on NCCL: the train CLI at --data-parallel 1
+    --model-parallel 1 (bf16, one epoch, launch counts as (c)), one f32
+    step at B = 32 on its grid against the plain step with deterministic
+    cuDNN (every tensor within the plain step's own run-to-run difference),
+    a bf16 B = 256 step's time on the grid beside phase 12 (c)'s; (b) two
+    NCCL ranks on the one card (refused, or the right sum), then two gloo
+    ranks sharing it, f32 with TF32 off: a dp2 step at global B = 32
+    against the one-rank step (loss and BN statistics within 1e-5, the
+    rest held as phase 10 (a) holds the card's step with cuDNN), mp2 and
+    dp1×mp2 eval forwards at bucket 32 within 1e-3 of the unsharded model
+    (each launching the stem, SE and cross-attention kernels 1, 4 and 2
+    times, cross-attention on 4 local heads), ``evaluate --synthetic
+    --data-parallel 2`` on (a)'s checkpoint with top-1 and top-5 equal to
+    the one-rank evaluator's, a checkpoint saved on a 1×2 grid loaded
+    strictly by a one-card engine (probabilities within 1e-5, answers
+    equal); the cross-attention kernel at the grid's H = 4 against its
+    plain version; (c) an engine with two replicas on cuda:0 against one
+    replica (within 1e-4 at buckets 1, rounded up to 2, and 32), and
+    ``server --data-parallel 2`` stopping with the mesh's named error.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -135,9 +156,11 @@ the card's name and power limit; before that, one JSON line of per-kernel
 numbers for the six forms (launches counted over the f32 engine's main
 path of phase 3 for the f32 forms, over the bf16 engine's of phase 11 (b)
 for the bf16 ones; beside them, ``launches_bf16_training_validation``,
-each form's launches over phase 12 (b)'s validation forwards), and before
-that the ``bf16_training``, ``bf16``, ``training``, ``serving`` (load
-bench, HTTP phase, supervisor) and ``engine`` lines.
+each form's launches over phase 12 (b)'s validation forwards, and
+``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
+(rank 0) and replicas), and before that the ``multi_device``,
+``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
+phase, supervisor) and ``engine`` lines.
 """
 
 from __future__ import annotations
@@ -574,8 +597,9 @@ def dispatch_timing(torch, engine, rng, iters: int = 12) -> dict:
     qs = [HTTP_QUESTIONS[i % 5] for i in range(BUCKET)]
     device_ms, _ = time_ms(torch, lambda: engine.dispatch_probs_from_pixels(pixels, qs), iters)
 
-    def pageable(*arrays):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(engine.device) for a in arrays]
+    def pageable(*arrays, device=None):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(device or engine.device)
+                for a in arrays]
 
     times = {k: [] for k in ("alone", "wait", "behind", "alone_pageable", "behind_pageable")}
     for i in range(iters):
@@ -1024,14 +1048,19 @@ def synthetic_batch(cfg, batch: int, seed: int = 0):
     return [b["image"], b["token_ids"], b["attention_mask"], b["answer"]]
 
 
-def one_train_step(torch, cfg, where, arrays, lr: float, seed: int = 11, **model_kw):
+def one_train_step(torch, cfg, where, arrays, lr: float, seed: int = 11, mesh=None,
+                   **model_kw):
     """(model after one train step from seeded weights, its metrics);
-    ``model_kw`` (``dtype``, ``stem_s2d``) go to ``create_vqa_model``."""
+    ``model_kw`` (``dtype``, ``stem_s2d``) go to ``create_vqa_model``; with
+    ``mesh`` the model is placed on it first (``shard_model``)."""
     from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.models.vqa_model import shard_model
     from vqa_tpu_torch.training.train import TrainState, make_train_step
     from vqa_tpu_torch.utils.config import TrainingConfig
 
     model = create_vqa_model(config=cfg, device=where, seed=seed, **model_kw)
+    if mesh is not None:
+        shard_model(model, mesh)
     state = TrainState.create(
         model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
     metrics = make_train_step(model)(state, *(torch.from_numpy(a).to(where) for a in arrays))
@@ -1198,7 +1227,10 @@ def drive_train_cli(torch, tmp: str, extra=(), argv=None, form: str = "") -> tup
         out = train_epoch(self, epoch)
         seen["epochs"].append(dict(epoch=epoch, train_launches=ops.launch_counts(),
                                    train_steps=len(self.train_loader),
-                                   train_s=time.perf_counter() - t0))
+                                   train_s=time.perf_counter() - t0,
+                                   backend=(torch.distributed.get_backend()
+                                            if torch.distributed.is_initialized() else None),
+                                   world=train_mod.distributed.process_count()))
         return out
 
     def counted_validate(self):
@@ -1305,14 +1337,15 @@ def resume_matches(torch, trainer, tmp: str) -> float:
 
 
 def train_timing(torch, cfg, device, batch: int, steps: int = 12, dtype=None,
-                 remat: str = "none") -> dict:
+                 remat: str = "none", mesh=None) -> dict:
     """(f) Train pairs/s and ms per step at ``batch`` (f32 unless ``dtype``,
-    with ``remat``): CUDA events over ``steps`` steady steps after 3
-    warm-up steps, the device's busy share from a profiler window of 5
-    steps, and peak memory."""
+    with ``remat``, on ``mesh`` when given): CUDA events over ``steps``
+    steady steps after 3 warm-up steps, the device's busy share from a
+    profiler window of 5 steps, and peak memory."""
     from torch.profiler import ProfilerActivity, profile
 
     from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.models.vqa_model import shard_model
     from vqa_tpu_torch.training.train import TrainState, make_train_step
     from vqa_tpu_torch.utils.config import TrainingConfig
 
@@ -1327,6 +1360,8 @@ def train_timing(torch, cfg, device, batch: int, steps: int = 12, dtype=None,
     torch.cuda.reset_peak_memory_stats(device)
     model = create_vqa_model(config=cfg, device=device, seed=13,
                              dtype=dtype or torch.float32)
+    if mesh is not None:
+        shard_model(model, mesh)
     state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 100)
     step = make_train_step(model, remat=remat)
     for _ in range(3):
@@ -1352,8 +1387,11 @@ def train_timing(torch, cfg, device, batch: int, steps: int = 12, dtype=None,
     out = dict(batch=batch, step_ms=step_ms, pairs_per_s=batch / step_ms * 1e3,
                device_busy_ms_per_step=busy_ms / window,
                device_busy_share=busy_ms / wall_ms, peak_memory_bytes=peak, steps=steps,
-               dtype=str(model.dtype).replace("torch.", ""), remat=remat)
-    log(f"train step at B={batch}, {out['dtype']}, remat {remat}: {step_ms:.3f} ms "
+               dtype=str(model.dtype).replace("torch.", ""), remat=remat,
+               mesh=None if mesh is None else mesh.shape)
+    log(f"train step at B={batch}, {out['dtype']}, remat {remat}"
+        + ("" if mesh is None else f", on a {mesh.data_parallel}×{mesh.model_parallel} mesh")
+        + f": {step_ms:.3f} ms "
         f"({out['pairs_per_s']:.1f} pairs/s, CUDA "
         f"events over {steps} steps); profiled window: card busy {busy_ms / window:.3f} ms "
         f"per step, {100 * out['device_busy_share']:.1f}% of the wall time; peak memory "
@@ -2112,11 +2150,539 @@ def drive_bf16(torch, engine32, tput32, tmp: str, val_top1: float, rng, seed: in
     return kernels, out
 
 
+# ---- phase 13: multi-device -------------------------------------------------
+#
+# The card's machine has one H100, so the multi-rank path runs as (a) a
+# launched world of one on NCCL, the production backend (the degenerate
+# grid, as JAX's (1, 1) mesh on one chip), and (b) two gloo ranks sharing
+# the one card (gloo runs all_reduce and broadcast on CUDA tensors; NCCL
+# refuses two ranks on one device). Each rank is a process of this script
+# (``--worker``) with a hard time limit; a rank that fails or outlasts it
+# fails the run. (c) is one process: serving replicas on one device.
+
+RANK_TIMEOUT_S = 600
+MP_LOGIT_TOL = 1e-3     # sharded eval logits against the unsharded model's
+DP_STEP_TOL = 1e-5      # dp2 step against the one-rank step: loss and BN statistics
+REPLICA_TOL = 1e-4      # two replicas against one
+CKPT_PROB_TOL = 1e-5    # the one-card engine on the mp2 checkpoint against the grid
+
+
+def launch_ranks(task: str, world: int, tmp: str, env=None, timeout: float = RANK_TIMEOUT_S,
+                 stop_on_failure: bool = True) -> list:
+    """Run ``chip_smoke.py --worker task`` as ``world`` ranks, each echoing
+    its output here; per rank (exit code, its JSON result or None). A rank
+    still running after ``timeout`` s (or, with ``stop_on_failure``, once
+    another rank failed) is killed."""
+    port = _free_port()
+    procs, paths = [], []
+    for rank in range(world):
+        out, log_path = (os.path.join(tmp, f"{task}.rank{rank}.{ext}") for ext in ("json", "log"))
+        with open(log_path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--worker", task,
+                 "--rank", str(rank), "--world", str(world), "--port", str(port),
+                 "--tmp", tmp, "--out", out],
+                cwd=REPO, env={**os.environ, **(env or {}), "PYTHONUNBUFFERED": "1"},
+                stdout=f, stderr=subprocess.STDOUT))
+        paths.append((out, log_path))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if stop_on_failure and any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results = []
+    for rank, (p, (out, log_path)) in enumerate(zip(procs, paths)):
+        with open(log_path) as f:
+            for line in f.read().splitlines():
+                log(f"  [{task} rank {rank}] {line}")
+        result = None
+        if os.path.exists(out):
+            with open(out) as f:
+                result = json.load(f)
+        results.append((p.returncode, result))
+    return results
+
+
+def spawn_ranks(task: str, world: int, tmp: str, env=None) -> list:
+    """The JSON results of ``world`` ranks of ``task``, by rank; a rank
+    that exits non-zero or outlasts RANK_TIMEOUT_S fails the run."""
+    ranks = launch_ranks(task, world, tmp, env)
+    bad = [(r, rc) for r, (rc, res) in enumerate(ranks) if rc != 0 or res is None]
+    require(not bad, f"phase 13 {task}: ranks (rank, exit code) failed or were stopped: {bad}")
+    return [res for _, res in ranks]
+
+
+def _global_metrics(torch, metrics: dict, mesh) -> dict:
+    """The global batch's loss and counts from this rank's shard."""
+    import torch.distributed as dist
+
+    t = torch.stack([metrics["loss"].float(), metrics["correct1"].float(),
+                     metrics["correct5"].float()])
+    dist.all_reduce(t, group=mesh.data_group)
+    return {"loss": t[0] / mesh.data_parallel, "correct1": t[1], "correct5": t[2]}
+
+
+def _max_diff(a, b) -> float:
+    return float((a.detach().double() - b.detach().double()).abs().max()) if a.numel() else 0.0
+
+
+def mesh_step_equals_plain(torch, cfg, device, mesh, lr: float = 1e-4, batch: int = 32) -> dict:
+    """(a) One f32 step at ``batch`` on the world-of-one NCCL mesh (the
+    gradient all_reduce over one rank) against the plain single-process
+    step, with deterministic cuDNN: every tensor within the plain step's
+    own run-to-run difference (0 when the card is deterministic)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, dropout=0.0, answer_dropout=0.0)
+    arrays = synthetic_batch(cfg, batch, seed=1)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False,
+                                    allow_tf32=False):
+        plain = one_train_step(torch, cfg, device, arrays, lr)
+        again = one_train_step(torch, cfg, device, arrays, lr)
+        on_mesh = one_train_step(torch, cfg, device, arrays, lr, mesh=mesh)
+    worst, past, tensors = 0.0, [], 0
+    for kind in ("param", "grad", "buffer"):
+        def items(m):
+            if kind == "buffer":
+                return dict(m.named_buffers())
+            return {n: (p.grad if kind == "grad" else p) for n, p in m.named_parameters()}
+
+        ref, rep, got = items(plain[0]), items(again[0]), items(on_mesh[0])
+        for name, r in ref.items():
+            if r is None or not r.is_floating_point():
+                continue
+            d, noise = _max_diff(got[name], r), _max_diff(rep[name], r)
+            worst, tensors = max(worst, d), tensors + 1
+            if d > noise:
+                past.append(f"{kind} {name}: {d:.3e} > run-to-run {noise:.3e}")
+    loss_diff = abs(float(on_mesh[1]["loss"]) - float(plain[1]["loss"]))
+    log(f"phase 13 (a): f32 step at B={batch} on the NCCL world-of-one mesh vs plain: loss "
+        f"{float(on_mesh[1]['loss']):.7f} vs {float(plain[1]['loss']):.7f}; {tensors} tensors, "
+        f"max difference {worst:.3e}, {len(past)} past the plain step's run-to-run difference")
+    require(loss_diff <= abs(float(again[1]["loss"]) - float(plain[1]["loss"])),
+            f"loss on the mesh off by {loss_diff:.3e}")
+    require(not past, "mesh step vs plain: " + "; ".join(past[:5]))
+    return dict(batch=batch, tensors=tensors, max_diff=worst, loss_diff=loss_diff)
+
+
+def worker_nccl_world_one(torch, args) -> dict:
+    """(a) A launched world of one (``RANK=0 WORLD_SIZE=1``, set by the
+    parent): the train CLI at --data-parallel 1 --model-parallel 1 (bf16,
+    the card's default), which joins NCCL from the launcher's variables;
+    the f32 step on its mesh against the plain step; a bf16 B = 256 step's
+    time on the mesh."""
+    import torch.distributed as dist
+
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    from vqa_tpu_torch.parallel import distributed, mesh_from_config
+
+    trainer, cli = drive_train_cli(torch, os.path.join(args.tmp, "nccl1"), argv=[
+        "--synthetic", "--epochs", "1", "--subset-size", "640", "--device-aug",
+        "--num-workers", "4", "--data-parallel", "1", "--model-parallel", "1"], form="_bf16")
+    epoch = cli["epochs"][0]
+    require((epoch["backend"], epoch["world"]) == ("nccl", 1),
+            f"the train CLI trained on {epoch['backend']} at world size {epoch['world']}")
+    require(trainer.mesh.shape == {"data": 1, "model": 1} and not dist.is_initialized(),
+            f"mesh {trainer.mesh.shape}; the CLI left its process group: "
+            f"{not dist.is_initialized()}")
+    require(trainer.model.dtype == torch.bfloat16, f"trained in {trainer.model.dtype}")
+    del trainer
+    # the same world of one again, for the step and its time on the mesh
+    device = torch.device("cuda", torch.cuda.current_device())
+    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=device)
+    mesh = mesh_from_config()
+    require(dist.get_backend() == "nccl" and mesh.data_group is not None, "no NCCL group")
+    cfg = ModelConfig()
+    step = mesh_step_equals_plain(torch, cfg, device, mesh)
+    # plain, mesh, mesh, plain in this process (the step is host-bound)
+    timing = {}
+    for name in ("plain", "mesh", "mesh", "plain"):
+        t = train_timing(torch, cfg, device, 256, dtype=torch.bfloat16,
+                         mesh=mesh if name == "mesh" else None)
+        timing.setdefault(name, []).append(t)
+    return dict(backend=dist.get_backend(), cli=cli, step=step, timing=timing)
+
+
+def _sharded_forward(torch, cfg, device, mesh, arrays, seed: int):
+    """Eval logits of a seeded f32 model placed on ``mesh`` (every rank),
+    with the kernels' launches over the forward."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.models import create_vqa_model, forward_logits
+    from vqa_tpu_torch.models.vqa_model import shard_model
+
+    model = shard_model(create_vqa_model(config=cfg, device=device, seed=seed), mesh)
+    inputs = [torch.from_numpy(a).to(device) for a in arrays[:3]]
+    torch.cuda.synchronize(device)
+    ops.reset_launch_counts()
+    logits = forward_logits(model, inputs[0], inputs[1].long(), inputs[2])
+    torch.cuda.synchronize(device)
+    heads = model.fusion.cross_attention.layers[0].cross_attention.num_heads
+    return model, logits, ops.launch_counts(), heads
+
+
+def worker_gloo_two_ranks(torch, args) -> dict:
+    """(b) Two gloo ranks on the one card, f32 with TF32 off."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.models import create_vqa_model, forward_logits
+    from vqa_tpu_torch.parallel import create_mesh, data_sharding, distributed, mesh_from_config
+    from vqa_tpu_torch.training import evaluate
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import MeshConfig, ModelConfig, TrainingConfig
+
+    device = torch.device("cuda", 0)
+    distributed.initialize(f"127.0.0.1:{args.port}", args.world, args.rank, local_rank=0,
+                           backend="gloo", device=device, timeout_s=RANK_TIMEOUT_S)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    primary = args.rank == 0
+    cfg = ModelConfig()
+    out = {}
+
+    # (b1) a dp2 step at global B = 32 against the one-rank step at B = 32
+    t0 = time.perf_counter()
+    lr = 1e-4
+    cfg0 = dataclasses.replace(cfg, dropout=0.0, answer_dropout=0.0)
+    arrays = synthetic_batch(cfg0, 32, seed=1)
+    mesh = create_mesh(2, 1)
+    rows = data_sharding(mesh, 32)
+    m_dp, r_dp = one_train_step(torch, cfg0, device, [a[rows] for a in arrays], lr, mesh=mesh)
+    r_dp = _global_metrics(torch, r_dp, mesh)
+    if primary:
+        # the one-rank step, and its own f32 noise: the step on the batch in
+        # another order and with cuDNN off (phase 10 (a)'s kind of bound)
+        plain = one_train_step(torch, cfg0, device, arrays, lr)
+        perm = np.random.default_rng(0).permutation(32)
+        noise = [one_train_step(torch, cfg0, device, [a[perm] for a in arrays], lr)]
+        with torch.backends.cudnn.flags(enabled=False):
+            noise.append(one_train_step(torch, cfg0, device, arrays, lr))
+        r = compare_train_steps(torch, plain, noise, (m_dp, r_dp), lr)
+        bn = max(_max_diff(b, dict(plain[0].named_buffers())[n])
+                 for n, b in m_dp.named_buffers() if n.endswith(("running_mean", "running_var")))
+        loss_err = abs(float(r_dp["loss"]) - float(plain[1]["loss"]))
+        log(f"phase 13 (b): dp2 step at global B=32 vs the one-rank step: loss err "
+            f"{loss_err:.3e} (tol {DP_STEP_TOL}), BN statistics max err {bn:.3e} (tol "
+            f"{DP_STEP_TOL}), gradients relative L2 {r['grad']['rel_l2_err']:.3e} (the "
+            f"one-rank step's own f32 noise {r['grad']['rel_l2_noise']:.3e}), params max err "
+            f"{r['param_err']:.3e} (tol 2·lr)")
+        require(loss_err <= DP_STEP_TOL and bn <= DP_STEP_TOL,
+                f"dp2 step: loss err {loss_err:.3e}, BN err {bn:.3e}")
+        require(not r["cudnn_failures"], "dp2 step vs one rank: "
+                + "; ".join(r["cudnn_failures"][:5]))
+        out["dp2_step"] = dict(loss_err=loss_err, bn_err=bn, grad=r["grad"],
+                               param_err=r["param_err"])
+        del plain, noise
+    del m_dp
+    dist.barrier()
+    out["dp2_step_s"] = time.perf_counter() - t0
+
+    # (b2) mp2 and dp1×mp2 eval forwards at bucket 32 against the unsharded model
+    t0 = time.perf_counter()
+    batch = synthetic_batch(cfg, BUCKET, seed=3)
+    launches_total = dict.fromkeys(ops.KERNELS, 0)
+    if primary:
+        plain = create_vqa_model(config=cfg, device=device, seed=21)
+        inputs = [torch.from_numpy(a).to(device) for a in batch[:3]]
+        want = forward_logits(plain, inputs[0], inputs[1].long(), inputs[2])
+        del plain
+    for name, mc in (("mp2", MeshConfig(model_parallel=2)),
+                     ("dp1xmp2", MeshConfig(data_parallel=1, model_parallel=2))):
+        mesh = mesh_from_config(mc, batch_divisor=BUCKET)
+        require(mesh.shape == {"data": 1, "model": 2}, f"{name}: mesh {mesh.shape}")
+        model, logits, launches, heads = _sharded_forward(torch, cfg, device, mesh, batch, 21)
+        for k, v in launches.items():
+            launches_total[k] += v
+        require(heads == cfg.num_attention_heads // 2, f"{name}: {heads} local heads")
+        for kernel, n in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+            require(launches[kernel] == n, f"{name} forward launched {launches}")
+        if primary:
+            err = _max_diff(logits, want)
+            log(f"phase 13 (b): {name} eval forward at B={BUCKET}: logits max err {err:.3e} "
+                f"against the unsharded model (tol {MP_LOGIT_TOL}); cross-attention on "
+                f"{heads} local heads; launches {launches}")
+            require(err <= MP_LOGIT_TOL, f"{name} logits off by {err:.3e}")
+            out[f"{name}_logit_err"] = err
+        del model
+    out["mp2_forward_s"] = time.perf_counter() - t0
+
+    # (b3) the dp2 evaluator on phase (a)'s checkpoint (f32, the default)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    res = evaluate.main(["--checkpoint-dir", os.path.join(args.tmp, "nccl1"), "--synthetic",
+                         "--data-parallel", "2", "--device", str(device),
+                         "--output-dir", os.path.join(args.tmp, "eval_dp2")])
+    launches = ops.launch_counts()
+    forwards = -(-res["num_samples"] // 64)
+    for kernel, n in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(launches[kernel] == n * forwards and launches[kernel + "_bf16"] == 0,
+                f"dp2 evaluate: launches {launches} in {forwards} forwards")
+    for k, v in launches.items():
+        launches_total[k] += v
+    out["evaluate_dp2"] = dict(samples=res["num_samples"], top1=res["top1_accuracy"],
+                               top5=res["top5_accuracy"], loss=res["loss"], forwards=forwards,
+                               launches=launches)
+    out["evaluate_dp2_s"] = time.perf_counter() - t0
+
+    # (b4) a checkpoint saved under mp2, loaded strictly into a one-card engine
+    t0 = time.perf_counter()
+    from vqa_tpu_torch.data.preprocess import device_normalize
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.tokenizer import create_tokenizer_from_questions
+
+    ckpt = os.path.join(args.tmp, "ckpt_mp2")
+    mesh = create_mesh(1, 2)
+    model = create_vqa_model(config=cfg, device=device, seed=22)
+    trainer = Trainer(model, [{"answer": np.zeros(8)}], [], mesh=mesh, checkpoint_dir=ckpt,
+                      config=TrainingConfig(warmup_epochs=0, num_epochs=1))
+    step = [torch.from_numpy(a).to(device) for a in synthetic_batch(cfg, 8, seed=4)]
+    trainer.train_step(trainer.state, *step)
+    trainer.save("latest", 0)
+    tok = create_tokenizer_from_questions(HTTP_QUESTIONS, max_length=cfg.max_question_length,
+                                          vocab_size=cfg.vocab_size, min_freq=1)
+    questions = [HTTP_QUESTIONS[i % len(HTTP_QUESTIONS)] for i in range(8)]
+    pixels = np.random.default_rng(5).integers(0, 256, (8, cfg.image_size, cfg.image_size, 3),
+                                               np.uint8)
+    ids, mask = tok.encode_batch_np(questions)
+    model.eval()
+    with torch.inference_mode():
+        logits, _ = model(device_normalize(torch.from_numpy(pixels).to(device)),
+                          torch.from_numpy(ids).to(device).long(),
+                          torch.from_numpy(mask).to(device))
+        grid_probs = torch.softmax(logits, -1).cpu().numpy()
+    dist.barrier()
+    if primary:
+        tok.save(os.path.join(ckpt, "tokenizer.json"))
+        engine = VQAInference(checkpoint_dir=ckpt, checkpoint_name="latest", device=device,
+                              dtype=torch.float32).load()
+        require(engine.model_loaded_from_checkpoint, "the engine did not load the checkpoint")
+        probs = engine.predict_probs_from_pixels(pixels, questions)
+        err = float(np.abs(probs - grid_probs).max())
+        same = bool((probs.argmax(-1) == grid_probs.argmax(-1)).all())
+        log(f"phase 13 (b): checkpoint saved on a 1×2 mesh, loaded strictly by a one-card "
+            f"engine: probabilities max err {err:.3e} (tol {CKPT_PROB_TOL}) against the grid's "
+            f"forward, answers equal: {same}")
+        require(err <= CKPT_PROB_TOL and same, f"mp2 checkpoint in the engine: err {err:.3e}")
+        out["mp2_checkpoint_prob_err"] = err
+        del engine
+    dist.barrier()
+    out["mp2_checkpoint_s"] = time.perf_counter() - t0
+    out["launches"] = launches_total
+    return out
+
+
+def worker_nccl_one_card(torch, args) -> dict:
+    """Two NCCL ranks bound to the one card: one all_reduce. NCCL is
+    expected to refuse the duplicate device; its error is the result."""
+    from vqa_tpu_torch.parallel import distributed
+
+    try:
+        distributed.initialize(f"127.0.0.1:{args.port}", args.world, args.rank, local_rank=0,
+                               timeout_s=60)
+        t = torch.ones(1, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        return dict(refused=False, value=float(t))
+    except Exception as e:  # the expected outcome, reported
+        return dict(refused=True, error=f"{type(e).__name__}: {str(e)[:400]}")
+
+
+def nccl_refuses_one_card(tmp: str) -> dict:
+    """Two NCCL ranks on one card: refused by NCCL (its error, or a rank
+    stopped with one), or, if NCCL takes them, the right sum; anything else
+    (another error, a rank that hangs) fails the run."""
+    results = []
+    for r, (rc, res) in enumerate(launch_ranks("nccl_one_card", 2, tmp, timeout=180,
+                                               stop_on_failure=False)):
+        if res is None:  # stopped by NCCL, or killed: its output is in the log above
+            with open(os.path.join(tmp, f"nccl_one_card.rank{r}.log")) as f:
+                res = dict(refused=True, error=f"rank exited {rc}: {f.read()[-300:]}")
+        log(f"phase 13 (b): NCCL, two ranks on one card, rank {r}: "
+            + (f"refused: {res['error']}" if res["refused"] else f"ran, sum {res['value']}"))
+        results.append(res)
+    require(all(("nccl" in res["error"].lower()) if res["refused"] else res["value"] == 2.0
+                for res in results),
+            "two NCCL ranks on one card: neither NCCL's refusal nor the right sum")
+    return dict(refused=all(res["refused"] for res in results),
+                errors=[res.get("error", "") for res in results])
+
+
+def check_local_heads(torch) -> dict:
+    """The cross-attention kernel at the mp2 grid's shape at full width,
+    [32, 4, 20 | 49, 32] head views (f32 within 1e-5/1e-6 of the plain
+    version, bf16 within one ulp), timed beside H = 8."""
+    from vqa_tpu_torch import ops
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(7)
+    out = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for h in (4, 8):
+            def view(n):
+                t = torch.from_numpy(rng.standard_normal((BUCKET, n, h * 32)).astype(np.float32))
+                return t.to(device, dtype).view(BUCKET, n, h, 32).transpose(1, 2)
+
+            q, k, v = view(20), view(49), view(49)
+            ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(32))
+            pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(32))
+            if dtype == torch.float32:
+                ok = _max_diff(ctx, pctx) <= 1e-5 and _max_diff(w, pw) <= 1e-6
+            else:
+                ok = bf16_compare(torch, ctx, pctx)["ok"] and bf16_compare(torch, w, pw)["ok"]
+            require(ok, f"cross-attention {name} at H={h} disagrees with its plain version")
+            out[f"{name}_h{h}_ms"], _ = time_ms(
+                torch, lambda: ops.fused_cross_attention(q, k, v, math.sqrt(32)), 50)
+    log(f"phase 13: cross-attention kernel at the mp2 grid's local heads (H=4) against H=8, "
+        f"ms per call: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def replicas_on_one_card(torch, cfg) -> dict:
+    """(c) An engine with two replicas on cuda:0 against one replica, f32:
+    answers within REPLICA_TOL at buckets 1 (rounded up to 2) and 32, each
+    request's replicas launching the kernels."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.parallel import mesh_from_config
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import MeshConfig
+
+    device = torch.device("cuda", 0)
+    mesh = mesh_from_config(MeshConfig(data_parallel=2), devices=[device, device])
+    one = VQAInference(model_config=cfg, device=device, dtype=torch.float32).load()
+    two = VQAInference(model_config=cfg, device=device, dtype=torch.float32,
+                       mesh=mesh).load()
+    require(two._effective_buckets() == [2, 4, 16, 32], f"buckets {two._effective_buckets()}")
+    rng = np.random.default_rng(8)
+    out = {}
+    for n in (1, BUCKET):
+        pixels = rng.integers(0, 256, (n, cfg.image_size, cfg.image_size, 3), np.uint8)
+        questions = [HTTP_QUESTIONS[i % len(HTTP_QUESTIONS)] for i in range(n)]
+        want = one.predict_probs_from_pixels(pixels, questions)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = two.predict_probs_from_pixels(pixels, questions)
+        launches = ops.launch_counts()
+        err = float(np.abs(got - want).max())
+        log(f"phase 13 (c): two replicas on cuda:0 at n={n} (bucket {two._bucket(n)}, "
+            f"{two._bucket(n) // 2} rows each) vs one: max err {err:.3e} (tol {REPLICA_TOL}); "
+            f"launches {launches}")
+        require(err <= REPLICA_TOL and (got.argmax(-1) == want.argmax(-1)).all(),
+                f"replicas at n={n}: err {err:.3e}")
+        for kernel, per in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+            require(launches[kernel] == 2 * per, f"replicas at n={n}: launches {launches}")
+        out[f"err_n{n}"] = err
+        out[f"launches_n{n}"] = launches
+    return out
+
+
+def server_refuses_more_replicas_than_cards() -> dict:
+    """(c) ``python -m vqa_tpu_torch.serving.server --data-parallel 2`` on a
+    one-card machine stops with the mesh's named error."""
+    proc = subprocess.run([sys.executable, "-m", "vqa_tpu_torch.serving.server",
+                           "--data-parallel", "2", "--port", "0"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    message = "mesh 2×1 needs 2 devices but only 1 are available"
+    log(f"phase 13 (c): server --data-parallel 2 exited {proc.returncode}: "
+        f"{proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ''}")
+    require(proc.returncode != 0 and message in proc.stderr,
+            f"server --data-parallel 2: rc {proc.returncode}, stderr {proc.stderr[-500:]}")
+    return dict(returncode=proc.returncode)
+
+
+def drive_multi_device(torch, tmp: str, bf16_timing: dict) -> dict:
+    """Phase 13 at full width: (a) NCCL at world size 1, (b) two gloo ranks
+    on the card, (c) serving replicas; each part's seconds logged."""
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    cfg = ModelConfig()
+    out, seconds = {}, {}
+    t = time.perf_counter()
+    (out["nccl_world_one"],) = spawn_ranks("nccl_world_one", 1, tmp, env={
+        "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+        "MASTER_PORT": str(_free_port())})
+    seconds["a"] = time.perf_counter() - t
+    timing = out["nccl_world_one"]["timing"]
+    b = bf16_timing["256"]
+    log("phase 13 (a): bf16 B=256 step, ms (card busy ms), plain / on the NCCL "
+        "world-of-one mesh / on the mesh / plain in the rank's process: " + " / ".join(
+            f"{t['step_ms']:.3f} ({t['device_busy_ms_per_step']:.3f})"
+            for t in (timing["plain"][0], *timing["mesh"], timing["plain"][1]))
+        + f"; phase 12 (c)'s plain step in this process {b['step_ms']:.3f} "
+        f"({b['device_busy_ms_per_step']:.3f}); {seconds['a']:.1f} s")
+    t = time.perf_counter()
+    out["nccl_one_card"] = nccl_refuses_one_card(tmp)
+    ranks = spawn_ranks("gloo_two_ranks", 2, tmp)
+    seconds["b"] = time.perf_counter() - t
+    out["gloo_two_ranks"] = ranks[0]
+    # the one-rank evaluator on the same checkpoint, in this process
+    from vqa_tpu_torch.training import evaluate
+
+    alone = evaluate.main(["--checkpoint-dir", os.path.join(tmp, "nccl1"), "--synthetic",
+                           "--device", str(torch.device("cuda", 0)),
+                           "--output-dir", os.path.join(tmp, "eval_one")])
+    dp2 = ranks[0]["evaluate_dp2"]
+    log(f"phase 13 (b): dp2 evaluator top-1 {dp2['top1']:.4f} top-5 {dp2['top5']:.4f} on "
+        f"{dp2['samples']} samples, one rank top-1 {alone['top1_accuracy']:.4f} top-5 "
+        f"{alone['top5_accuracy']:.4f}; {seconds['b']:.1f} s")
+    require(dp2["samples"] == alone["num_samples"] and dp2["top1"] == alone["top1_accuracy"]
+            and dp2["top5"] == alone["top5_accuracy"], "dp2 evaluator vs one rank")
+    t = time.perf_counter()
+    out["local_heads"] = check_local_heads(torch)
+    out["replicas"] = replicas_on_one_card(torch, cfg)
+    out["server"] = server_refuses_more_replicas_than_cards()
+    seconds["c"] = time.perf_counter() - t
+    out["phase_seconds"] = seconds
+    log("phase 13: " + ", ".join(f"({k}) {v:.1f} s" for k, v in seconds.items()))
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+WORKERS = {"nccl_world_one": worker_nccl_world_one, "gloo_two_ranks": worker_gloo_two_ranks,
+           "nccl_one_card": worker_nccl_one_card}
+
+
+def run_worker(args) -> int:
+    """One rank of phase 13 (``--worker``): its result as JSON in ``--out``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from vqa_tpu_torch.parallel import distributed
+
+    result = WORKERS[args.worker](torch, args)
+    with open(args.out, "w") as f:
+        json.dump(result, f)
+    if not result.get("refused"):
+        distributed.shutdown()
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--profile", action="store_true",
                    help="add a torch.profiler breakdown of the bucket-32 forward")
     p.add_argument("--seed", type=int, default=0)
+    # one rank of phase 13, started by the script itself
+    p.add_argument("--worker", choices=sorted(WORKERS), help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world", "--port"):
+        p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
+    for flag in ("--tmp", "--out"):
+        p.add_argument(flag, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
@@ -2125,6 +2691,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available; this script runs on an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.worker:
+        return run_worker(args)
     sys.path.insert(0, REPO)
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.models import count_parameters
@@ -2196,6 +2764,13 @@ def main(argv=None) -> int:
         bf16_training, val_launches = drive_bf16_training(torch, tmp, training["timing"])
     for name in kernels:  # f32 forms: 0, checked by synthetic_run
         kernels[name]["launches_bf16_training_validation"] = val_launches[name]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_device.") as tmp:
+        multi_device = drive_multi_device(torch, tmp, bf16_training["timing"])
+    replicas = multi_device["replicas"]
+    for name in kernels:  # rank 0's mp2 forwards and dp2 evaluation, the replicas
+        kernels[name]["launches_multi_device"] = (
+            multi_device["gloo_two_ranks"]["launches"][name]
+            + replicas["launches_n1"][name] + replicas[f"launches_n{BUCKET}"][name])
 
     log(json.dumps({"engine": {
         "params": n_params, "build_s": build_s,
@@ -2208,9 +2783,10 @@ def main(argv=None) -> int:
     log(json.dumps({"training": training}))
     log(json.dumps({"bf16": bf16}))
     log(json.dumps({"bf16_training": bf16_training}))
+    log(json.dumps({"multi_device": multi_device}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_bf16_training_validation")
+            "launches_bf16_training_validation", "launches_multi_device")
     log(json.dumps({"kernels": [{k: ({"name": name, **r}[k]) for k in keys}
                                 for name, r in kernels.items()]}))
     log(card)

@@ -138,6 +138,35 @@ def test_cross_attention_kernel_takes_head_views(cuda, lkv, d, offset):
     torch.testing.assert_close(w, pw, atol=1e-6, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [1, 2, 4])
+def test_cross_attention_kernel_at_local_head_counts(cuda, h, dtype):
+    """Tensor parallelism at full width (8 heads of 32) gives each rank
+    H/mp heads: H = 4, 2, 1 at mp = 2, 4, 8, as [B,H,L,32] head views of
+    the rank's [B,L,H·32] projections (bucket 32); the scale stays
+    1/sqrt(32)."""
+    rng = np.random.default_rng(6)
+    b, lq, lkv, d = 32, 20, 49, 32
+
+    def view(n):
+        return _randn(rng, (b, n, h * d), cuda).to(dtype).view(b, n, h, d).transpose(1, 2)
+
+    q, k, v = view(lq), view(lkv), view(lkv)
+    counter = ops.fused_cross_attention_bf16 if dtype == torch.bfloat16 else \
+        ops.fused_cross_attention
+    before = counter.launches
+    ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(d))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert ctx.shape == (b, h, lq, d) and w.shape == (b, h, lq, lkv)
+    pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(d))
+    if dtype == torch.bfloat16:
+        assert _ulps(ctx, pctx) <= 1 and _ulps(w, pw) <= 1
+    else:
+        torch.testing.assert_close(ctx, pctx, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(w, pw, atol=1e-6, rtol=1e-5)
+
+
 def test_se_kernel_takes_misaligned_input(cuda):
     """x one float past a 16-byte boundary takes the scalar path."""
     rng = np.random.default_rng(8)

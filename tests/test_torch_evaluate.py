@@ -241,9 +241,12 @@ def test_cli_round_trip_after_train(tmp_path, capsys):
 
 
 def test_cli_stops_on_mesh_flags_and_without_a_card():
-    with pytest.raises(NotImplementedError, match="A.11"):
+    """In one process a grid of two ranks stops with the mesh's named
+    error, which names the launcher."""
+    with pytest.raises(ValueError, match=r"mesh 2×1 needs 2 processes .* torchrun "
+                                         r"--nproc-per-node 2"):
         evaluate.main(["--checkpoint-dir", "nowhere", "--data-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match=r"model_parallel=2 does not divide 1 processes"):
         evaluate.main(["--checkpoint-dir", "nowhere", "--model-parallel", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -84,3 +84,25 @@ def test_the_evaluator_and_the_dtype_layers_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_parallel_package_imports_without_jax_a_card_or_a_group():
+    """``vqa_tpu_torch.parallel`` alone in a fresh interpreter that sees no
+    card and joins no process group: the single-process answers."""
+    code = (
+        "import sys, torch\n"
+        "import vqa_tpu_torch.parallel as parallel\n"
+        "assert not torch.cuda.is_available() and not torch.distributed.is_initialized()\n"
+        "assert parallel.mesh_from_config().shape == {'data': 1, 'model': 1}\n"
+        "assert parallel.distributed.initialize() is False\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "MASTER_ADDR", "WORLD_SIZE", "RANK")}
+    env.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -9,9 +9,8 @@ shuffle (``set_epoch``) and an optional decode thread pool
 (``num_workers``). The same indices give the same numpy batches as the JAX
 package's loaders. ``create_train_val_loaders`` builds the sample list,
 vocabulary and tokenizer once and shares them across the two splits.
-
-Per-process sharding of the loaders (``shard_for_process``) waits for the
-multi-device slice.
+``shard_for_process`` gives each data-parallel rank its own equal-length
+slice of a loader's samples.
 """
 
 from __future__ import annotations
@@ -342,6 +341,35 @@ class BatchLoader:
                     [s["annotator_answers"] for s in samples]
                 )
             yield batch
+
+
+def shard_for_process(
+    loader: "BatchLoader",
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+) -> "BatchLoader":
+    """Per-rank sample sharding (counterpart of
+    ``vqa_tpu.data.dataset.shard_for_process``): a copy of the loader over
+    a disjoint stride-slice of its indices, so the data-parallel ranks step
+    over distinct samples (orders still derive from (seed, epoch) via
+    ``set_epoch``). The trainer passes the rank's data coordinate and the
+    data-parallel degree, so the ranks of one model group read the same
+    batches; the defaults are the process index and count. No-op for one
+    shard."""
+    import copy
+
+    from vqa_tpu_torch.parallel import distributed
+
+    pc = process_count if process_count is not None else distributed.process_count()
+    pi = process_index if process_index is not None else distributed.process_index()
+    if pc <= 1:
+        return loader
+    sharded = copy.copy(loader)
+    # equal shard length on every rank: collectives run in lockstep, so a
+    # rank with one extra batch would stall the others on its last step
+    per = len(loader.indices) // pc
+    sharded.indices = loader.indices[pi::pc][:per]
+    return sharded
 
 
 def create_train_val_loaders(

@@ -9,6 +9,9 @@ batch ahead of the one being yielded, so the copy overlaps the step that
 runs on the batch before. Before a batch is yielded the consumer's current
 stream waits for its copy (an event), and each tensor is marked with
 ``record_stream`` so its memory is not reused while that stream reads it.
+Under data parallelism each rank iterates its own loader shard
+(``data.dataset.shard_for_process``) and places its local batch on its
+own card (the trainer passes the rank's device).
 """
 
 from __future__ import annotations

@@ -37,6 +37,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.nn.functional import all_reduce
 
 from vqa_tpu_torch.models.attention_modules import AttentionWrapper
 from vqa_tpu_torch.models.layers import Conv2d
@@ -73,19 +74,49 @@ class BatchNorm2d(nn.BatchNorm2d):
     bf16), once per forward (not again in a ``recomputing`` replay).
     torch's own takes the unbiased variance, which after one step at batch
     4 moved a stage-4 ``running_var`` by ~1e-2 from flax's. Normalisation,
-    the eval path and the state_dict keys are torch's."""
+    the eval path and the state_dict keys are torch's.
+
+    Under data parallelism (``data_group`` set by ``shard_model``) the
+    training statistics are the global batch's, as JAX's BN computes them
+    over a sharded batch: each rank's f32 [sum, sum of squares, count] is
+    summed over the data group by one ``all_reduce`` that carries the
+    gradient, and the mean and biased variance are E[x] and E[x²] − E[x]²,
+    flax's formula. A recomputation reduces them again (its forward needs
+    them) and leaves the running statistics alone. Eval mode runs no
+    collective. (``nn.SyncBatchNorm`` would keep the unbiased variance and
+    needs ``all_gather``, which gloo lacks on CUDA tensors.)"""
+
+    data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.data_group is not None:
+            out, mean, var = self._global_batch(x)
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         if not getattr(_replay, "active", False):
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                if self.data_group is None:
+                    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
                 self.num_batches_tracked.add_(1)
         return out
+
+    def _global_batch(self, x: torch.Tensor):
+        """(normalised x, mean, biased variance) over the data group's
+        global batch."""
+        xf = x.float()
+        c = x.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        stats = all_reduce(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
+                           group=self.data_group)
+        mean = stats[:c] / stats[2 * c]
+        var = (stats[c:2 * c] / stats[2 * c] - mean * mean).clamp(min=0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return out.to(x.dtype), mean, var
 
 
 class StemConv(Conv2d):

@@ -40,7 +40,9 @@ class CrossAttention(nn.Module):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
+        # num_heads: this rank's heads under tensor parallelism (shard_model)
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.head_dim = embed_dim // num_heads
         for name in ("W_q", "W_k", "W_v", "W_o"):
             setattr(self, name, Linear(embed_dim, embed_dim, bias=False))
         self.dropout = nn.Dropout(dropout)
@@ -50,7 +52,7 @@ class CrossAttention(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, lq, _ = query.shape
         lkv = key_value.shape[1]
-        h, dh = self.num_heads, self.embed_dim // self.num_heads
+        h, dh = self.num_heads, self.head_dim
         scale = math.sqrt(dh)
 
         def heads(t, L):  # [B,H,L,dh] view of [B,L,H,dh] memory, no copy
@@ -71,7 +73,7 @@ class CrossAttention(nn.Module):
             ctx = torch.matmul(self.dropout(weights), v)
 
         # the kernel's context is a view of [B,Lq,H,dh] memory: no copy here
-        ctx = ctx.transpose(1, 2).reshape(b, lq, self.embed_dim)
+        ctx = ctx.transpose(1, 2).reshape(b, lq, h * dh)
         return self.W_o(ctx), weights
 
 

@@ -27,6 +27,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.nn.functional import all_reduce
+
+from vqa_tpu_torch.parallel.mesh import split
 
 # the compute dtypes the port's kernels take
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -106,3 +109,68 @@ class LayerNorm(nn.LayerNorm):
             return super().forward(x)
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
                             self.eps).to(x.dtype)
+
+
+def _from_full(cls, full: nn.Module, splits, index: int, degree: int, group):
+    """A ``cls`` holding this rank's slices of ``full``'s tensors (``splits``:
+    tensor name → split dim; the others whole) and its other attributes
+    (the compute dtype among them)."""
+    new = cls.__new__(cls)
+    nn.Module.__init__(new)
+    new.__dict__.update({k: v for k, v in full.__dict__.items() if not k.startswith("_")})
+    new.init_copies()
+    for name, p in full.named_parameters(recurse=False):
+        t = split(p.detach(), splits[name], index, degree) if name in splits else p.detach()
+        setattr(new, name, nn.Parameter(t, requires_grad=p.requires_grad))
+    if "bias" in full._parameters and full.bias is None:
+        new.register_parameter("bias", None)
+    new.group = group
+    return new
+
+
+class ColumnParallelLinear(Linear):
+    """Output features [index·n/degree, (index+1)·n/degree) of a Linear:
+    weight rows and bias split; the output is this rank's feature slice."""
+
+    @classmethod
+    def from_full(cls, full: Linear, index: int, degree: int, group):
+        new = _from_full(cls, full, {"weight": 0, "bias": 0}, index, degree, group)
+        new.out_features = new.weight.shape[0]
+        return new
+
+
+class RowParallelLinear(Linear):
+    """Input features split: the weight's columns; the partial products
+    are summed over the model group, then the whole bias is added."""
+
+    @classmethod
+    def from_full(cls, full: Linear, index: int, degree: int, group):
+        new = _from_full(cls, full, {"weight": 1}, index, degree, group)
+        new.in_features = new.weight.shape[1]
+        return new
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = all_reduce(F.linear(x, self.compute("weight")), group=self.group)
+        bias = self.compute("bias")
+        return y if bias is None else y + bias
+
+
+class VocabParallelEmbedding(Embedding):
+    """Vocabulary rows [index·V/degree, (index+1)·V/degree): a lookup of
+    the ids inside them (zero rows elsewhere), summed over the model
+    group."""
+
+    @classmethod
+    def from_full(cls, full: Embedding, index: int, degree: int, group):
+        if full.padding_idx is not None or full.max_norm is not None:
+            raise ValueError("the vocab-parallel embedding takes no padding_idx or max_norm")
+        new = _from_full(cls, full, {"weight": 0}, index, degree, group)
+        new.num_embeddings = new.weight.shape[0]
+        new.vocab_start = index * new.num_embeddings
+        return new
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        local = ids - self.vocab_start
+        inside = (local >= 0) & (local < self.num_embeddings)
+        rows = F.embedding(torch.where(inside, local, 0), self.compute("weight"))
+        return all_reduce(rows.masked_fill(~inside[..., None], 0), group=self.group)

@@ -68,7 +68,9 @@ class MultiHeadSelfAttention(nn.Module):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
+        # num_heads: this rank's heads under tensor parallelism (shard_model)
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.head_dim = embed_dim // num_heads
         for name in ("W_q", "W_k", "W_v", "W_o"):
             setattr(self, name, Linear(embed_dim, embed_dim, bias=False))
         self.dropout = nn.Dropout(dropout)
@@ -76,7 +78,7 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, L, _ = x.shape
-        h, dh = self.num_heads, self.embed_dim // self.num_heads
+        h, dh = self.num_heads, self.head_dim
 
         def heads(t):
             return t.reshape(b, L, h, dh).transpose(1, 2)
@@ -87,7 +89,7 @@ class MultiHeadSelfAttention(nn.Module):
             scores = scores.masked_fill(attention_mask[:, None, None, :] == 0, NEG_INF)
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
         ctx = torch.matmul(self.dropout(weights), v)
-        ctx = ctx.transpose(1, 2).reshape(b, L, self.embed_dim)
+        ctx = ctx.transpose(1, 2).reshape(b, L, h * dh)
         return self.W_o(ctx)
 
 

@@ -24,6 +24,17 @@ mode; norms take f32 statistics; in eval mode the stem, SE and
 cross-attention kernels run their bf16 forms; the logits are f32).
 ``stem_s2d`` runs the stem conv as the JAX ``StemConv(s2d=True)`` does
 (``models/cnn_backbone.py``).
+
+``shard_model`` places a model built from a full state_dict on a (data,
+model) grid of ranks (``vqa_tpu_torch.parallel``), as JAX's
+``shard_variables`` places variables on a mesh: the tensor-parallel blocks
+split over the model group (``models/layers.py``; attention with H/mp
+local heads, the fused cross-attention kernel then runs on
+``[B, H/mp, L, d_h]``), BN's training statistics joined over the data
+group. The answer head's fc1 is column-parallel, fc2 row-parallel, fc3
+whole (``vqa_tpu/models/vqa_model.py:42-50``). The model computes the
+function of the unsplit one; ``full_state_dict`` gathers the reference
+layout back and ``load_full_state_dict`` takes one.
 """
 
 from __future__ import annotations
@@ -35,10 +46,19 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from vqa_tpu_torch.models.cnn_backbone import CustomResNet, run_segment
+from vqa_tpu_torch.models.cnn_backbone import BatchNorm2d, CustomResNet, run_segment
+from vqa_tpu_torch.models.cross_attention import CrossAttention
 from vqa_tpu_torch.models.fusion import MultimodalFusion, attention_visualization
-from vqa_tpu_torch.models.layers import COMPUTE_DTYPES, Linear
-from vqa_tpu_torch.models.text_encoder import TransformerTextEncoder
+from vqa_tpu_torch.models.layers import (
+    COMPUTE_DTYPES,
+    ColumnParallelLinear,
+    Embedding,
+    Linear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
+from vqa_tpu_torch.models.text_encoder import MultiHeadSelfAttention, TransformerTextEncoder
+from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.utils.config import ModelConfig
 
 
@@ -67,6 +87,9 @@ class VQAModel(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.dtype = torch.float32
+        # set by shard_model: the grid, and the state_dict entries split on it
+        self.mesh = None
+        self.tp_splits: Dict[str, int] = {}
         # weights loaded into a bf16 model refresh its bf16 copies
         self.register_load_state_dict_post_hook(VQAModel._refresh_copies)
         self.image_encoder = CustomResNet(
@@ -135,6 +158,11 @@ class VQAModel(nn.Module):
         # logits always f32 for a stable softmax
         logits = self.answer_head(fused).float()
         if return_aux:
+            if any(k.endswith("cross_attention.W_q.weight") for k in self.tp_splits):
+                m = self.mesh  # this rank's heads → all heads
+                fusion_aux["cross_attention_weights"] = [
+                    mesh_lib.gather(w, 1, m.model_index, m.model_parallel, m.model_group)
+                    for w in fusion_aux["cross_attention_weights"]]
             aux = {
                 "image_features": image_features,
                 "text_features": text_features,
@@ -144,6 +172,54 @@ class VQAModel(nn.Module):
             }
             return logits, aux
         return logits, None
+
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The state_dict in the reference layout: a sharded model's split
+        entries gathered over its model group (every rank of it must call)."""
+        state = self.state_dict()
+        if not self.tp_splits:
+            return state
+        return mesh_lib.full_state_dict(state, self.tp_splits, self.mesh)
+
+    def load_full_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load a reference-layout state_dict strictly, taking this rank's
+        slices where the model is sharded."""
+        if self.tp_splits:
+            state = mesh_lib.shard_state_dict(state, self.tp_splits, self.mesh)
+        self.load_state_dict(state, strict=True)
+
+
+def shard_model(model: VQAModel, mesh) -> VQAModel:
+    """Place ``model`` (built, and loaded from a full state_dict, the same
+    on every rank) on ``mesh``, in place: each tensor-parallel block whose
+    split dimensions divide by the model degree
+    (``parallel.mesh.variables_shardings``)
+    takes its split layers, holding this rank's slices; the others stay
+    whole; every BatchNorm takes its training statistics over the data
+    group. Returns the model."""
+    if model.mesh is not None:
+        raise ValueError("the model is already placed on a mesh")
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    splits = mesh_lib.variables_shardings(shapes, mesh, model.config.num_attention_heads)
+    place = (mesh.model_index, mesh.model_parallel, mesh.model_group)
+    modules = dict(model.named_modules())
+    for key, dim in splits.items():
+        path, leaf = key.rsplit(".", 1)
+        if leaf != "weight":
+            continue  # a bias moves with its layer
+        layer = modules[path]
+        cls = (VocabParallelEmbedding if isinstance(layer, Embedding)
+               else ColumnParallelLinear if dim == 0 else RowParallelLinear)
+        parent, name = path.rsplit(".", 1)
+        setattr(modules[parent], name, cls.from_full(layer, *place))
+    for path, m in modules.items():
+        if isinstance(m, (MultiHeadSelfAttention, CrossAttention)) and f"{path}.W_q.weight" in splits:
+            m.num_heads //= mesh.model_parallel
+        if isinstance(m, BatchNorm2d) and mesh.data_parallel > 1:
+            m.data_group = mesh.data_group
+    model.mesh, model.tp_splits = mesh, splits
+    return model.set_compute_dtype(model.dtype)
 
 
 def resolve_device(device) -> torch.device:

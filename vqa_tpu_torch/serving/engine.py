@@ -32,10 +32,20 @@ card the engine turns TF32 off for cuDNN convolutions and matmuls, which
 matters for f32: cuDNN's TF32 default keeps ~3 decimal digits per conv,
 which over the backbone's 17 convs would spend the whole 1e-3 logit budget
 the f32 port is held to.
+
+Replicas (``mesh``, the JAX engine's ``mesh=`` over its 'data' axis): a
+grid of devices from ``parallel.mesh_from_config(..., devices=...)`` (the
+server's ``--data-parallel N`` takes ``cuda:0…N-1``; two cells may name
+one card) holds one copy of the model per device. Buckets round up to a
+multiple of N (``_effective_buckets``), each replica forwards its
+``bucket/N`` rows, every replica is launched before any result is
+gathered, and the probabilities are gathered on the first replica's
+device. The attention map runs on the first replica alone.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence
@@ -99,16 +109,25 @@ class VQAInference:
         device="cuda",
         seed: int = 0,
         dtype: Optional[torch.dtype] = None,
+        mesh=None,
     ):
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_name = checkpoint_name
         self.cfg = config or InferenceConfig()
         self._model_config = model_config
-        self.device = resolve_device(device)
+        if mesh is not None and (mesh.model_parallel != 1 or not mesh.devices):
+            raise ValueError("serving replicas take a data-parallel grid of devices "
+                             "(model_parallel=1, mesh_from_config(..., devices=...))")
+        self.mesh = mesh
+        self.devices = [resolve_device(d) for d in mesh.devices] if mesh else [
+            resolve_device(device)]
+        self.device = self.devices[0]
         self.seed = seed
         # the JAX engine's policy: bf16 off the CPU unless a dtype is given
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda" else torch.float32)
         self.model: Optional[VQAModel] = None
+        # one model per device of the mesh; replicas[0] is self.model
+        self.replicas: List[VQAModel] = []
         self.tokenizer: Optional[Tokenizer] = None
         self.answer_vocab: Optional[AnswerVocabulary] = None
         self.model_loaded_from_checkpoint = False
@@ -145,6 +164,8 @@ class VQAInference:
                 config=self._model_config or ModelConfig(), device=self.device,
                 seed=self.seed, dtype=self.dtype)
         self.model_loaded_from_checkpoint = loaded
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
         mcfg = self.model.config
 
         tok_path = (os.path.join(self.checkpoint_dir, "tokenizer.json")
@@ -178,21 +199,35 @@ class VQAInference:
         self._ensure_loaded()
         size = self.model.config.image_size
         img = np.zeros((size, size, 3), np.uint8)
-        for b in buckets or self.cfg.batch_buckets:
+        buckets = buckets or self._effective_buckets()
+        for b in buckets:
             self.predict_batch_raw([img] * b, ["warm up question"] * b)
-        print(f"[Inference] warmed buckets {tuple(buckets or self.cfg.batch_buckets)}")
+        print(f"[Inference] warmed buckets {tuple(buckets)}")
 
     # ------------------------------------------------------------------
+    def _effective_buckets(self) -> List[int]:
+        """The configured buckets, each rounded up to a multiple of the
+        replica count so a batch splits evenly over the replicas."""
+        dp = len(self.devices)
+        out: List[int] = []
+        for b in self.cfg.batch_buckets:
+            eb = -(-b // dp) * dp
+            if eb not in out:
+                out.append(eb)
+        return out
+
     def _bucket(self, n: int) -> int:
         """Smallest bucket that fits n; callers chunk larger requests."""
-        for b in self.cfg.batch_buckets:
+        buckets = self._effective_buckets()
+        for b in buckets:
             if n <= b:
                 return b
         raise AssertionError(
-            f"batch {n} exceeds the largest bucket {self.cfg.batch_buckets[-1]}; "
+            f"batch {n} exceeds the largest bucket {buckets[-1]}; "
             "caller must chunk (predict_probs_from_pixels does)")
 
-    def _to_device(self, pixels: np.ndarray, ids: np.ndarray, mask: np.ndarray):
+    def _to_device(self, pixels: np.ndarray, ids: np.ndarray, mask: np.ndarray,
+                   device: Optional[torch.device] = None):
         """Host arrays → tensors on the device without waiting on the card.
 
         A copy from pageable memory would block the host until the stream's
@@ -202,14 +237,15 @@ class VQAInference:
         has passed, so it may go out of scope here. (``Tensor.pin_memory()``
         would first ask the CUDA runtime whether the numpy memory is pinned,
         a slow query for memory it did not allocate.)"""
+        device = device or self.device
         tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pixels, ids, mask)]
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return tensors
         out = []
         for t in tensors:
             staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             staged.copy_(t)
-            out.append(staged.to(self.device, non_blocking=True))
+            out.append(staged.to(device, non_blocking=True))
         return out
 
     def _preprocess_images(self, images: Sequence[ImageInput]) -> np.ndarray:
@@ -232,9 +268,18 @@ class VQAInference:
             pixels = np.concatenate([pixels, np.repeat(pixels[:1], pad, 0)])
             ids = np.concatenate([ids, np.repeat(ids[:1], pad, 0)])
             mask = np.concatenate([mask, np.repeat(mask[:1], pad, 0)])
-        pixels_t, ids_t, mask_t = self._to_device(pixels, ids, mask)
-        logits, _ = self.model(device_normalize(pixels_t), ids_t.long(), mask_t)
-        return torch.softmax(logits, dim=-1), n
+        per = bucket // len(self.replicas)
+        probs = []
+        for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
+            rows = slice(i * per, (i + 1) * per)
+            pixels_t, ids_t, mask_t = self._to_device(pixels[rows], ids[rows], mask[rows],
+                                                      device=device)
+            logits, _ = model(device_normalize(pixels_t), ids_t.long(), mask_t)
+            probs.append(torch.softmax(logits, dim=-1))
+        if len(probs) == 1:
+            return probs[0], n
+        # every replica is launched; gather on the first one's device
+        return torch.cat([p.to(self.device, non_blocking=True) for p in probs]), n
 
     def predict_probs_from_pixels(self, pixels: np.ndarray,
                                   questions: Sequence[str]) -> np.ndarray:
@@ -244,7 +289,7 @@ class VQAInference:
         n = len(questions)
         if n == 0:
             return np.zeros((0, self.model.config.num_answers), np.float32)
-        max_bucket = self.cfg.batch_buckets[-1]
+        max_bucket = self._effective_buckets()[-1]
         dispatched = [
             self.dispatch_probs_from_pixels(pixels[i:i + max_bucket],
                                             questions[i:i + max_bucket])

@@ -518,13 +518,32 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on; the CPU only when asked "
                         "(--device cpu)")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="one model replica on each of this many cards (cuda:0…N-1) in this "
+                        "process; buckets round up to a multiple of it, each replica "
+                        "forwards its share of a batch (dpN output ≡ one card)")
     args = p.parse_args(argv)
+
+    mesh = None
+    if args.data_parallel and args.data_parallel > 1:
+        # mesh_from_config stops with a named ValueError when the degree
+        # exceeds the cards there are
+        import torch
+
+        from vqa_tpu_torch.parallel.mesh import mesh_from_config
+        from vqa_tpu_torch.utils.config import MeshConfig
+
+        devices = (["cpu"] if torch.device(args.device).type == "cpu" else
+                   [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        mesh = mesh_from_config(MeshConfig(data_parallel=args.data_parallel), devices=devices)
+        print(f"[API] serving {args.data_parallel} replicas on {list(mesh.devices)}")
 
     model_config = tiny_model_config() if args.tiny else None
     engine = VQAInference(
         checkpoint_dir=args.checkpoint_dir or PATHS.checkpoint_dir,
         model_config=model_config,
         device=args.device,
+        mesh=mesh,
     )
     server = VQAServer(engine=engine)
 

@@ -14,8 +14,14 @@ an Orbax tree; the port writes one torch file per checkpoint:
 A save writes ``<name>.tmp.pt`` and ``<name>.tmp.meta.json`` and swaps
 them in with renames, so the previous checkpoint stays readable for the
 whole write; a crash inside the swap's few renames is undone on the next
-load (``_recover``). Multi-process barriers wait for the multi-device
-slice.
+load (``_recover``).
+
+In a multi-process run every rank calls ``save_checkpoint`` and
+``save_best_copy`` with the same payload (the trainer gathers the full
+reference-layout state_dict from the tensor-parallel shards first); the
+primary alone writes and swaps, between two barriers, so no rank returns
+(and reads) before the swap has landed (``vqa_tpu/training/checkpoint.py``'s
+order).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from vqa_tpu_torch.parallel import distributed
 from vqa_tpu_torch.utils.config import ModelConfig, model_config_dict, model_config_from_dict
 
 _DATA, _META = ".pt", ".meta.json"
@@ -87,9 +94,14 @@ def _recover(stem: str) -> None:
 def save_checkpoint(base_dir: str, name: str, payload: Dict[str, Any],
                     model_config: ModelConfig, meta: Dict[str, Any]) -> str:
     """Write ``payload`` (tensors on any device; saved as they are) and
-    the sidecar, crash-safely. Returns the data file's path."""
+    the sidecar, crash-safely (the primary, between two barriers). Returns
+    the data file's path."""
     stem = _stem(base_dir, name)
     tmp = stem + ".tmp"
+    distributed.barrier()
+    if not distributed.is_primary():
+        distributed.barrier()
+        return stem + _DATA
     os.makedirs(os.path.dirname(stem), exist_ok=True)
     for suffix in (_DATA, _META):
         _remove(tmp + suffix)
@@ -101,6 +113,7 @@ def save_checkpoint(base_dir: str, name: str, payload: Dict[str, Any],
     finally:
         for suffix in (_DATA, _META):
             _remove(tmp + suffix)
+        distributed.barrier()
     return stem + _DATA
 
 
@@ -127,7 +140,11 @@ def load_checkpoint_meta(base_dir: str, name: str) -> Dict[str, Any]:
 def save_best_copy(base_dir: str, src_name: str = "latest",
                    best_name: str = "best_model") -> None:
     """Copy a checkpoint as best, crash-safely: copy to ``.tmp`` files,
-    then swap them in, so the previous best stays readable throughout."""
+    then swap them in, so the previous best stays readable throughout (the
+    primary, then a barrier)."""
+    if not distributed.is_primary():
+        distributed.barrier()
+        return
     src, dst = _stem(base_dir, src_name), _stem(base_dir, best_name)
     tmp = dst + ".tmp"
     for suffix in (_DATA, _META):
@@ -139,6 +156,7 @@ def save_best_copy(base_dir: str, src_name: str = "latest",
     finally:
         for suffix in (_DATA, _META):
             _remove(tmp + suffix)
+        distributed.barrier()
 
 
 def checkpoint_exists(base_dir: str, name: str) -> bool:

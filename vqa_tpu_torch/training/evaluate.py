@@ -17,12 +17,24 @@ needs no second pass.
 
 The evaluator computes in f32 by default, as the JAX one does; ``--bf16``
 computes in bf16 (the engine's policy, ``models/layers.py``), top-1/top-5
-argmax-stable and probabilities moved at bf16's epsilon. Multi-device
-evaluation (``--data-parallel``, ``--model-parallel``) is not ported.
+argmax-stable and probabilities moved at bf16's epsilon.
+
+Multi-device (``--data-parallel``, ``--model-parallel``): JAX's evaluator
+is one process that shards each batch over its mesh; the port runs one
+process per card (``torchrun --nproc-per-node N``) over a (data, model)
+grid of ranks. Every rank reads the same batches; each data rank forwards
+its rows of the batch (the model split over the model group,
+``models/vqa_model.py:shard_model``) and the per-sample outputs are
+gathered back over the data group, so the counts, the confusion analysis
+and the sample cache are the single-device ones on every rank, padded rows
+masked by ``valid`` as before. The primary prints the report and writes
+the artifacts. A grid larger than the launched world raises.
 
     python -m vqa_tpu_torch.training.evaluate --checkpoint-dir checkpoints --synthetic
     python -m vqa_tpu_torch.training.evaluate --checkpoint-dir checkpoints --synthetic --bf16
     python -m vqa_tpu_torch.training.evaluate --checkpoint-dir D --demo --device cpu
+    torchrun --nproc-per-node 2 -m vqa_tpu_torch.training.evaluate --checkpoint-dir D \
+        --synthetic --data-parallel 2
 """
 
 from __future__ import annotations
@@ -39,7 +51,10 @@ import torch
 from vqa_tpu_torch.data.dataset import BatchLoader, DemoVQADataset, VQADataset
 from vqa_tpu_torch.data.pipeline import prefetch_to_device
 from vqa_tpu_torch.data.vocab import AnswerVocabulary
-from vqa_tpu_torch.training.train import make_eval_step
+from vqa_tpu_torch.models.vqa_model import shard_model
+from vqa_tpu_torch.parallel import distributed
+from vqa_tpu_torch.parallel import mesh as mesh_lib
+from vqa_tpu_torch.training.train import add_parallel_args, make_eval_step, mesh_config_from_args
 from vqa_tpu_torch.utils.metrics import confusion_matrix, per_class_accuracy
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
 
@@ -49,13 +64,18 @@ def _host(t) -> np.ndarray:
 
 
 class Evaluator:
-    """Full-dataset evaluation with error analysis, on the model's device."""
+    """Full-dataset evaluation with error analysis, on the model's device,
+    over ``mesh`` (a grid of ranks) when given: the model, built from a
+    full state_dict, is placed on it here."""
 
-    def __init__(self, model, answer_vocab: Optional[AnswerVocabulary] = None):
+    def __init__(self, model, answer_vocab: Optional[AnswerVocabulary] = None, mesh=None):
+        if mesh is not None and model.mesh is None:
+            shard_model(model, mesh)
         self.model = model
+        self.mesh = model.mesh
         self.device = next(model.parameters()).device
         self.answer_vocab = answer_vocab
-        self.eval_step = make_eval_step(model)
+        self._eval_step = make_eval_step(model)
         # first-N (logits, token_ids, answer) captured during evaluate() so
         # sample_predictions can decode without a second pass over the loader
         self._sample_cache: Optional[Dict[str, np.ndarray]] = None
@@ -63,6 +83,18 @@ class Evaluator:
         # the loader evaluate() filled the cache from: the cache never
         # answers sample_predictions for another loader
         self._sample_cache_loader: Optional[BatchLoader] = None
+
+    @torch.inference_mode()
+    def eval_step(self, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
+        """``make_eval_step`` over the whole batch: under data parallelism
+        this rank forwards its rows and the outputs are gathered back."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_parallel == 1:
+            return self._eval_step(images, token_ids, mask, labels)
+        rows = mesh_lib.data_sharding(mesh, images.shape[0])
+        out = self._eval_step(images[rows], token_ids[rows], mask[rows], labels[rows])
+        return {k: mesh_lib.gather(v, 0, mesh.data_index, mesh.data_parallel, mesh.data_group)
+                for k, v in out.items()}
 
     def evaluate(self, loader: BatchLoader, top_classes: int = 100,
                  sample_cache: int = 64) -> Dict[str, Any]:
@@ -255,20 +287,26 @@ def parse_args(argv=None):
                    help="evaluate on the colored-shapes val split (data/synthetic.py), "
                         "rebuilt from the checkpoint's sidecar")
     p.add_argument("--output-dir", default=None)
-    p.add_argument("--data-parallel", type=int, default=None,
-                   help="not ported (ROADMAP A.11): stops with a message")
-    p.add_argument("--model-parallel", type=int, default=None,
-                   help="not ported (ROADMAP A.11): stops with a message")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 compute for the eval forward (default f32, as the JAX "
                         "evaluator; top-1/top-5 are argmax-stable, probabilities move at "
                         "bf16's epsilon)")
     p.add_argument("--device", default="cuda",
                    help="torch device to evaluate on; the CPU only when asked (--device cpu)")
+    add_parallel_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    args = parse_args(argv)
+    # a launched rank joins its process group (and binds its card) first
+    with distributed.session(coordinator_address=args.coordinator,
+                             num_processes=args.num_processes, process_id=args.process_id,
+                             device=args.device):
+        return _evaluate(args)
+
+
+def _evaluate(args):
     from vqa_tpu_torch.models.vqa_model import resolve_device
     from vqa_tpu_torch.training.checkpoint import (
         checkpoint_exists,
@@ -276,12 +314,13 @@ def main(argv=None):
         load_model_for_inference,
     )
 
-    args = parse_args(argv)
-    if args.data_parallel is not None or args.model_parallel is not None:
-        raise NotImplementedError(
-            "multi-device evaluation (--data-parallel / --model-parallel) is not ported "
-            "yet (ROADMAP A.11); evaluate on one device")
+    # the grid (a DP×MP beyond the launched world raises, naming the launcher)
+    mesh = None
+    if mesh_config_from_args(args) is not None or distributed.process_count() > 1:
+        mesh = mesh_lib.mesh_from_config(mesh_config_from_args(args),
+                                         batch_divisor=args.batch_size)
     device = resolve_device(args.device)  # no card and no --device cpu: raise
+    primary = distributed.is_primary()
 
     name = args.checkpoint
     if not checkpoint_exists(args.checkpoint_dir, name) and checkpoint_exists(
@@ -353,10 +392,12 @@ def main(argv=None):
             is_training=False, image_size=cfg.image_size)
         loader = BatchLoader(ds, args.batch_size, drop_last=False)
 
-    ev = Evaluator(model, answer_vocab)
+    ev = Evaluator(model, answer_vocab, mesh=mesh)
     results = ev.evaluate(loader)
     results["sample_predictions"] = ev.sample_predictions(loader, tokenizer)
     report = ev.generate_report(results)
+    if not primary:
+        return results
     print(report)
 
     out_dir = args.output_dir or args.checkpoint_dir

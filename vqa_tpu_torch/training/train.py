@@ -7,7 +7,8 @@ gradient accumulation over microbatches, per-epoch validation with
 per-question-type accuracy, best-model tracking, early stop, a checkpoint
 every ``checkpoint_every`` epochs and a final ``latest``, resume, and
 SIGTERM routed to an ``interrupted`` save, activation recomputation
-(``remat``) and a NaN check (``debug_nans``) — on one CUDA device.
+(``remat``) and a NaN check (``debug_nans``) — on one CUDA device, or over
+a (data, model) grid of ranks, one process per card.
 
 The CLI's dtype policy is the JAX trainer's with the card in the TPU's
 place (``vqa_tpu/training/train.py:983``): the model computes in bf16 when
@@ -51,6 +52,25 @@ Where the two packages' mechanics differ:
   checked once per step before the update; either raises
   ``FloatingPointError``, which the Trainer tags with the epoch and step.
 
+- multi-device (``vqa_tpu_torch.parallel``): where JAX runs one program
+  over a mesh and GSPMD inserts the collectives, the port runs one process
+  per card over a (data, model) grid (``Trainer(mesh=, mesh_config=)``,
+  the auto grid sized by the global batch as JAX's). The model is placed
+  on it by ``shard_model`` (tensor-parallel blocks split over the model
+  group, BN's statistics over the data group's global batch); each data
+  rank steps over its own slice of the global batch; once per optimizer
+  step the gradients are averaged over the data group by one flat
+  ``all_reduce`` per kind (replicated parameters over every rank, since
+  under tensor parallelism each rank holds a part of their gradient; split
+  ones over the data group); the clip sees the averaged gradient's global
+  norm; train metrics and validation sums are summed over the data group;
+  the checkpoint holds the full reference-layout state_dict and optimizer
+  state, gathered from the shards, written by the primary between two
+  barriers; tb scalars, the history, vocab and tokenizer are written by
+  the primary.
+
+    torchrun --nproc-per-node 2 -m vqa_tpu_torch.training.train --synthetic \
+        --data-parallel 2                                   # two cards
     python -m vqa_tpu_torch.training.train --synthetic --epochs 12 --batch-size 64 \
         --subset-size 2000 --device-aug                    # on the card, bf16
     python -m vqa_tpu_torch.training.train --synthetic --no-bf16 --remat stages  # f32
@@ -70,15 +90,23 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from vqa_tpu_torch.data.pipeline import prefetch_to_device
 from vqa_tpu_torch.data.preprocess import device_augment
 from vqa_tpu_torch.models.cnn_backbone import recomputing
-from vqa_tpu_torch.models.vqa_model import VQAModel, create_vqa_model, resolve_device
+from vqa_tpu_torch.models.vqa_model import (
+    VQAModel,
+    create_vqa_model,
+    resolve_device,
+    shard_model,
+)
+from vqa_tpu_torch.parallel import distributed
+from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
-from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
+from vqa_tpu_torch.utils.config import MeshConfig, ModelConfig, TrainingConfig
 from vqa_tpu_torch.utils.metrics import MetricsLogger, topk_correct, topk_flags
 from vqa_tpu_torch.utils.profiling import StepTimer, maybe_trace, step_annotation
 
@@ -168,9 +196,19 @@ class TrainState:
 
     def clip_gradients(self) -> torch.Tensor:
         """Clip the gradients by their global norm (optax's rule); returns
-        that norm (before clipping) on the device."""
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        that norm (before clipping) on the device. Under tensor parallelism
+        the split parameters' squares are summed over the model group, so
+        the norm is the whole model's."""
+        splits = self.model.tp_splits
+        named = [(n, p.grad) for n, p in self.model.named_parameters() if p.grad is not None]
+        grads = [g for n, g in named if n not in splits]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if splits:
+            split = [g for n, g in named if n in splits]
+            sq = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(split))) ** 2
+            dist.all_reduce(sq, group=self.model.mesh.model_group)
+            norm = torch.sqrt(norm ** 2 + sq)
+            grads += split
         keep = norm < self.grad_clip_norm
         one = torch.ones_like(norm)
         torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -210,6 +248,29 @@ def _nan_error(run):
             raise FloatingPointError(str(e)) from e
 
 
+def reduce_gradients(model: VQAModel) -> None:
+    """Average the gradients over the data group, in place: one flat
+    ``all_reduce`` of the replicated parameters' gradients over every rank
+    (under tensor parallelism each rank of a model group holds a part of
+    them, ``models/layers.py``) and one of the split parameters' over the
+    data group, each divided by the data-parallel degree. Nothing without
+    a process group."""
+    mesh = model.mesh
+    if mesh is None or mesh.world_group is None:
+        return
+    named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    dp = mesh.data_parallel
+    for grads, group in (([g for n, g in named if n not in model.tp_splits], mesh.world_group),
+                         ([g for n, g in named if n in model.tp_splits], mesh.data_group)):
+        if not grads or (group is mesh.data_group and dp == 1):
+            continue
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        if dp > 1:
+            flat.div_(dp)
+        torch._foreach_copy_(grads, torch._utils._unflatten_dense_tensors(flat, grads))
+
+
 def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float = 0.0,
                     remat: str = "none", debug_nans: bool = False):
     """``train_step(state, images, token_ids, mask, labels) → metrics``:
@@ -227,9 +288,19 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
     ``remat`` is ``"none"``, ``"full"`` or ``"stages"`` (the module
     docstring); each microbatch is recomputed on its own. ``debug_nans``
     raises ``FloatingPointError`` on a non-finite loss or gradient before
-    the update (one host synchronisation per step)."""
+    the update (one host synchronisation per step).
+
+    On a model placed on a grid (``shard_model``) the batch is this rank's
+    slice; each rank back-propagates its loss divided by the model degree
+    (the ranks of a model group hold one replicated loss, and the
+    collectives' backward sums over them), and ``reduce_gradients`` runs
+    once per step, after the microbatches."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat={remat!r}: expected 'none', 'full' or 'stages'")
+    mp = model.mesh.model_parallel if model.mesh is not None else 1
+
+    def backprop(loss):
+        (loss / mp if mp > 1 else loss).backward()
 
     def loss_of(logits, labels):
         return F.cross_entropy(logits, labels.long(), label_smoothing=label_smoothing)
@@ -252,7 +323,7 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
         counts), the averaged gradients in each parameter's ``.grad``."""
         if grad_accum == 1:
             loss, logits = forward_loss(images, token_ids, mask, labels)
-            loss.backward()
+            backprop(loss)
             c1, c5 = topk_correct(logits, labels, k=5)
             return loss.detach(), c1, c5
         m = images.shape[0] // grad_accum
@@ -261,7 +332,7 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
             part = slice(i * m, (i + 1) * m)
             mb_loss, logits = forward_loss(images[part], token_ids[part], mask[part],
                                            labels[part])
-            mb_loss.backward()
+            backprop(mb_loss)
             f1, f5 = topk_correct(logits, labels[part], k=5)
             loss, c1, c5 = loss + mb_loss.detach(), c1 + f1, c5 + f5
         torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
@@ -279,6 +350,7 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
             loss, c1, c5 = _nan_error(lambda: backward(*batch))
         else:
             loss, c1, c5 = backward(*batch)
+        reduce_gradients(model)
         norm = state.clip_gradients()
         if debug_nans:
             finite = torch.isfinite(torch.stack([loss.float(), norm])).tolist()
@@ -343,17 +415,32 @@ def make_eval_step(model: VQAModel):
     return eval_step
 
 
-def _augment_seed(seed: int, epoch: int, step: int) -> int:
-    """A 63-bit generator seed per (seed, epoch, step)."""
-    state = np.random.SeedSequence([seed, 0x5EED, epoch * 1_000_000 + step])
+def _augment_seed(seed: int, epoch: int, step: int, shard: int = 0) -> int:
+    """A 63-bit generator seed per (seed, epoch, step), and per data shard
+    beyond the first."""
+    words = [seed, 0x5EED, epoch * 1_000_000 + step] + ([shard] if shard else [])
+    state = np.random.SeedSequence(words)
     return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _sum_over(values, group, device) -> list:
+    """``values`` (floats) summed over ``group`` (as they are without
+    one)."""
+    if group is None:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t, group=group)
+    return t.tolist()
 
 
 class Trainer:
     """Owns the model, optimizer state and steps; the JAX Trainer's
-    contract on one device (the model's), in the model's compute dtype.
-    ``debug_nans`` makes every train step check its loss and gradients
-    (``make_train_step``)."""
+    contract on the model's device, in the model's compute dtype, on this
+    rank's cell of ``mesh`` (by default the grid ``mesh_config`` describes,
+    its auto data degree clamped to divide the global batch: the loaders'
+    per-rank batch times the data ranks). The loaders yield this rank's
+    shard (``data.dataset.shard_for_process``). ``debug_nans`` makes every
+    train step check its loss and gradients (``make_train_step``)."""
 
     def __init__(
         self,
@@ -361,6 +448,8 @@ class Trainer:
         train_loader,
         val_loader,
         config: Optional[TrainingConfig] = None,
+        mesh=None,
+        mesh_config: Optional[MeshConfig] = None,
         checkpoint_dir: Optional[str] = None,
         save_checkpoints: bool = True,
         seed: int = 42,
@@ -374,6 +463,21 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = next(model.parameters()).device
+        if mesh is None:
+            mesh = model.mesh
+        if mesh is None:
+            local_bs = math.gcd(getattr(train_loader, "batch_size", 1),
+                                getattr(val_loader, "batch_size", 1))
+            mp = max((mesh_config or MeshConfig()).model_parallel, 1)
+            global_bs = local_bs * max(distributed.process_count() // mp, 1)
+            mesh = mesh_lib.mesh_from_config(mesh_config, batch_divisor=global_bs)
+        if model.mesh is None:
+            shard_model(model, mesh)
+        elif model.mesh is not mesh:
+            raise ValueError("the model is placed on another mesh")
+        self.mesh = mesh
+        # every data rank starts from its group's first rank's state
+        mesh_lib.replicated(list(model.parameters()) + list(model.buffers()), mesh)
         if self.device.type == "cuda":
             # f32 is f32 throughout: TF32 would keep ~3 digits per conv and matmul
             torch.backends.cudnn.allow_tf32 = False
@@ -381,7 +485,9 @@ class Trainer:
         self.checkpoint_dir = checkpoint_dir
         self.save_checkpoints = save_checkpoints and checkpoint_dir is not None
         self.seed = seed
-        torch.manual_seed(seed)  # dropout's generator
+        # dropout's generator: one stream per data shard, shared by the
+        # ranks of a model group (their replicated activations draw alike)
+        torch.manual_seed(seed + mesh.data_index)
 
         steps_per_epoch = max(len(train_loader), 1)
         self.state = TrainState.create(model, self.cfg, steps_per_epoch)
@@ -406,12 +512,13 @@ class Trainer:
         self.run_meta = dict(run_meta or {})
         from vqa_tpu_torch.utils.tb import maybe_scalar_writer
 
-        self.scalar_writer = maybe_scalar_writer(log_dir)
+        self.scalar_writer = maybe_scalar_writer(log_dir if distributed.is_primary() else None)
 
     # ------------------------------------------------------------------
     def augment(self, pixels_u8: torch.Tensor, epoch: int, step: int) -> torch.Tensor:
         """Device augmentation of a uint8 batch, seeded per (epoch, step)."""
-        self._aug_generator.manual_seed(_augment_seed(self.seed, epoch, step))
+        self._aug_generator.manual_seed(
+            _augment_seed(self.seed, epoch, step, self.mesh.data_index))
         return device_augment(pixels_u8, self._aug_generator,
                               image_size=self.model.config.image_size)
 
@@ -452,6 +559,10 @@ class Trainer:
             c1 += int(m["correct1"])
             c5 += int(m["correct5"])
         steps = max(len(device_metrics), 1)
+        if self.mesh.data_parallel > 1:  # each rank's loss is its shard's mean
+            loss_sum, c1, c5, n = _sum_over([loss_sum, c1, c5, n], self.mesh.data_group,
+                                            self.device)
+            loss_sum /= self.mesh.data_parallel
         return {
             "train_loss": loss_sum / steps,
             "train_top1": c1 / max(n, 1),
@@ -485,6 +596,13 @@ class Trainer:
             pending = out
         if pending is not None:
             consume(pending)
+        if self.mesh.data_parallel > 1:  # each rank validated its shard
+            per_type = np.concatenate([t_correct, t_total]) if np.ndim(t_total) else []
+            sums = _sum_over([loss_sum, c1, c5, n, *per_type], self.mesh.data_group,
+                             self.device)
+            loss_sum, c1, c5, n = sums[:4]
+            if len(per_type):
+                t_correct, t_total = np.split(np.asarray(sums[4:]), 2)
         n = max(n, 1)
         metrics = {"val_loss": loss_sum / n, "val_top1": c1 / n, "val_top5": c5 / n}
         if use_types and np.ndim(t_total):
@@ -496,15 +614,41 @@ class Trainer:
         return metrics
 
     # ------------------------------------------------------------------
+    def _optimizer_state(self, full: bool, state: Optional[Dict[str, Any]] = None):
+        """The optimizer's state_dict with each split parameter's moments
+        gathered to full (``full``), or ``state``'s full moments cut to this
+        rank's slices. AdamW keys its state by parameter position, which
+        ``shard_model`` keeps."""
+        splits = self.model.tp_splits
+        state = state if state is not None else self.state.optimizer.state_dict()
+        if not splits:
+            return state
+        mesh = self.mesh
+        names = [n for n, _ in self.model.named_parameters()]
+        moved = {}
+        for idx, st in state["state"].items():
+            dim = splits.get(names[idx])
+            moved[idx] = st if dim is None else {
+                k: ((mesh_lib.gather(v, dim, mesh.model_index, mesh.model_parallel,
+                                     mesh.model_group) if full else
+                     mesh_lib.split(v, dim, mesh.model_index, mesh.model_parallel))
+                    if torch.is_tensor(v) and v.dim() else v)
+                for k, v in st.items()}
+        return {**state, "state": moved}
+
     def _payload(self) -> Dict[str, Any]:
+        """The checkpoint: the reference-layout state_dict and optimizer
+        state, gathered from the shards (every rank takes part)."""
         return {
-            "model_state_dict": self.model.state_dict(),
-            "optimizer_state_dict": self.state.optimizer.state_dict(),
+            "model_state_dict": self.model.full_state_dict(),
+            "optimizer_state_dict": self._optimizer_state(full=True),
             "scheduler_step": self.state.step,
             "step": self.state.step,
         }
 
     def save(self, name: str, epoch: int) -> None:
+        """Every rank gathers the payload; the primary writes it
+        (``checkpoint.save_checkpoint``)."""
         if not self.save_checkpoints:
             return
         ckpt_lib.save_checkpoint(
@@ -524,11 +668,12 @@ class Trainer:
         optimizer."""
         payload, _, meta = ckpt_lib.load_checkpoint(self.checkpoint_dir, name,
                                                     map_location=self.device)
-        self.model.load_state_dict(payload["model_state_dict"], strict=True)
+        self.model.load_full_state_dict(payload["model_state_dict"])
         if meta.get("model_only", False):
             print("[Trainer] model-only checkpoint: optimizer starts fresh")
         else:
-            self.state.optimizer.load_state_dict(payload["optimizer_state_dict"])
+            self.state.optimizer.load_state_dict(
+                self._optimizer_state(full=False, state=payload["optimizer_state_dict"]))
             self.state.step = int(payload["step"])
         self.start_epoch = int(meta["epoch"]) + 1
         self.best_val_accuracy = float(meta["best_val_accuracy"])
@@ -575,9 +720,10 @@ class Trainer:
                 if self.scalar_writer is not None:
                     self.scalar_writer.log_scalars(epoch, flat)
                 dt = time.time() - t0
-                print(f"[Trainer] epoch {epoch}: "
-                      + " ".join(f"{k}={v:.4f}" for k, v in scalars.items())
-                      + f" ({dt:.1f}s)")
+                if distributed.is_primary():
+                    print(f"[Trainer] epoch {epoch}: "
+                          + " ".join(f"{k}={v:.4f}" for k, v in scalars.items())
+                          + f" ({dt:.1f}s)")
 
                 improved = val_metrics["val_top1"] > self.best_val_accuracy
                 if improved:
@@ -683,15 +829,55 @@ def parse_args(argv=None):
                         "crop/flip/jitter on the card)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on; the CPU only when asked (--device cpu)")
+    add_parallel_args(p)
     return p.parse_args(argv)
 
 
+def add_parallel_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' mesh and multi-process flags (``MeshConfig``;
+    ``parallel.distributed.initialize``)."""
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="ranks on the data axis of the grid (-1 = all remaining; "
+                        "default: MeshConfig)")
+    p.add_argument("--model-parallel", type=int, default=None,
+                   help="ranks on the model (tensor-parallel) axis of the grid")
+    p.add_argument("--coordinator", default=None,
+                   help="rendezvous address host:port of a multi-process run (torchrun's "
+                        "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK/LOCAL_RANK are honoured)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
+def mesh_config_from_args(args) -> Optional[MeshConfig]:
+    """A per-run MeshConfig when either degree is given, else None (the
+    default grid)."""
+    if args.data_parallel is None and args.model_parallel is None:
+        return None
+    return MeshConfig(
+        data_parallel=args.data_parallel if args.data_parallel is not None else -1,
+        model_parallel=args.model_parallel if args.model_parallel is not None else 1)
+
+
 def main(argv=None):
+    args = parse_args(argv)
+    # a launched rank joins its process group (and binds its card) first
+    with distributed.session(coordinator_address=args.coordinator,
+                             num_processes=args.num_processes, process_id=args.process_id,
+                             device=args.device):
+        return _train(args)
+
+
+def _train(args):
     from vqa_tpu_torch.data.dataset import create_demo_loaders, create_train_val_loaders
     from vqa_tpu_torch.utils.config import PATHS
 
-    args = parse_args(argv)
+    # the grid, its auto data degree clamped by the global batch; each data
+    # rank's loaders yield its slice of the global batch
+    mesh = mesh_lib.mesh_from_config(mesh_config_from_args(args),
+                                     batch_divisor=args.batch_size)
     device = resolve_device(args.device)  # no card and no --device cpu: raise
+    local_bs = distributed.local_batch_size(args.batch_size, shards=mesh.data_parallel)
+    primary = distributed.is_primary()
 
     sched_overrides = {}
     if args.warmup_epochs is not None:
@@ -702,7 +888,7 @@ def main(argv=None):
         sched_overrides["lr_schedule_granularity"] = args.lr_schedule
     tcfg = TrainingConfig(
         num_samples=args.subset_size,
-        batch_size=args.batch_size,
+        batch_size=local_bs,
         learning_rate=args.lr,
         weight_decay=args.weight_decay,
         num_epochs=args.epochs,
@@ -715,8 +901,8 @@ def main(argv=None):
         **sched_overrides,
     )
     if tcfg.batch_size % tcfg.grad_accum:
-        raise SystemExit(f"--batch-size ({tcfg.batch_size}) must be divisible by "
-                         f"--grad-accum ({tcfg.grad_accum})")
+        raise SystemExit(f"--batch-size per data rank ({tcfg.batch_size}) must be divisible "
+                         f"by --grad-accum ({tcfg.grad_accum})")
 
     if args.tiny:
         from vqa_tpu_torch.utils.config import tiny_model_config
@@ -766,22 +952,35 @@ def main(argv=None):
             max_question_length=mcfg.max_question_length, vocab_size=mcfg.vocab_size,
             num_answers=mcfg.num_answers, seed=tcfg.seed, num_workers=args.num_workers)
 
+    if mesh.data_parallel > 1:
+        # disjoint equal-length sample shards per data rank; the ranks of a
+        # model group read the same one
+        from vqa_tpu_torch.data.dataset import shard_for_process
+
+        train_loader = shard_for_process(train_loader, mesh.data_index, mesh.data_parallel)
+        val_loader = shard_for_process(val_loader, mesh.data_index, mesh.data_parallel)
+
     dtype = compute_dtype(tcfg.use_bf16, device)
-    print(f"[Trainer] compute dtype {str(dtype).replace('torch.', '')} on {device}"
-          + (" (--no-bf16)" if not tcfg.use_bf16 else ""))
+    if primary:
+        print(f"[Trainer] compute dtype {str(dtype).replace('torch.', '')} on {device}"
+              + (" (--no-bf16)" if not tcfg.use_bf16 else "")
+              + (f", mesh {mesh.data_parallel}×{mesh.model_parallel} over "
+                 f"{distributed.process_count()} process(es), {dist.get_backend()}"
+                 if dist.is_initialized() else ""))
     ablation = {"use_spatial_attention": False} if args.no_spatial else {}
     model = create_vqa_model(config=mcfg, use_attention=False if args.no_attention else None,
                              device=device, seed=tcfg.seed, dtype=dtype,
                              stem_s2d=args.stem_s2d, **ablation)
 
     ckpt_dir = args.checkpoint_dir or PATHS.checkpoint_dir
-    if not args.no_save:
+    if not args.no_save and primary:
         if tokenizer is not None:
             tokenizer.save(os.path.join(ckpt_dir, "tokenizer.json"))
         if answer_vocab is not None:
             answer_vocab.save(os.path.join(ckpt_dir, "answer_vocab.json"))
 
-    trainer = Trainer(model, train_loader, val_loader, config=tcfg, checkpoint_dir=ckpt_dir,
+    trainer = Trainer(model, train_loader, val_loader, config=tcfg, mesh=mesh,
+                      checkpoint_dir=ckpt_dir,
                       save_checkpoints=not args.no_save, seed=tcfg.seed,
                       profile_dir=args.profile_dir, run_meta=run_meta, log_dir=args.log_dir,
                       debug_nans=args.debug_nans)
@@ -789,7 +988,7 @@ def main(argv=None):
         trainer.resume(args.resume)
     logger = trainer.train(patience=args.patience)
 
-    if not args.no_save:
+    if not args.no_save and primary:
         hist_path = os.path.join(ckpt_dir, "training_history.json")
         logger.save(hist_path)
         print(f"[Trainer] history → {hist_path}")

@@ -1,11 +1,11 @@
 """Model, inference and path configuration of the port.
 
 Copies of ``PathConfig``/``PATHS``, ``ModelConfig``, ``TrainingConfig``,
-``InferenceConfig``, ``tiny_model_config`` and the dict round-trip of
-``vqa_tpu/utils/config.py`` (same fields, same defaults), so configs and
-checkpoint config dicts move between the two packages unchanged. The mesh
-and kernel-toggle configs are not ported: multi-device waits for its
-slice, and the port's kernels are not behind toggles.
+``InferenceConfig``, ``MeshConfig``, ``tiny_model_config`` and the dict
+round-trip of ``vqa_tpu/utils/config.py`` (same fields, same defaults), so
+configs and checkpoint config dicts move between the two packages
+unchanged. The kernel-toggle config is not ported: the port's kernels are
+not behind toggles.
 """
 
 from __future__ import annotations
@@ -160,6 +160,19 @@ class InferenceConfig:
     batch_buckets: Tuple[int, ...] = (1, 4, 16, 32)
     max_request_batch: int = 128
     max_body_mb: int = 256
+
+
+@dataclass
+class MeshConfig:
+    """Parallelism settings (counterpart of ``vqa_tpu.utils.config.MeshConfig``):
+    the degrees of the (data, model) grid of ranks that
+    ``vqa_tpu_torch.parallel.mesh_from_config`` builds."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1 = every rank (or device) not taken by model_parallel goes to data
+    data_parallel: int = -1
+    model_parallel: int = 1
 
 
 PATHS = PathConfig()
