@@ -134,7 +134,30 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     equal); the cross-attention kernel at the grid's H = 4 against its
     plain version; (c) an engine with two replicas on cuda:0 against one
     replica (within 1e-4 at buckets 1, rounded up to 2, and 32), and
-    ``server --data-parallel 2`` stopping with the mesh's named error.
+    ``server --data-parallel 2`` stopping with the mesh's named error;
+14. host prep, the off-path modules and the tools, at full width: (a) the
+    native resampler (``vqa_tpu_torch/native``, built with g++) bit-identical
+    to PIL and to the port's PIL path at 64-1024 px, odd shapes and the
+    batch path; decode + resize to 224 per image, PIL against native; 32
+    uploads at 512 px, the native pool against PIL in a loop; the bf16
+    engine's ``_preprocess_images`` over one bucket-32 group of the soak's
+    uploads beside its dispatch host ms at bucket 32 (decode + resize as a
+    share of the group's host time); (b) ``CBAMBlock`` and
+    ``SelfAttention2D`` at [32,512,7,7] and [32,64,56,56] (seeded weights,
+    gamma 0.5), the card's f32 forward within 1e-4 of the CPU's, CBAMBlock
+    launching SE once per eval call in f32 and in bf16; (c) spatial corpora
+    from ``tools/make_vqa_corpus.py`` (1,200 scenes at seed 42, 250 held out
+    at 4242; the held-out one written twice, its JSON and decoded images
+    equal), the train CLI on the first for 16 epochs (bf16), then
+    ``tools/attention_faithfulness.py`` on the held-out one (mean
+    queried-quadrant mass above the uniform 0.25, each eval forward
+    launching the f32 forms 1, 4 and 2 times) and
+    ``tools/visualize_attention.py`` (three PNGs); (d)
+    ``tools/soak_test.py`` in this process, 2,000 requests from 16 clients
+    on the bf16 engine: passed, no contract violation, no stuck waiter, RSS
+    plateaued, the bf16 forms launched 1, 4 and 2 times per forward; (e)
+    the soak under the recycle supervisor, 600 requests from 8 clients and
+    a 512 MB bound: every request answered, a recycle begun.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -158,7 +181,9 @@ path of phase 3 for the f32 forms, over the bf16 engine's of phase 11 (b)
 for the bf16 ones; beside them, ``launches_bf16_training_validation``,
 each form's launches over phase 12 (b)'s validation forwards, and
 ``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
-(rank 0) and replicas), and before that the ``multi_device``,
+(rank 0) and replicas, and ``launches_tools``, over phase 14's CBAMBlock
+calls, faithfulness and visualization forwards and the in-process soak's
+engine), and before that the ``tools``, ``multi_device``,
 ``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
 phase, supervisor) and ``engine`` lines.
 """
@@ -2645,6 +2670,377 @@ def drive_multi_device(torch, tmp: str, bf16_timing: dict) -> dict:
     return out
 
 
+# ---- phase 14: host prep, the off-path modules, the tools -------------------
+
+NATIVE_SIZES = (64, 224, 512, 1024)    # upload sides timed for decode + resize to 224
+NATIVE_ODD = ((37, 501), (333, 257), (1, 1), (300, 300))  # bit identity at odd shapes
+HOST_BATCH = 32                         # uploads of the batch timing, at 512 px
+MODULE_SHAPES = ((BUCKET, 512, 7, 7), (BUCKET, 64, 56, 56))  # backbone stage outputs
+MODULE_TOL = 1e-4       # a module's card forward against its CPU forward, f32, TF32 off
+SPATIAL_TRAIN_IMAGES = 1200  # tools/make_vqa_corpus.py --spatial --seed 42
+SPATIAL_VAL_IMAGES = 250     # ... --seed 4242, held out
+SPATIAL_EPOCHS = 16          # scripts/run_ablation.py's default
+JAX_FAITHFULNESS_MEAN = 0.4138  # docs/ATTENTION_FAITHFULNESS.json: JAX's, its own corpus
+SOAK_REQUESTS, SOAK_CLIENTS = 2000, 16
+SUPERVISED_REQUESTS, SUPERVISED_CLIENTS = 600, 8
+SUPERVISED_RECYCLE_MB = 512  # below a full-width worker's RSS at ready (~6 GB)
+
+
+def _median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def host_prep(torch, rng, device="cuda") -> dict:
+    """(a) The native resampler on this host: bit identity with PIL and with
+    the port's PIL path; decode + resize to 224 per image at 64-1024 px, PIL
+    on one thread against native; a batch of 32 uploads at 512 px, the pool
+    against PIL in a loop; and the bf16 engine's ``_preprocess_images`` over
+    one bucket-32 group of the soak's uploads beside the dispatch host ms at
+    bucket 32."""
+    from PIL import Image
+
+    from vqa_tpu_torch import native
+    from vqa_tpu_torch.data import preprocess
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.tools import soak_test
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    require(native.available(), f"native resampler unavailable: {native.build_error()}")
+    pil_path = mock.patch.object(native, "available", lambda: False)
+
+    def pil_resize(img, h, w):
+        return np.asarray(img.resize((w, h), Image.BILINEAR))
+
+    # bit identity: uploads at each size, odd shapes, the batch path
+    uploads = {s: image_bytes(rng, s, s, "JPEG") for s in NATIVE_SIZES}
+    for s, data in uploads.items():
+        img = preprocess.load_image(data)
+        got = native.resize_bilinear(np.asarray(img), 224, 224)
+        with pil_path:
+            port_pil = preprocess.resize_to_uint8(data, 224)
+        require(np.array_equal(got, pil_resize(img, 224, 224))
+                and np.array_equal(got, preprocess.resize_to_uint8(data, 224))
+                and np.array_equal(got, port_pil), f"native resize at {s} px differs from PIL")
+    for (h, w) in NATIVE_ODD:
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        for dh, dw in ((224, 224), (7, 13), (256, 256)):
+            require(np.array_equal(native.resize_bilinear(arr, dh, dw),
+                                   pil_resize(Image.fromarray(arr), dh, dw)),
+                    f"native resize {h}x{w} -> {dh}x{dw} differs from PIL")
+    mix = soak_test.upload_mix()
+    batch = preprocess.resize_batch_to_uint8(mix, 224)
+    with pil_path:
+        require(np.array_equal(batch, preprocess.resize_batch_to_uint8(mix, 224)),
+                "the batch path differs from PIL's")
+    log(f"phase 14 (a): native resize bit-identical to PIL at {NATIVE_SIZES} px, "
+        f"{len(NATIVE_ODD) * 3} odd shapes and the batch path; os.cpu_count() {os.cpu_count()}")
+
+    # decode + resize to 224, one image
+    per_image = {}
+    for s, data in uploads.items():
+        reps = 40 if s <= 224 else 15
+        decode = _median_ms(lambda: preprocess.load_image(data), reps)
+        pil = _median_ms(lambda: pil_resize(preprocess.load_image(data), 224, 224), reps)
+        nat = _median_ms(lambda: native.resize_bilinear(
+            np.asarray(preprocess.load_image(data)), 224, 224), reps)
+        per_image[str(s)] = dict(decode_ms=decode, pil_ms=pil, native_ms=nat,
+                                 speedup=pil / nat)
+        log(f"phase 14 (a): {s} px JPEG -> 224: decode {decode:.3f} ms; decode + resize "
+            f"PIL {pil:.3f} ms, native {nat:.3f} ms ({pil / nat:.2f}x)")
+
+    # a batch of 32 uploads at 512 px: the pool against PIL in a loop
+    group512 = [image_bytes(rng, 512, 512, "JPEG") for _ in range(HOST_BATCH)]
+    decoded = [np.asarray(preprocess.load_image(d)) for d in group512]
+    batch_nat = _median_ms(lambda: preprocess.resize_batch_to_uint8(group512, 224), 5)
+    with pil_path:
+        batch_pil = _median_ms(lambda: preprocess.resize_batch_to_uint8(group512, 224), 5)
+    resize_nat = _median_ms(lambda: native.resize_bilinear_batch(decoded, 224, 224), 10)
+    resize_pil = _median_ms(lambda: [pil_resize(Image.fromarray(a), 224, 224)
+                                     for a in decoded], 10)
+    log(f"phase 14 (a): {HOST_BATCH} uploads at 512 px, decode + resize: native pool "
+        f"{batch_nat:.3f} ms, PIL loop {batch_pil:.3f} ms ({batch_pil / batch_nat:.2f}x); "
+        f"resize alone: pool {resize_nat:.3f} ms, PIL loop {resize_pil:.3f} ms "
+        f"({resize_pil / resize_nat:.2f}x) on {os.cpu_count()} cores")
+
+    # one bucket-32 group of the soak's uploads through the bf16 engine
+    engine = VQAInference(model_config=ModelConfig(), device=device).load()
+    group = [mix[int(rng.integers(len(mix)))] for _ in range(BUCKET)]
+    prep_nat = _median_ms(lambda: engine._preprocess_images(group), 9)
+    with pil_path:
+        prep_pil = _median_ms(lambda: engine._preprocess_images(group), 9)
+    dispatch = dispatch_timing(torch, engine, rng)
+    host = dispatch["dispatch_host_ms"]
+    share = prep_nat / (prep_nat + host)
+    log(f"phase 14 (a): a bucket-32 group of the soak's uploads: _preprocess_images native "
+        f"{prep_nat:.3f} ms, PIL {prep_pil:.3f} ms; bf16 dispatch host {host:.3f} ms "
+        f"(forward {dispatch['forward_device_ms']:.3f} ms on the device): decode + resize "
+        f"is {100 * share:.1f}% of the group's host time ({100 * prep_pil / (prep_pil + host):.1f}% "
+        f"with PIL)")
+    del engine
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return dict(cpu_count=os.cpu_count(), per_image=per_image,
+                batch32_512px=dict(native_ms=batch_nat, pil_ms=batch_pil,
+                                   resize_native_ms=resize_nat, resize_pil_ms=resize_pil),
+                group32=dict(preprocess_native_ms=prep_nat, preprocess_pil_ms=prep_pil,
+                             dispatch=dispatch, prep_share_of_host=share,
+                             prep_share_of_host_pil=prep_pil / (prep_pil + host)))
+
+
+def _seeded_module(torch, cls, channels: int, rng):
+    """``cls(channels)`` in eval mode with seeded weights (std 0.1) and, for
+    SelfAttention2D, gamma 0.5 (at its initial 0 the module is the
+    identity)."""
+    m = cls(channels).eval()
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 0.1))
+        if hasattr(m, "gamma"):
+            m.gamma.fill_(0.5)
+    return m
+
+
+def attention_modules_on_card(torch, rng, device="cuda") -> tuple:
+    """(b) CBAMBlock and SelfAttention2D at the backbone's stage-output
+    shapes: the card's f32 forward (TF32 off) against the same module's CPU
+    forward within 1e-4; CBAMBlock launches the SE kernel once per eval call,
+    in f32 and in bf16. Returns the numbers and (b)'s kernel launches."""
+    import copy
+
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.models import CBAMBlock, SelfAttention2D
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, out = torch.device(device), {}
+    cases = []
+    for shape in MODULE_SHAPES:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).contiguous(
+            memory_format=torch.channels_last)
+        for cls in (CBAMBlock, SelfAttention2D):
+            cpu = _seeded_module(torch, cls, shape[1], rng)
+            cases.append((f"{cls.__name__}{list(shape)}", cpu, copy.deepcopy(cpu).to(dev), x))
+    for name, _, card, x in cases:  # timed first: these calls are not counted
+        xd = x.to(dev)
+        device_ms, call_ms = time_ms(torch, lambda: card(xd), 10)
+        out[name] = dict(ms=device_ms, call_ms=call_ms)
+    ops.reset_launch_counts()
+    for name, cpu, card, x in cases:
+        with torch.no_grad():
+            want = cpu(x)
+            before = ops.launch_counts()
+            got = card(x.to(dev))
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            err = max_err(got.cpu(), want)
+            require(got.shape == x.shape and bool(torch.isfinite(got).all()),
+                    f"{name}: shape {tuple(got.shape)} or non-finite values")
+            require(err <= MODULE_TOL, f"{name}: card vs CPU max err {err:.3e} > {MODULE_TOL}")
+            se_calls = {"se": 1} if name.startswith("CBAM") else {}
+            require(delta == {k: se_calls.get(k, 0) for k in delta},
+                    f"{name}: launches {delta} in one eval call")
+            out[name].update(max_abs_err=err, launches=delta)
+            if name.startswith("CBAM"):  # the bf16 form, once per call too
+                card.set_compute_dtype(torch.bfloat16)
+                before = ops.launch_counts()
+                got16 = card(x.to(dev, torch.bfloat16))
+                torch.cuda.synchronize()
+                delta16 = {k: v - before[k] for k, v in ops.launch_counts().items()}
+                require(delta16 == {k: int(k == "se_bf16") for k in delta16}
+                        and bool(torch.isfinite(got16).all()),
+                        f"{name} bf16: launches {delta16} in one eval call")
+                out[name].update(bf16_vs_f32=max_err(got16.float().cpu(), want),
+                                 bf16_launches=delta16)
+        log(f"phase 14 (b): {name}: card vs CPU max err {err:.3e} (tol {MODULE_TOL:.0e}), "
+            f"{out[name]['ms']:.3f} ms on the device per call ({out[name]['call_ms']:.3f} "
+            f"by events); launches per eval call {delta}"
+            + (f", bf16 {out[name]['bf16_launches']} (bf16 vs f32 {out[name]['bf16_vs_f32']:.3e})"
+               if name.startswith("CBAM") else ""))
+    launches = ops.launch_counts()
+    del cases
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def faithfulness_on_card(torch, tmp: str, rng, device="cuda", extra=()) -> tuple:
+    """(c) A spatial train corpus (seed 42) and a held-out one (seed 4242)
+    from tools/make_vqa_corpus.py, the val corpus written twice (its decoded
+    images and JSON equal); the train CLI on the train corpus at full width
+    (bf16, the card's default); tools/attention_faithfulness.py on the val
+    corpus: mean queried-quadrant mass above the uniform 0.25, each eval
+    forward launching the f32 forms 1, 4 and 2 times; then
+    tools/visualize_attention.py on one val image. Returns the numbers and
+    the tools' kernel launches."""
+    from PIL import Image
+
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.tools import attention_faithfulness, make_vqa_corpus, visualize_attention
+
+    t0 = time.perf_counter()
+    corpora = {}
+    for name, n, seed in (("train", SPATIAL_TRAIN_IMAGES, 42), ("val", SPATIAL_VAL_IMAGES, 4242),
+                          ("val_again", SPATIAL_VAL_IMAGES, 4242)):
+        d = os.path.join(tmp, name)
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_vqa_corpus.main(["--out", d, "--num-images", str(n), "--seed", str(seed),
+                                  "--spatial"])
+        with open(os.path.join(d, "corpus_meta.json")) as f:
+            corpora[name] = json.load(f)
+    val, again = os.path.join(tmp, "val"), os.path.join(tmp, "val_again")
+    for f in ("questions.json", "annotations.json", "corpus_meta.json"):
+        with open(os.path.join(val, f)) as a, open(os.path.join(again, f)) as b:
+            require(a.read() == b.read(), f"make_vqa_corpus: {f} differs between two writes")
+    for name in sorted(os.listdir(os.path.join(val, "images"))):
+        require(np.array_equal(np.asarray(Image.open(os.path.join(val, "images", name))),
+                               np.asarray(Image.open(os.path.join(again, "images", name)))),
+                f"make_vqa_corpus: {name} decodes differently between two writes")
+    corpus_s = time.perf_counter() - t0
+    log(f"phase 14 (c): corpora {corpora['train']} and {corpora['val']} in {corpus_s:.1f} s; "
+        f"the val corpus written twice: equal JSON and decoded images")
+
+    train = os.path.join(tmp, "train")
+    ckpt = os.path.join(tmp, "ckpt")
+    _, cli = drive_train_cli(torch, ckpt, form="_bf16", argv=[
+        "--questions", os.path.join(train, "questions.json"),
+        "--annotations", os.path.join(train, "annotations.json"),
+        "--images-dir", os.path.join(train, "images"), "--subset-size", "999999",
+        "--epochs", str(SPATIAL_EPOCHS), "--batch-size", "64", "--device-aug",
+        "--num-workers", "4", "--seed", "42", *extra])
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_json = os.path.join(tmp, "faithfulness.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        attention_faithfulness.main(["--checkpoint-dir", ckpt, "--corpus", val,
+                                     "--out", out_json, "--device", device])
+    with open(out_json) as f:
+        faith = json.load(f)
+    faith_s = time.perf_counter() - t0
+    faith_launches = ops.launch_counts()
+    forwards = -(-faith["overall"]["n"] // 64)
+    for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(faith_launches[name] == per_forward * forwards
+                and faith_launches[name + "_bf16"] == 0,
+                f"faithfulness: launches {faith_launches} in {forwards} forwards")
+    mean = faith["overall"]["mean"]
+    log(f"phase 14 (c): attention faithfulness over {faith['overall']['n']} held-out spatial "
+        f"questions: mean queried-quadrant mass {mean:.4f} (uniform 0.25; JAX's own, another "
+        f"corpus and checkpoint: {JAX_FAITHFULNESS_MEAN}), median {faith['overall']['median']}, "
+        f"above uniform {faith['overall']['frac_above_uniform']}, top-1 on them "
+        f"{faith['top1_on_spatial_questions']}; by position "
+        + ", ".join(f"{k} {v['mean']}" for k, v in faith["by_position"].items())
+        + f"; {forwards} forwards in {faith_s:.1f} s, launches {faith_launches}")
+    require(mean > 0.25, f"mean queried-quadrant mass {mean} is not above the uniform 0.25")
+
+    with open(os.path.join(val, "questions.json")) as f:
+        q = next(q for q in json.load(f)["questions"] if " in the " in q["question"])
+    viz = os.path.join(tmp, "viz")
+    before = ops.launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        visualize_attention.main(["--checkpoint-dir", ckpt, "--out", viz, "--device", device,
+                                  "--question",
+                                  q["question"], "--image", os.path.join(
+                                      val, "images", f"{q['image_id']:012d}.jpg")])
+    launches = ops.launch_counts()
+    viz_delta = {k: v - before[k] for k, v in launches.items()}
+    pngs = sorted(os.listdir(viz))
+    log(f"phase 14 (c): visualize_attention on '{q['question']}': {pngs}; launches {viz_delta}")
+    require(pngs == ["cross_attention_layer0.png", "cross_attention_layer1.png",
+                     "cross_attention_mean.png"], f"visualize_attention wrote {pngs}")
+    require(viz_delta == {"stem": 1, "se": 4, "cross_attention": 2, "stem_bf16": 0,
+                          "se_bf16": 0, "cross_attention_bf16": 0},
+            f"visualize_attention: launches {viz_delta}")
+    return dict(corpora=corpora, corpus_s=corpus_s, train=cli, faithfulness=faith,
+                faithfulness_s=faith_s, forwards=forwards + 1, pngs=pngs), launches
+
+
+def soak_on_card(torch, extra=()) -> tuple:
+    """(d) tools/soak_test.py in this process on the bf16 engine at full
+    width: passed, no contract violation, no stuck waiter, RSS plateaued;
+    every forward launched the bf16 forms 1, 4 and 2 times and no f32 form.
+    Returns the result and its kernel launches."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.tools import soak_test
+
+    ops.reset_launch_counts()
+    res = soak_test.run(soak_test.parse_args(
+        ["--requests", str(SOAK_REQUESTS), "--clients", str(SOAK_CLIENTS), *extra]))
+    launches = ops.launch_counts()
+    forwards = launches["stem_bf16"]
+    log(f"phase 14 (d): soak, {res['requests_total']} of {res['expected_total']} requests "
+        f"from {SOAK_CLIENTS} clients in {res['wall_s']} s ({res['throughput_rps']} requests/s), "
+        f"/predict p50 {res['predict_p50_ms']} ms, p99 {res['predict_p99_ms']} ms; windows "
+        f"{res['latency_drift_windows']}; RSS first {res['rss_start_mb']} MB, last "
+        f"{res['rss_end_mb']}, max {res['rss_max_mb']}, growth over the last third "
+        f"{res['rss_growth_last_third_pct']}%; windows {res['rss_windows']}; mix "
+        f"{res['mix_counts']}; violations {res['contract_violations']}; stuck "
+        f"{res['stuck_waiters']}; {forwards} forwards, launches {launches}")
+    require(res["passed"] and res["contract_violations"] == {} and res["stuck_waiters"] == 0
+            and res["rss_plateaued"], "the in-process soak did not pass")
+    require(forwards > 0 and launches["se_bf16"] == 4 * forwards
+            and launches["cross_attention_bf16"] == 2 * forwards
+            and launches["stem"] == launches["se"] == launches["cross_attention"] == 0,
+            f"soak: launches {launches}")
+    return res, launches
+
+
+def supervised_soak_on_card(extra=()) -> dict:
+    """(e) tools/soak_test.py under the recycle supervisor, full-width bf16
+    workers on the card and a bound below one worker's RSS: every request
+    answered within the contract, and a recycle begun."""
+    from vqa_tpu_torch.tools import soak_test
+
+    res = soak_test.run(soak_test.parse_args(
+        ["--requests", str(SUPERVISED_REQUESTS), "--clients", str(SUPERVISED_CLIENTS),
+         "--supervisor-recycle-mb", str(SUPERVISED_RECYCLE_MB), *extra]))
+    kinds = [e["supervisor"] for e in res["recycles"]]
+    log(f"phase 14 (e): supervised soak, {res['requests_total']} of {res['expected_total']} "
+        f"requests from {SUPERVISED_CLIENTS} clients in {res['wall_s']} s "
+        f"({res['throughput_rps']} requests/s), p50 {res['predict_p50_ms']} ms, p99 "
+        f"{res['predict_p99_ms']} ms; recycle events {kinds}; tree RSS first "
+        f"{res['rss_start_mb']} MB, max {res['rss_max_mb']}, last {res['rss_end_mb']}; "
+        f"violations {res['contract_violations']}; passed {res['passed']} (rss_plateaued "
+        f"{res['rss_plateaued']})")
+    require(res["requests_total"] == res["expected_total"] == SUPERVISED_REQUESTS
+            and res["contract_violations"] == {}, "the supervised soak lost requests")
+    require("recycle_start" in kinds, f"no recycle began: {kinds}")
+    return res
+
+
+def drive_tools(torch, rng, device="cuda", extra=()) -> tuple:
+    """Phase 14: (a) host prep, (b) CBAMBlock and SelfAttention2D, (c)
+    faithfulness and visualization, (d) the soak, (e) the supervised soak;
+    each part's seconds logged. Returns the ``tools`` line and each kernel
+    form's launches over (b)-(d). ``device`` and ``extra`` (flags for the
+    train CLI and the soak, such as ``--tiny --device cpu``) let the phase
+    be rehearsed on the CPU."""
+    out, seconds = {}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t
+        log(f"phase 14 ({name}): {seconds[name]:.1f} s")
+        return result
+
+    out["host_prep"] = part("a", lambda: host_prep(torch, rng, device))
+    out["modules"], launches_b = part("b", lambda: attention_modules_on_card(torch, rng, device))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools.") as tmp:
+        out["faithfulness"], launches_c = part("c", lambda: faithfulness_on_card(
+            torch, tmp, rng, device, extra))
+    out["soak"], launches_d = part("d", lambda: soak_on_card(torch, extra))
+    out["supervised_soak"] = part("e", lambda: supervised_soak_on_card(extra))
+    out["phase_seconds"] = seconds
+    launches = {k: launches_b[k] + launches_c[k] + launches_d[k] for k in launches_b}
+    return out, launches
+
+
 def _free_port() -> int:
     import socket
 
@@ -2693,6 +3089,7 @@ def main(argv=None) -> int:
         return 2
     if args.worker:
         return run_worker(args)
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.models import count_parameters
@@ -2771,6 +3168,12 @@ def main(argv=None) -> int:
         kernels[name]["launches_multi_device"] = (
             multi_device["gloo_two_ranks"]["launches"][name]
             + replicas["launches_n1"][name] + replicas[f"launches_n{BUCKET}"][name])
+    t0 = time.perf_counter()
+    tools, tool_launches = drive_tools(torch, rng)
+    for name in kernels:  # (b)'s CBAMBlock calls, (c)'s eval forwards, (d)'s engine
+        kernels[name]["launches_tools"] = tool_launches[name]
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s; chip_smoke so far "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {
         "params": n_params, "build_s": build_s,
@@ -2784,9 +3187,10 @@ def main(argv=None) -> int:
     log(json.dumps({"bf16": bf16}))
     log(json.dumps({"bf16_training": bf16_training}))
     log(json.dumps({"multi_device": multi_device}))
+    log(json.dumps({"tools": tools}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_bf16_training_validation", "launches_multi_device")
+            "launches_bf16_training_validation", "launches_multi_device", "launches_tools")
     log(json.dumps({"kernels": [{k: ({"name": name, **r}[k]) for k in keys}
                                 for name, r in kernels.items()]}))
     log(card)

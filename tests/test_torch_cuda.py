@@ -687,3 +687,18 @@ def test_bf16_trainer_validation_launches_the_bf16_forms_and_train_steps_none(cu
     assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem_bf16": n,
                                    "se_bf16": 4 * n, "cross_attention_bf16": 2 * n}
     assert np.isfinite(out["val_loss"])
+
+
+def test_cbam_and_self_attention_2d_on_the_card_match_the_cpu(cuda):
+    """chip_smoke.py phase 14 (b): CBAMBlock and SelfAttention2D at the
+    backbone's stage-output shapes ([32,512,7,7] and [32,64,56,56]), seeded
+    weights, SelfAttention2D's gamma 0.5: the card's f32 forward (TF32 off)
+    within 1e-4 of the CPU's, and CBAMBlock launching the SE kernel once per
+    eval call, in f32 and in bf16."""
+    import chip_smoke
+
+    out, launches = chip_smoke.attention_modules_on_card(torch, np.random.default_rng(0))
+    assert len(out) == 4
+    assert all(r["max_abs_err"] <= chip_smoke.MODULE_TOL for r in out.values())
+    assert launches == {"stem": 0, "se": 2, "cross_attention": 0, "stem_bf16": 0,
+                        "se_bf16": 2, "cross_attention_bf16": 0}

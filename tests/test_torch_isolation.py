@@ -106,3 +106,33 @@ def test_the_parallel_package_imports_without_jax_a_card_or_a_group():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_resampler_and_the_tools_import_no_jax():
+    """The native binding (built and loaded here), the attention analysis,
+    profiling and the four tools, each in a fresh interpreter, and the
+    package walk reaches every one of them."""
+    modules = ["vqa_tpu_torch.native", "vqa_tpu_torch.utils.attention_analysis",
+               "vqa_tpu_torch.utils.profiling", "vqa_tpu_torch.tools.make_vqa_corpus",
+               "vqa_tpu_torch.tools.attention_faithfulness",
+               "vqa_tpu_torch.tools.visualize_attention", "vqa_tpu_torch.tools.soak_test"]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vqa_tpu_torch\n"
+        f"wanted = {modules!r}\n"
+        "for name in wanted:\n"
+        "    importlib.import_module(name)\n"
+        "from vqa_tpu_torch import native\n"
+        "native.available()\n"
+        "walked = {m.name for m in pkgutil.walk_packages(vqa_tpu_torch.__path__, "
+        "'vqa_tpu_torch.')}\n"
+        "assert set(wanted) <= walked, set(wanted) - walked\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -14,6 +14,11 @@ takes) and returns the port's ``state_dict``, which loads with
   flax recomputes instead of storing, synthesized as the exporter does.
 
 An unknown flax path raises ``KeyError``, so structural drift fails loudly.
+
+``module_state_dict_from_jax(variables)`` does the same for one module of
+``models/attention_modules.py`` used alone (``CBAMBlock``,
+``SelfAttention2D``, ``SEAttention``, ``SpatialAttention``,
+``AttentionWrapper``): its flax ``{'params': ...}`` → its ``state_dict``.
 """
 
 from __future__ import annotations
@@ -158,4 +163,23 @@ def state_dict_from_jax(variables: Dict[str, Any], config: ModelConfig
     for key in list(out):
         if key.endswith("running_mean"):
             out[key[: -len("running_mean")] + "num_batches_tracked"] = np.asarray(0, np.int64)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def module_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{'params': ...}`` of one attention module used alone → its
+    state_dict: ``se/fc1/kernel`` → ``se.fc1.weight`` ([in, out] →
+    [out, in]), ``spatial/conv/kernel`` and ``query``/``key``/``value``
+    kernels HWIO → OIHW, biases as they are, ``gamma`` as it is. Loads with
+    ``strict=True``."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(variables.get("params", {})):
+        leaf = path[-1]
+        if leaf == "kernel" and arr.ndim in (2, 4):
+            transform = _conv_kernel if arr.ndim == 4 else _linear_kernel
+            out[".".join(path[:-1] + ("weight",))] = transform(arr)
+        elif leaf == "bias" or path == ("gamma",):
+            out[".".join(path)] = arr
+        else:
+            raise KeyError(f"no mapping for params:{'/'.join(path)}")
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}

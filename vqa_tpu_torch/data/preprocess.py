@@ -1,7 +1,7 @@
 """Image and question preprocessing.
 
-Counterpart of ``vqa_tpu/data/preprocess.py``: host decode and bilinear
-resize through PIL to ``[N,S,S,3]`` uint8 (NHWC); ``device_normalize`` —
+Counterpart of ``vqa_tpu/data/preprocess.py``: host decode through PIL
+and bilinear resize to ``[N,S,S,3]`` uint8 (NHWC); ``device_normalize`` —
 /255 and ImageNet mean/std — on a tensor on the serving device, so the host
 ships uint8 pixels (4x fewer bytes than f32); the host train path
 (``augment_image``: resize S+32, random crop, flip, colour jitter,
@@ -9,9 +9,11 @@ normalize, numpy with an explicit generator); its batched twin on the
 card (``device_augment`` = ``draw_augment`` + ``apply_augment``); the
 question helpers the HTTP layer validates with; and ``vqa_collate``.
 
-The JAX package resizes through its own C++ resampler, which is
-bit-identical to PIL bilinear; the port uses PIL itself until that
-resampler is ported, so both packages feed the model the same pixels.
+The resize goes through the port's C++ resampler (``vqa_tpu_torch.native``,
+bit-identical to PIL bilinear) when it is available, as the JAX package's
+does (``vqa_tpu/data/preprocess.py:61-92``): ``resize_batch_to_uint8``, the
+serving engine's and the micro-batcher's path, resizes a whole group on
+its thread pool. Without it PIL resizes, to the same bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 from PIL import Image
+
+from vqa_tpu_torch import native
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -44,15 +48,22 @@ def load_image(image: ImageInput) -> Image.Image:
 
 def resize_to_uint8(image: ImageInput, size: int) -> np.ndarray:
     """Decode → RGB → bilinear resize (size, size) → [size, size, 3] u8."""
-    img = load_image(image).resize((size, size), Image.BILINEAR)
-    return np.asarray(img, dtype=np.uint8)
+    img = load_image(image)
+    if native.available():
+        return native.resize_bilinear(np.asarray(img, np.uint8), size, size)
+    return np.asarray(img.resize((size, size), Image.BILINEAR), dtype=np.uint8)
 
 
 def resize_batch_to_uint8(images: Sequence[ImageInput], size: int) -> np.ndarray:
-    """Decode + resize a batch → [N, size, size, 3] u8."""
-    out = np.empty((len(images), size, size, 3), np.uint8)
-    for i, im in enumerate(images):
-        out[i] = resize_to_uint8(im, size)
+    """Decode + resize a batch → [N, size, size, 3] u8; the native path
+    resizes the batch on its thread pool (one thread per core)."""
+    decoded = [load_image(im) for im in images]
+    if native.available():
+        return native.resize_bilinear_batch(
+            [np.asarray(im, np.uint8) for im in decoded], size, size, num_threads=0)
+    out = np.empty((len(decoded), size, size, 3), np.uint8)
+    for i, im in enumerate(decoded):
+        out[i] = np.asarray(im.resize((size, size), Image.BILINEAR), dtype=np.uint8)
     return out
 
 

@@ -70,6 +70,43 @@ class ComputeCopies:
         return t if t is None else t.to(self.compute_dtype)
 
 
+class ComputeDtypeRoot(nn.Module):
+    """The root of a tree of layers that compute in one dtype (``self.dtype``,
+    f32 until ``set_compute_dtype``): the model, or a module used alone.
+    Weights loaded into it refresh its layers' copies, and leaving training
+    mode remakes them, so an eval forward never sees a stale copy."""
+
+    def __init__(self):
+        super().__init__()
+        self.dtype = torch.float32
+        self.register_load_state_dict_post_hook(ComputeDtypeRoot._refresh_copies)
+
+    def _refresh_copies(self, _incompatible_keys) -> None:
+        self.set_compute_dtype(self.dtype)
+
+    def set_compute_dtype(self, dtype: torch.dtype):
+        """Compute in ``dtype`` (f32 or bf16) from now on. In eval mode every
+        layer (re)makes its copy of its weights in it from the current f32
+        weights; in training mode each forward casts them."""
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"the port computes in float32 or bfloat16, got {dtype}")
+        self.dtype = dtype
+        for m in self.modules():
+            if m is not self and hasattr(m, "set_compute_dtype"):
+                m.set_compute_dtype(dtype, copies=not self.training)
+        return self
+
+    def train(self, mode: bool = True):
+        """Entering training mode drops the eval copies of the weights (the
+        optimizer is about to change the weights); leaving it remakes them
+        from the weights as they are then."""
+        was = self.training
+        super().train(mode)
+        if mode != was:
+            self.set_compute_dtype(self.dtype)
+        return self
+
+
 class Linear(ComputeCopies, nn.Linear):
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

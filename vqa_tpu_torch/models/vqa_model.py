@@ -50,8 +50,8 @@ from vqa_tpu_torch.models.cnn_backbone import BatchNorm2d, CustomResNet, run_seg
 from vqa_tpu_torch.models.cross_attention import CrossAttention
 from vqa_tpu_torch.models.fusion import MultimodalFusion, attention_visualization
 from vqa_tpu_torch.models.layers import (
-    COMPUTE_DTYPES,
     ColumnParallelLinear,
+    ComputeDtypeRoot,
     Embedding,
     Linear,
     RowParallelLinear,
@@ -78,7 +78,7 @@ class AnswerHead(nn.Module):
         return self.classifier(x)
 
 
-class VQAModel(nn.Module):
+class VQAModel(ComputeDtypeRoot):
     """``logits, aux = model(images, token_ids, mask, return_aux=...)`` with
     images [B, H, W, 3] NHWC f32 (normalized), cast to the compute dtype
     as the JAX model's first conv casts them; logits are f32."""
@@ -86,12 +86,9 @@ class VQAModel(nn.Module):
     def __init__(self, config: ModelConfig, stem_s2d: bool = False):
         super().__init__()
         cfg = self.config = config
-        self.dtype = torch.float32
         # set by shard_model: the grid, and the state_dict entries split on it
         self.mesh = None
         self.tp_splits: Dict[str, int] = {}
-        # weights loaded into a bf16 model refresh its bf16 copies
-        self.register_load_state_dict_post_hook(VQAModel._refresh_copies)
         self.image_encoder = CustomResNet(
             in_channels=cfg.in_channels, base_channels=cfg.base_channels,
             stage_channels=tuple(cfg.stage_channels),
@@ -113,32 +110,6 @@ class VQAModel(nn.Module):
         )
         self.answer_head = AnswerHead(
             cfg.embed_dim, cfg.embed_dim * 2, cfg.num_answers, cfg.answer_dropout)
-
-    def _refresh_copies(self, _incompatible_keys) -> None:
-        self.set_compute_dtype(self.dtype)
-
-    def set_compute_dtype(self, dtype: torch.dtype) -> "VQAModel":
-        """Compute in ``dtype`` (f32 or bf16) from now on. In eval mode every
-        layer (re)makes its copy of its weights in it from the current f32
-        weights; in training mode each forward casts them."""
-        if dtype not in COMPUTE_DTYPES:
-            raise ValueError(f"the port computes in float32 or bfloat16, got {dtype}")
-        self.dtype = dtype
-        for m in self.modules():
-            if m is not self and hasattr(m, "set_compute_dtype"):
-                m.set_compute_dtype(dtype, copies=not self.training)
-        return self
-
-    def train(self, mode: bool = True) -> "VQAModel":
-        """Entering training mode drops the eval copies of the weights (the
-        optimizer is about to change the weights); leaving it remakes them
-        from the weights as they are then, so an eval forward never sees a
-        stale copy."""
-        was = self.training
-        super().train(mode)
-        if mode != was:
-            self.set_compute_dtype(self.dtype)
-        return self
 
     def forward(self, images: torch.Tensor, token_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
