@@ -157,7 +157,27 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     on the bf16 engine: passed, no contract violation, no stuck waiter, RSS
     plateaued, the bf16 forms launched 1, 4 and 2 times per forward; (e)
     the soak under the recycle supervisor, 600 requests from 8 clients and
-    a 512 MB bound: every request answered, a recycle begun.
+    a 512 MB bound: every request answered, a recycle begun;
+15. the engine's CUDA graphs (one per bucket and replica, captured by
+    ``load``: every engine forward of phases 3-14 above was a replay), the
+    roofline and the supervisor's default, at full width: (a) for an f32
+    and a bf16 engine, every effective bucket a graph, and the replayed
+    probabilities on new inputs against the eager forward
+    (``_dispatch_eager``) on the same inputs, f32 within 1e-4, bf16 by
+    phase 11 (b)'s rule; (b) 70 requests in one call (three chunks, all
+    dispatched before any fetch) equal to each chunk alone; (c) the
+    dtype's forms launched 1, 4 and 2 times per replayed forward, the
+    others not; (d) eager and graph in turns, four rounds: bucket-1 p50/p90,
+    bucket-32 pairs/s, host ms of one bucket-32 dispatch, the card's busy
+    share and device ms per call, each with its spread; (e) phase 13 (c)'s
+    two replicas on cuda:0, each replaying graphs of its own, within 1e-4
+    of one; (f) the roofline floor of a bucket-32 forward
+    (``tools/roofline.py``, f32 and bf16) beside the graphed forward's
+    device ms; (g) a default-flag supervisor over a full-width worker: its
+    RSS at ready split by mapping, 30 s idle with no ``recycle_start``,
+    exit 0 and no worker left, while a worker of this script
+    (``--worker rss_stages``) builds a bf16 engine step by step and reads
+    its RSS after each step.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -183,7 +203,7 @@ each form's launches over phase 12 (b)'s validation forwards, and
 ``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
 (rank 0) and replicas, and ``launches_tools``, over phase 14's CBAMBlock
 calls, faithfulness and visualization forwards and the in-process soak's
-engine), and before that the ``tools``, ``multi_device``,
+engine), and before that the ``graphs``, ``tools``, ``multi_device``,
 ``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
 phase, supervisor) and ``engine`` lines.
 """
@@ -616,20 +636,20 @@ def dispatch_timing(torch, engine, rng, iters: int = 12) -> dict:
     """Host ms of ``dispatch_probs_from_pixels`` at bucket 32 against the
     forward's device ms: whether dispatch returns before the card finishes.
     Each round also dispatches with the inputs copied from pageable memory
-    instead of the engine's pinned staging, the two in alternating order."""
+    instead of the engine's pinned staging (``_stage``), the two in
+    alternating order."""
     size = engine.model.config.image_size
     pixels = rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)
     qs = [HTTP_QUESTIONS[i % 5] for i in range(BUCKET)]
     device_ms, _ = time_ms(torch, lambda: engine.dispatch_probs_from_pixels(pixels, qs), iters)
 
-    def pageable(*arrays, device=None):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(device or engine.device)
-                for a in arrays]
+    def pageable(device, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
     times = {k: [] for k in ("alone", "wait", "behind", "alone_pageable", "behind_pageable")}
     for i in range(iters):
         for suffix in ("", "_pageable")[::1 if i % 2 else -1]:
-            with (mock.patch.object(engine, "_to_device", pageable) if suffix
+            with (mock.patch.object(engine, "_stage", pageable) if suffix
                   else contextlib.nullcontext()):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2586,6 +2606,11 @@ def replicas_on_one_card(torch, cfg) -> dict:
     two = VQAInference(model_config=cfg, device=device, dtype=torch.float32,
                        mesh=mesh).load()
     require(two._effective_buckets() == [2, 4, 16, 32], f"buckets {two._effective_buckets()}")
+    # each replica replays graphs of its own, on static buffers of its own
+    outputs = {g.output.data_ptr() for gs in two._graphs.values() for g in gs}
+    require(sorted(two._graphs) == [2, 4, 16, 32]
+            and all(len(gs) == 2 for gs in two._graphs.values()) and len(outputs) == 8,
+            f"two replicas' graphs: {({b: len(gs) for b, gs in two._graphs.items()})}")
     rng = np.random.default_rng(8)
     out = {}
     for n in (1, BUCKET):
@@ -2606,6 +2631,7 @@ def replicas_on_one_card(torch, cfg) -> dict:
             require(launches[kernel] == 2 * per, f"replicas at n={n}: launches {launches}")
         out[f"err_n{n}"] = err
         out[f"launches_n{n}"] = launches
+    out["graphs_per_bucket"] = 2
     return out
 
 
@@ -3041,6 +3067,396 @@ def drive_tools(torch, rng, device="cuda", extra=()) -> tuple:
     return out, launches
 
 
+# ---- phase 15: the engine's CUDA graphs, the roofline, the supervisor's default
+
+GRAPH_TOL = 1e-4      # f32 replay against the eager forward (tests/test_torch_engine.py:72)
+ALIAS_ROWS = 70       # three chunks at bucket 32
+TIMING_ROUNDS = 4     # (d): eager and graph in turns, the order flipped each round
+B1_CALLS, B32_CALLS, DISPATCH_CALLS = 20, 10, 5
+IDLE_S = 30.0         # (g): a default-flag supervisor over a full-width worker, idle
+RSS_GROUPS = (        # (g): a worker's RSS by mapping, first match wins
+    ("cudnn", ("libcudnn",)),
+    ("cublas", ("libcublas",)),
+    ("torch_cuda", ("libtorch_cuda", "libc10_cuda")),
+    ("cuda_driver", ("libcuda.so", "libnvidia-")),
+    ("other_cuda_libraries", ("libnccl", "libcusparse", "libcufft", "libcurand", "libcusolver",
+                              "libnvrtc", "libnvJitLink", "libcupti", "libcudart",
+                              "libnvToolsExt", "libcufile", "libnvperf", "libcuda")),
+    ("torch_cpu", ("libtorch", "libc10", "libgomp", "libshm")),
+    ("device_files", ("/dev/nvidia",)),
+)
+
+
+def rss_breakdown(pid: int) -> dict:
+    """MB of ``pid``'s RSS by mapping (``/proc/<pid>/smaps``): the CUDA
+    libraries' images by library, torch's CPU libraries, the device files'
+    mappings (the CUDA context's, pinned host memory the driver maps),
+    other files (Python, numpy, PIL, the kernels' library), the heap,
+    anonymous memory (malloc's arenas, host tensors, the driver's own) and
+    the rest (stack, vdso); ``total`` is their sum; ``files`` the MB of
+    each file that holds at least 20 MB."""
+    out = dict.fromkeys([g for g, _ in RSS_GROUPS]
+                        + ["other_files", "heap", "anonymous", "other"], 0.0)
+    files = {}
+    group, name = "other", ""
+    with open(f"/proc/{pid}/smaps") as f:
+        for line in f:
+            head = line.split(None, 5)
+            if len(head) >= 5 and "-" in head[0] and not head[0].endswith(":"):
+                name = head[5].strip() if len(head) > 5 else ""
+                group = next((g for g, keys in RSS_GROUPS if any(k in name for k in keys)),
+                             None) or ("heap" if name == "[heap]" else
+                                       "anonymous" if not name or name.startswith("[anon")
+                                       else "other" if name.startswith("[")
+                                       else "other_files")
+            elif line.startswith("Rss:"):
+                mb = int(line.split()[1]) / 1024.0
+                out[group] += mb
+                if name.startswith("/"):
+                    files[os.path.basename(name)] = files.get(os.path.basename(name), 0.0) + mb
+    out["total"] = sum(out.values())
+    out["files"] = {k: v for k, v in sorted(files.items(), key=lambda kv: -kv[1]) if v >= 20}
+    return out
+
+
+def graphs_match_eager(engine, rng, tol: float) -> dict:
+    """(a) Every effective bucket of every replica is a graph, and at each
+    bucket the replayed probabilities on inputs the capture never saw are
+    within ``tol`` of the eager forward's (``_dispatch_eager``) on the
+    same inputs. Returns the max abs err per bucket."""
+    size = engine.model.config.image_size
+    buckets = engine._effective_buckets()
+    shape = {b: len(gs) for b, gs in (engine._graphs or {}).items()}
+    require(shape == {b: len(engine.replicas) for b in buckets},
+            f"{engine.dtype} engine: graphs per bucket {shape}, buckets {buckets}")
+    errs = {}
+    for b in buckets:
+        pixels = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+        qs = [HTTP_QUESTIONS[i % 5] for i in range(b)]
+        got, _ = engine.dispatch_probs_from_pixels(pixels, qs)
+        want, _ = engine._dispatch_eager(pixels, qs)
+        errs[b] = max_err(got, want)
+    log(f"phase 15 (a): {engine.dtype} engine, replay vs eager at buckets {tuple(errs)}: "
+        + ", ".join(f"{b}: {e:.3e}" for b, e in errs.items()) + f" (tol {tol:.1e})")
+    require(max(errs.values()) <= tol, f"{engine.dtype} replay vs eager: {errs}")
+    return errs
+
+
+def chunks_do_not_alias(engine, rng) -> float:
+    """(b) 70 requests through ``predict_probs_from_pixels`` (three chunks,
+    all dispatched before the first is fetched) against each chunk
+    dispatched and fetched alone."""
+    size = engine.model.config.image_size
+    pixels = rng.integers(0, 256, (ALIAS_ROWS, size, size, 3), dtype=np.uint8)
+    qs = [HTTP_QUESTIONS[i % 5] for i in range(ALIAS_ROWS)]
+    got = engine.predict_probs_from_pixels(pixels, qs)
+    alone = np.concatenate([engine.predict_probs_from_pixels(pixels[i:i + BUCKET],
+                                                             qs[i:i + BUCKET])
+                            for i in range(0, ALIAS_ROWS, BUCKET)])
+    err = float(np.abs(got - alone).max())
+    distinct = len({int(r.argmax()) for r in got}) > 1 or float(np.ptp(got[:, 0])) > 0
+    log(f"phase 15 (b): {engine.dtype} engine, {ALIAS_ROWS} requests in one call vs its "
+        f"chunks alone: max err {err:.3e}; rows distinct: {distinct}")
+    require(err <= 1e-6 and distinct, f"chunked dispatches alias: err {err:.3e}")
+    return err
+
+
+def launches_per_replay(torch, engine) -> dict:
+    """(c) One dispatch at each effective bucket: the forms of the engine's
+    dtype launched 1, 4 and 2 times per replayed forward, the others not."""
+    from vqa_tpu_torch import ops
+
+    size = engine.model.config.image_size
+    buckets = engine._effective_buckets()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b in buckets:
+        engine.dispatch_probs_from_pixels(np.zeros((b, size, size, 3), np.uint8),
+                                          ["what is this"] * b)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    suffix = "_bf16" if engine.dtype == torch.bfloat16 else ""
+    want = {**dict.fromkeys(launches, 0),
+            **{k + suffix: per * len(buckets) for k, per in
+               (("stem", 1), ("se", 4), ("cross_attention", 2))}}
+    log(f"phase 15 (c): {engine.dtype} engine, {len(buckets)} replayed forwards: launches "
+        f"{launches}")
+    require(launches == want, f"launches per replay: {launches}, want {want}")
+    return launches
+
+
+def eager_vs_graph(torch, engine, rng, rounds: int = TIMING_ROUNDS) -> dict:
+    """(d) The eager forward (``_dispatch_eager``) and the graphs, in turns
+    (eager first in even rounds, the graph first in odd ones): bucket-1
+    latency through ``predict_probs_from_pixels`` (p50/p90 of each round's
+    calls and of all of them), bucket-32 pairs/s, the host ms of one
+    bucket-32 dispatch issued with the card idle, and the card's busy share
+    of a profiled window of bucket-32 calls (device time over wall time,
+    with its device ms per call). Each metric is kept per round: its spread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    size = engine.model.config.image_size
+    p1 = rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+    p32 = rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)
+    q1, q32 = HTTP_QUESTIONS[:1], [HTTP_QUESTIONS[i % 5] for i in range(BUCKET)]
+
+    def mode(name):
+        return (mock.patch.object(engine, "dispatch_probs_from_pixels", engine._dispatch_eager)
+                if name == "eager" else contextlib.nullcontext())
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    keys = ("b1_ms", "b1_p50_ms", "b1_p90_ms", "pairs_per_s_b32", "dispatch_host_ms_b32",
+            "busy_share_b32", "device_ms_b32")
+    res = {m: {k: [] for k in keys} for m in ("eager", "graph")}
+    for m in res:
+        with mode(m):
+            for _ in range(3):
+                engine.predict_probs_from_pixels(p1, q1)
+                engine.predict_probs_from_pixels(p32, q32)
+    for r in range(rounds):
+        for m in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            out = res[m]
+            with mode(m):
+                b1 = sorted(timed(lambda: engine.predict_probs_from_pixels(p1, q1), B1_CALLS))
+                out["b1_ms"] += b1
+                out["b1_p50_ms"].append(statistics.median(b1))
+                out["b1_p90_ms"].append(b1[int(0.9 * (len(b1) - 1))])
+                b32 = timed(lambda: engine.predict_probs_from_pixels(p32, q32), B32_CALLS)
+                out["pairs_per_s_b32"].append(1e3 * BUCKET * B32_CALLS / sum(b32))
+                host = []
+                for _ in range(DISPATCH_CALLS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine.dispatch_probs_from_pixels(p32, q32)
+                    host.append(1e3 * (time.perf_counter() - t0))
+                    torch.cuda.synchronize()
+                out["dispatch_host_ms_b32"].append(statistics.median(host))
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(B32_CALLS):
+                        engine.predict_probs_from_pixels(p32, q32)
+                    wall = time.perf_counter() - t0
+                busy_us = sum(e.self_device_time_total for e in device_events(prof))
+                out["busy_share_b32"].append(busy_us / 1e6 / wall)
+                out["device_ms_b32"].append(busy_us / 1e3 / B32_CALLS)
+    summary = {}
+    for m, out in res.items():
+        b1 = sorted(out.pop("b1_ms"))
+        summary[m] = dict(b1_p50_ms_all=statistics.median(b1),
+                          b1_p90_ms_all=b1[int(0.9 * (len(b1) - 1))], b1_calls=len(b1),
+                          rounds=out, **{k: statistics.median(v) for k, v in out.items()})
+    for k in keys[1:]:
+        e, g = res["eager"][k], res["graph"][k]
+        log(f"phase 15 (d): {engine.dtype} {k}: eager {statistics.median(e):.4g} "
+            f"[{min(e):.4g}-{max(e):.4g}], graph {statistics.median(g):.4g} "
+            f"[{min(g):.4g}-{max(g):.4g}] (median [range] of {rounds} rounds)")
+    log(f"phase 15 (d): {engine.dtype} bucket 1 over all {summary['graph']['b1_calls']} calls: "
+        f"eager p50 {summary['eager']['b1_p50_ms_all']:.3f} ms p90 "
+        f"{summary['eager']['b1_p90_ms_all']:.3f}, graph p50 "
+        f"{summary['graph']['b1_p50_ms_all']:.3f} p90 {summary['graph']['b1_p90_ms_all']:.3f}")
+    require(all(v > 0 for v in res["graph"]["busy_share_b32"]),
+            "a profiled window of graph replays saw no device time")
+    return summary
+
+
+def roofline_floor(timing: dict) -> dict:
+    """(f) The roofline floor of one bucket-32 forward (tools/roofline.py at
+    the H100's peaks) beside the graphed forward's device ms from (d)."""
+    from vqa_tpu_torch.tools import roofline
+
+    out = {}
+    for dtype, t in timing.items():
+        floor = roofline.forward_floor_ms(BUCKET, dtype)
+        device_ms = t["graph"]["device_ms_b32"]
+        out[dtype] = dict(floor, graph_device_ms=device_ms,
+                          share_of_floor=floor["overlap_ms"] / device_ms)
+        log(f"phase 15 (f): {dtype} bucket-{BUCKET} forward: roofline floor "
+            f"{floor['overlap_ms']:.4f} ms ({floor['bound_by']}; additive "
+            f"{floor['additive_ms']:.4f}; {floor['flops'] / 1e9:.1f} GFLOP, "
+            f"{floor['bytes'] / 1e6:.1f} MB) against the graphed forward's "
+            f"{device_ms:.4f} ms on the device ({100 * floor['overlap_ms'] / device_ms:.1f}%)")
+    return out
+
+
+def worker_rss_stages(torch, args) -> dict:
+    """(g) A full-width bf16 engine built step by step in a process of its
+    own, as a server worker builds it: RSS and its split by mapping after
+    the imports, the CUDA context, the model on the card (its graphs not yet
+    captured), one eager forward per bucket (cuDNN's and cuBLAS's first
+    use), the graphs, the warmup, and glibc's ``malloc_trim`` (the heap
+    freed but kept). PyTorch's pinned host allocator's byte counts beside
+    it."""
+    import ctypes
+
+    from vqa_tpu_torch.serving import server  # noqa: F401  (what a worker imports)
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.serving.supervisor import rss_mb
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    pid, stages = os.getpid(), {}
+
+    def mark(name):
+        stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+        stages[name] = dict(rss_mb=rss_mb(pid), split=rss_breakdown(pid),
+                            pinned={k: v for k, v in stats.items() if "bytes" in k})
+
+    mark("imports")
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    mark("cuda_context")
+    engine = VQAInference(model_config=ModelConfig(), device="cuda")
+    engine._graphed = False  # load the model alone first
+    engine.load()
+    torch.cuda.synchronize()
+    mark("model_on_card")
+    size = engine.model.config.image_size
+    for b in engine._effective_buckets():
+        engine._dispatch_eager(np.zeros((b, size, size, 3), np.uint8), ["what is this"] * b)
+    torch.cuda.synchronize()
+    mark("eager_forwards")
+    engine._graphed = True
+    engine._capture_graphs()
+    torch.cuda.synchronize()
+    mark("graphs_captured")
+    engine.warmup()
+    torch.cuda.synchronize()
+    mark("warmed")
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    mark("after_malloc_trim")
+    return stages
+
+
+def default_supervisor_idle(rng, tmp: str, idle_s: float = IDLE_S,
+                            worker_args=("--device", "cuda")) -> dict:
+    """(g) ``python -m vqa_tpu_torch.serving.supervisor`` with its default
+    bound over a full-width worker on the card (the default engine, bf16,
+    its graphs captured before the ready line): the worker's RSS at ready
+    and its split by mapping, then ``idle_s`` seconds idle after one
+    request, sampling its RSS: no ``recycle_start``. Meanwhile
+    ``worker_rss_stages`` runs in a process of its own. Then SIGTERM: exit
+    0, no worker left."""
+    import signal
+
+    from vqa_tpu_torch.serving.supervisor import DEFAULT_RECYCLE_RSS_MB, rss_mb
+
+    cmd = [sys.executable, "-m", "vqa_tpu_torch.serving.supervisor", "--host", "127.0.0.1",
+           "--port", "0", *worker_args]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    events, ready_seen = [], threading.Event()
+
+    def pump():
+        for line in proc.stdout:
+            log(f"  supervisor| {line.rstrip()}")
+            if line.startswith('{"supervisor"'):
+                events.append(json.loads(line))
+                if events[-1]["supervisor"] == "ready":
+                    ready_seen.set()
+
+    threading.Thread(target=pump, daemon=True).start()
+    stages_out = os.path.join(tmp, "rss_stages.json")
+    stages_proc = None
+    try:
+        require(ready_seen.wait(300), f"default supervisor: no ready event ({proc.poll()=})")
+        ready = next(e for e in events if e["supervisor"] == "ready")
+        pid, bound = ready["pid"], ready["recycle_rss_mb"]
+        require(bound == DEFAULT_RECYCLE_RSS_MB, f"ready event bound {bound}")
+        rss_ready, split = rss_mb(pid), rss_breakdown(pid)
+        img = image_bytes(rng, 224, 224, "JPEG")
+        body, ctype = multipart({"question": HTTP_QUESTIONS[0]}, [("image", "x.jpg", img)])
+        status, answer = http_request(ready["port"], "POST", "/predict", body,
+                                      {"Content-Type": ctype})
+        require(status == 200 and json.loads(answer)["success"], f"/predict: {status}")
+        stages_proc = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--worker", "rss_stages",
+             "--out", stages_out, "--tmp", tmp], cwd=REPO)
+        samples, t0 = [], time.monotonic()
+        while time.monotonic() - t0 < idle_s:
+            samples.append(rss_mb(pid))
+            time.sleep(1.0)
+        require(stages_proc.wait(timeout=300) == 0, "the rss_stages worker failed")
+    finally:
+        if stages_proc is not None and stages_proc.poll() is None:
+            stages_proc.kill()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    with open(stages_out) as f:
+        stages = json.load(f)
+    kinds = [e["supervisor"] for e in events]
+    spawned = [e["pid"] for e in events if e["supervisor"] == "spawn"]
+    time.sleep(0.5)
+    left = [p for p in spawned if proc_alive(p)]
+    log(f"phase 15 (g): default-flag supervisor (bound {bound:.0f} MB), worker {pid} ready at "
+        f"{rss_ready:.1f} MB RSS; idle {idle_s:.0f} s after one request: RSS {min(samples):.1f}-"
+        f"{max(samples):.1f} MB; events {kinds}; exit {rc}; workers left {left}")
+    log("phase 15 (g): worker RSS at ready by mapping, MB: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items() if k != "files"))
+    for name, st in stages.items():
+        log(f"phase 15 (g): a bf16 engine built step by step, after {name}: RSS "
+            f"{st['rss_mb']:.1f} MB (pinned host allocator {st['pinned']}); "
+            + ", ".join(f"{k} {v:.1f}" for k, v in st["split"].items() if k != "files"))
+    log(f"phase 15 (g): files of at least 20 MB in the ready worker's RSS, MB: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split["files"].items()))
+    require("recycle_start" not in kinds, f"the default bound recycled an idle worker: {kinds}")
+    require(max(samples) < bound, f"worker RSS {max(samples):.1f} MB over the bound {bound}")
+    require(rc == 0 and not left, f"supervisor exit {rc}, workers left {left}")
+    return dict(bound_mb=bound, rss_mb_ready=rss_ready, rss_mb_idle_max=max(samples),
+                rss_split_ready=split, events=kinds, exit_code=rc, stages=stages)
+
+
+def drive_graphs(torch, rng, multi_device: dict, tmp: str) -> dict:
+    """Phase 15: (a)-(d) on a full-width f32 and a bf16 engine, (e) phase
+    13 (c)'s two graphed replicas, (f) the roofline floor, (g) the default
+    supervisor; each part's seconds logged."""
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import ModelConfig
+
+    t_start = time.perf_counter()
+    out, timing = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        t0 = time.perf_counter()
+        engine = VQAInference(model_config=ModelConfig(), device="cuda", dtype=dtype).load()
+        load_s = time.perf_counter() - t0
+        # bf16: phase 11 (b)'s rule, twice the bucket spread and at least 1e-4
+        tol = GRAPH_TOL if name == "f32" else max(GRAPH_TOL, 2 * max(
+            bucket_spread(engine, rng).values()))
+        out[name] = dict(load_and_capture_s=load_s, tol=tol,
+                         replay_vs_eager=graphs_match_eager(engine, rng, tol),
+                         alias_err=chunks_do_not_alias(engine, rng),
+                         launches_per_replay=launches_per_replay(torch, engine))
+        timing[name] = eager_vs_graph(torch, engine, rng)
+        log(f"phase 15 ({name}): load with capture {load_s:.1f} s; (a)-(d) "
+            f"{time.perf_counter() - t0:.1f} s")
+        del engine
+        torch.cuda.empty_cache()
+    out["timing"] = timing
+    replicas = multi_device["replicas"]
+    require(replicas.get("graphs_per_bucket") == 2, "phase 13 (c)'s replicas were not graphed")
+    out["replicas"] = {k: replicas[k] for k in ("err_n1", f"err_n{BUCKET}")}
+    log(f"phase 15 (e): phase 13 (c)'s two replicas on cuda:0, each replaying its own graphs, "
+        f"against one: max err {out['replicas']} (tol {REPLICA_TOL})")
+    out["roofline"] = roofline_floor(timing)
+    t0 = time.perf_counter()
+    out["supervisor"] = default_supervisor_idle(rng, tmp)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase 15: (g) {time.perf_counter() - t0:.1f} s; {out['seconds']:.1f} s in all")
+    return out
+
+
 def _free_port() -> int:
     import socket
 
@@ -3050,11 +3466,12 @@ def _free_port() -> int:
 
 
 WORKERS = {"nccl_world_one": worker_nccl_world_one, "gloo_two_ranks": worker_gloo_two_ranks,
-           "nccl_one_card": worker_nccl_one_card}
+           "nccl_one_card": worker_nccl_one_card, "rss_stages": worker_rss_stages}
 
 
 def run_worker(args) -> int:
-    """One rank of phase 13 (``--worker``): its result as JSON in ``--out``."""
+    """One rank of phase 13, or phase 15 (g)'s step-by-step engine
+    (``--worker``): its result as JSON in ``--out``."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -3073,7 +3490,7 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true",
                    help="add a torch.profiler breakdown of the bucket-32 forward")
     p.add_argument("--seed", type=int, default=0)
-    # one rank of phase 13, started by the script itself
+    # one rank of phase 13 or phase 15 (g)'s engine, started by the script itself
     p.add_argument("--worker", choices=sorted(WORKERS), help=argparse.SUPPRESS)
     for flag in ("--rank", "--world", "--port"):
         p.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
@@ -3174,6 +3591,9 @@ def main(argv=None) -> int:
         kernels[name]["launches_tools"] = tool_launches[name]
     log(f"phase 14: {time.perf_counter() - t0:.1f} s; chip_smoke so far "
         f"{time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs.") as tmp:
+        graphs = drive_graphs(torch, rng, multi_device, tmp)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {
         "params": n_params, "build_s": build_s,
@@ -3188,6 +3608,7 @@ def main(argv=None) -> int:
     log(json.dumps({"bf16_training": bf16_training}))
     log(json.dumps({"multi_device": multi_device}))
     log(json.dumps({"tools": tools}))
+    log(json.dumps({"graphs": graphs}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools")

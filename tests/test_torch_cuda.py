@@ -702,3 +702,87 @@ def test_cbam_and_self_attention_2d_on_the_card_match_the_cpu(cuda):
     assert all(r["max_abs_err"] <= chip_smoke.MODULE_TOL for r in out.values())
     assert launches == {"stem": 0, "se": 2, "cross_attention": 0, "stem_bf16": 0,
                         "se_bf16": 2, "cross_attention_bf16": 0}
+
+
+# ---- the engine's CUDA graphs ------------------------------------------------
+
+
+def _graphed_engine(cuda, dtype, mesh=None):
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    engine = VQAInference(model_config=tiny_model_config(), device=cuda, seed=3, dtype=dtype,
+                          mesh=mesh).load()
+    assert sorted(engine._graphs) == engine._effective_buckets()
+    return engine
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_engine_graphs_replay_the_eager_forward(cuda, dtype):
+    """chip_smoke.py phase 15 (a) at the tiny width: at every bucket the
+    replayed probabilities against the eager forward on the same new
+    inputs, f32 within 1e-4, bf16 within twice the bucket spread (at least
+    1e-4)."""
+    import chip_smoke
+
+    engine = _graphed_engine(cuda, dtype)
+    rng = np.random.default_rng(0)
+    tol = chip_smoke.GRAPH_TOL
+    if dtype == torch.bfloat16:
+        tol = max(tol, 2 * max(chip_smoke.bucket_spread(engine, rng).values()))
+    errs = chip_smoke.graphs_match_eager(engine, rng, tol)
+    assert sorted(errs) == engine._effective_buckets()
+
+
+def test_engine_graph_chunks_do_not_alias(cuda):
+    """Phase 15 (b): 70 requests in one call (three chunks, all dispatched
+    before any is fetched) equal each chunk dispatched alone."""
+    import chip_smoke
+
+    engine = _graphed_engine(cuda, torch.float32)
+    assert chip_smoke.chunks_do_not_alias(engine, np.random.default_rng(1)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_engine_graph_replays_count_their_launches(cuda, dtype):
+    """Phase 15 (c): each replayed forward adds the dtype's forms 1, 4 and
+    2 times (recorded at capture), the capture itself none."""
+    import chip_smoke
+
+    before = ops.launch_counts()
+    engine = _graphed_engine(cuda, dtype)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    graphs_per_replica = {k: g[0].launches for k, g in engine._graphs.items()}
+    assert all(v == {"stem" + suffix: 1, "se" + suffix: 4, "cross_attention" + suffix: 2}
+               for v in graphs_per_replica.values())
+    # load counted the capture's eager warm forwards and not the capture
+    from vqa_tpu_torch.serving import graphs
+
+    loaded = {k: ops.launch_counts()[k] - before[k] for k in before}
+    assert loaded["se" + suffix] == 4 * graphs.WARM_FORWARDS * len(engine._graphs)
+    chip_smoke.launches_per_replay(torch, engine)
+
+
+def test_two_graphed_replicas_on_one_card_match_one(cuda):
+    """Phase 13 (c) at the tiny width: two replicas on cuda:0, each with
+    graphs of its own, within 1e-4 of one replica at n = 1 (bucket 2) and
+    32, each dispatch replaying both replicas' graphs."""
+    from vqa_tpu_torch.parallel import mesh_from_config
+    from vqa_tpu_torch.utils.config import MeshConfig
+
+    mesh = mesh_from_config(MeshConfig(data_parallel=2), devices=[cuda, cuda])
+    one = _graphed_engine(cuda, torch.float32)
+    two = _graphed_engine(cuda, torch.float32, mesh=mesh)
+    assert all(len(gs) == 2 for gs in two._graphs.values())
+    assert len({g.output.data_ptr() for gs in two._graphs.values() for g in gs}) == 8
+    rng = np.random.default_rng(8)
+    for n in (1, 32):
+        pixels = rng.integers(0, 256, (n, 64, 64, 3), np.uint8)
+        questions = ["what color is the cat", "is this a man"] * (n // 2) or ["what is this"]
+        want = one.predict_probs_from_pixels(pixels, questions[:n])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = two.predict_probs_from_pixels(pixels, questions[:n])
+        assert np.abs(got - want).max() <= 1e-4
+        assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem": 2, "se": 8,
+                                       "cross_attention": 4}

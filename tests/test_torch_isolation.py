@@ -136,3 +136,30 @@ def test_the_resampler_and_the_tools_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_engine_graphs_and_the_roofline_import_no_jax():
+    """``serving/graphs.py`` and ``tools/roofline.py``, each alone in a
+    fresh interpreter; the roofline imports no torch either (counts only),
+    and the package walk reaches both."""
+    modules = ["vqa_tpu_torch.serving.graphs", "vqa_tpu_torch.tools.roofline"]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vqa_tpu_torch.tools.roofline\n"
+        "assert 'torch' not in sys.modules, 'the roofline imported torch'\n"
+        "import vqa_tpu_torch\n"
+        f"wanted = {modules!r}\n"
+        "for name in wanted:\n"
+        "    importlib.import_module(name)\n"
+        "walked = {m.name for m in pkgutil.walk_packages(vqa_tpu_torch.__path__, "
+        "'vqa_tpu_torch.')}\n"
+        "assert set(wanted) <= walked, set(wanted) - walked\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

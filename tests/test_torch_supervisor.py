@@ -23,7 +23,15 @@ import sys
 import time
 import urllib.request
 
-from vqa_tpu_torch.serving.supervisor import READY_MARKER, Worker, _pick_port, rss_mb
+import pytest
+
+from vqa_tpu_torch.serving.supervisor import (
+    DEFAULT_RECYCLE_RSS_MB,
+    READY_MARKER,
+    Worker,
+    _pick_port,
+    rss_mb,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUPERVISOR = [sys.executable, "-m", "vqa_tpu_torch.serving.supervisor"]
@@ -351,3 +359,62 @@ def test_importing_the_supervisor_pulls_in_no_torch():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
+
+
+# The most a full-width bf16 worker on the H100 read at ready and idle, its
+# graphs captured (chip_smoke.py phase 15 (g): 6,148.7-6,167.8 MB), and the
+# growth of the 2,000-request soak on the card (phase 14 (d): +460.2 MB).
+WORKER_READY_RSS_MB = 6167.8
+SOAK_GROWTH_MB = 460.2
+
+
+@pytest.mark.parametrize("rss,recycles", [
+    (WORKER_READY_RSS_MB, False),
+    (WORKER_READY_RSS_MB + SOAK_GROWTH_MB, False),
+    (DEFAULT_RECYCLE_RSS_MB + 1.0, True),
+], ids=["ready", "ready+soak_growth", "over_the_bound"])
+def test_default_bound_leaves_a_full_width_worker_alone(rss, recycles):
+    """A supervisor with the default bound over a fake worker whose RSS
+    reads ``rss`` (the supervisor's RSS reader replaced in its process):
+    idle through 20 checks, it begins no recycle at the ready figure or
+    after the soak's growth, and begins one just over the bound."""
+    fake = f"print({READY_MARKER + 'http://x:1'!r}, flush=True); import time; time.sleep(300)"
+    code = ("import sys\n"
+            "import vqa_tpu_torch.serving.supervisor as s\n"
+            f"s.rss_mb = lambda pid: {rss!r}\n"
+            "sys.exit(s.main(sys.argv[1:]))\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--port", "0", "--check-interval", "0.1",
+         "--ready-timeout", "60", "--worker-cmd", f"{sys.executable} -u -c \"{fake}\""],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    events = []
+    try:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not any(
+                e["supervisor"] == "ready" for e in events):
+            line = proc.stdout.readline()
+            if line.startswith("{"):
+                events.append(json.loads(line))
+        time.sleep(2.0)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    events += [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    kinds = [e["supervisor"] for e in events]
+    ready = [e for e in events if e["supervisor"] == "ready"]
+    assert ready and ready[0]["recycle_rss_mb"] == DEFAULT_RECYCLE_RSS_MB, kinds
+    assert ("recycle_start" in kinds) is recycles, kinds
+    assert proc.returncode == 0
+
+
+def test_default_bound_is_the_documented_figure():
+    """The default, the usage line and the README give one figure, above a
+    full-width worker's ready RSS plus the soak's growth."""
+    import vqa_tpu_torch.serving.supervisor as sup
+
+    figure = f"--recycle-rss-mb {DEFAULT_RECYCLE_RSS_MB:.0f}"
+    assert figure in sup.__doc__
+    with open(os.path.join(REPO, "README.md"), encoding="utf-8") as f:
+        readme = f.read()
+    assert readme.count("--recycle-rss-mb") == readme.count(figure) >= 1
+    assert DEFAULT_RECYCLE_RSS_MB > WORKER_READY_RSS_MB + SOAK_GROWTH_MB

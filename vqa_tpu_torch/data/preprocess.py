@@ -18,6 +18,7 @@ its thread pool. Without it PIL resizes, to the same bytes.
 
 from __future__ import annotations
 
+import functools
 import io
 from typing import Sequence, Tuple, Union
 
@@ -214,12 +215,22 @@ def device_augment(pixels_u8: torch.Tensor, generator: torch.Generator,
     return apply_augment(pixels_u8, draws, image_size)
 
 
+@functools.lru_cache(maxsize=None)
+def _normalize_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet mean and 1/std on ``device``, copied there once: a CUDA
+    graph capture may not copy from host memory (the serving engine
+    captures ``device_normalize``). Made outside inference mode, so that
+    autograd may read them too."""
+    with torch.inference_mode(False):
+        return (torch.as_tensor(IMAGENET_MEAN, device=device),
+                torch.as_tensor(1.0 / IMAGENET_STD, device=device))
+
+
 def device_normalize(pixels_uint8: torch.Tensor) -> torch.Tensor:
     """uint8 [..., 3] → normalized f32 on the tensor's device, computed as
     the JAX twin does: (x·(1/255) − mean)·(1/std)."""
     x = pixels_uint8.to(torch.float32) * (1.0 / 255.0)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    std_inv = torch.as_tensor(1.0 / IMAGENET_STD, device=x.device)
+    mean, std_inv = _normalize_constants(x.device)
     return (x - mean) * std_inv
 
 

@@ -5,9 +5,12 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (``fused_stem.launches``, ``fused_stem_bf16.launches`` …), under one lock, since kernels launch from
 several threads; ``launch_counts`` reads them and ``reset_launch_counts``
 zeroes them, so a run can show which kernels the main path went through.
+A CUDA graph's replay launches kernels without calling a wrapper, so the
+serving engine adds the launches it recorded at capture on every replay
+(``add_launch_counts``).
 """
 
-from vqa_tpu_torch.ops._build import reset_launches
+from vqa_tpu_torch.ops._build import add_launches, reset_launches
 from vqa_tpu_torch.ops.cross_attention_kernel import (  # noqa: F401
     fused_cross_attention,
     fused_cross_attention_bf16,
@@ -30,6 +33,11 @@ KERNELS = {
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({name: launches}, names of ``KERNELS``) to the counters."""
+    add_launches((KERNELS[name], n) for name, n in counts.items())
 
 
 def reset_launch_counts() -> None:

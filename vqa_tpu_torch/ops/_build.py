@@ -196,6 +196,14 @@ def count_launch(fn) -> None:
         fn.launches += 1
 
 
+def add_launches(counts) -> None:
+    """Add ``n`` to ``fn.launches`` for each (fn, n) in ``counts``: the
+    kernels a replayed CUDA graph launches, which no wrapper counts."""
+    with _count_lock:
+        for fn, n in counts:
+            fn.launches += n
+
+
 def reset_launches(fns) -> None:
     with _count_lock:
         for fn in fns:

@@ -13,6 +13,17 @@ placeholders — and the same request mechanics:
   ``dispatch_probs_from_pixels`` returns before the card finishes; /255
   and ImageNet normalize run on the card.
 
+On the card the forward is one CUDA graph per batch bucket and replica,
+the counterpart of the JAX engine's one compiled program per bucket
+(``serving/graphs.py``): ``load`` captures them, after eager warm
+forwards of each bucket, so ``warmup`` (and the server's preload) ends
+with every bucket captured and replayed once. Every dispatch then copies
+its padded inputs into the bucket's static buffers, replays, and returns
+a copy of the static probabilities. A failed capture raises, and so does
+a dispatch for a bucket without a graph: nothing falls back to the eager
+forward. On the CPU the engine runs eagerly. ``attention_map`` is eager
+everywhere, as the JAX one is.
+
 Weights, in the JAX engine's order (its own checkpoint, a ``.pth``, a
 random model): the port's checkpoint ``checkpoint_dir/<name>.pt`` with its
 sidecar (``training/checkpoint.py``; the model rebuilt from the sidecar's
@@ -66,6 +77,7 @@ from vqa_tpu_torch.models.vqa_model import (
     create_vqa_model,
     resolve_device,
 )
+from vqa_tpu_torch.serving import graphs
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
 from vqa_tpu_torch.utils.config import InferenceConfig, ModelConfig
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
@@ -83,6 +95,15 @@ _REFERENCE_CONFIG_KEYS = (
     "num_attention_heads", "ffn_hidden_dim", "max_question_length",
     "num_cross_layers", "use_gating", "dropout", "answer_dropout",
 )
+
+
+def forward_probs(model: VQAModel, pixels: torch.Tensor, ids: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels, token ids and mask on the model's device → answer
+    probabilities: normalize → forward → softmax, the function each CUDA
+    graph of the engine holds."""
+    logits, _ = model(device_normalize(pixels), ids.long(), mask)
+    return torch.softmax(logits, dim=-1)
 
 
 def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAModel:
@@ -132,9 +153,18 @@ class VQAInference:
         self.answer_vocab: Optional[AnswerVocabulary] = None
         self.model_loaded_from_checkpoint = False
         self._lock = threading.Lock()
+        # on the card: {bucket: one graph per replica}, captured by load;
+        # one lock over every replay (graphs.BucketGraph.run)
+        self._graphed = self.device.type == "cuda"
+        self._graphs: Optional[Dict[int, List[graphs.BucketGraph]]] = None
+        self._replay_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def load(self) -> "VQAInference":
+        """Build or read the model, tokenizer and answer vocab, then, on
+        the card, capture the forward of every effective bucket on every
+        replica (raises if a capture fails)."""
+        self._graphs = None
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -185,6 +215,8 @@ class VQAInference:
             self.answer_vocab.answer2idx = {f"answer_{i}": i for i in range(mcfg.num_answers)}
             self.answer_vocab.idx2answer = {i: f"answer_{i}" for i in range(mcfg.num_answers)}
             self.answer_vocab._is_built = True
+        if self._graphed:
+            self._capture_graphs()
         return self
 
     def _ensure_loaded(self):
@@ -193,9 +225,32 @@ class VQAInference:
                 if self.model is None:
                     self.load()
 
+    def _capture_graphs(self) -> None:
+        """One graph per effective bucket on each replica, each replica's
+        graphs in one memory pool (``graphs.capture_replica``)."""
+        size = self.model.config.image_size
+        captured: Dict[int, List[graphs.BucketGraph]] = {}
+        buckets = self._effective_buckets()
+        for model, device in zip(self.replicas, self.devices):
+            inputs = {}
+            for b in buckets:
+                rows = b // len(self.replicas)
+                ids, mask = self.tokenizer.encode_batch_np(["warm up question"] * rows)
+                inputs[b] = [torch.zeros((rows, size, size, 3), dtype=torch.uint8, device=device),
+                             torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)]
+            with torch.inference_mode():
+                graphed = graphs.capture_replica(
+                    lambda *t, model=model: forward_probs(model, *t), inputs)
+            for b in buckets:
+                captured.setdefault(b, []).append(graphed[b])
+        self._graphs = captured
+        print(f"[Inference] captured a CUDA graph per bucket {tuple(buckets)} on each of "
+              f"{len(self.replicas)} replica(s)")
+
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
-        """Run the full ``predict_batch_raw`` path once per batch bucket, so
-        the first real request pays no kernel build or first-launch cost."""
+        """Load (on the card: capture) and run the full ``predict_batch_raw``
+        path once per batch bucket, so the first real request pays no
+        kernel build, capture or first-launch cost."""
         self._ensure_loaded()
         size = self.model.config.image_size
         img = np.zeros((size, size, 3), np.uint8)
@@ -226,40 +281,43 @@ class VQAInference:
             f"batch {n} exceeds the largest bucket {buckets[-1]}; "
             "caller must chunk (predict_probs_from_pixels does)")
 
-    def _to_device(self, pixels: np.ndarray, ids: np.ndarray, mask: np.ndarray,
-                   device: Optional[torch.device] = None):
-        """Host arrays → tensors on the device without waiting on the card.
+    def _stage(self, device: torch.device, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host arrays → host tensors that a copy to ``device`` reads
+        without waiting on the card.
 
         A copy from pageable memory would block the host until the stream's
         earlier work (the previous forward) finishes; a copy from pinned
         memory is queued. Each array is copied into a block from PyTorch's
         pinned host allocator, which keeps the block until the copy's event
-        has passed, so it may go out of scope here. (``Tensor.pin_memory()``
-        would first ask the CUDA runtime whether the numpy memory is pinned,
-        a slow query for memory it did not allocate.)"""
-        device = device or self.device
-        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in (pixels, ids, mask)]
+        has passed, so it may go out of scope once the copy is queued.
+        (``Tensor.pin_memory()`` would first ask the CUDA runtime whether
+        the numpy memory is pinned, a slow query for memory it did not
+        allocate.) For the CPU the arrays' own memory."""
+        tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         if device.type == "cpu":
             return tensors
         out = []
         for t in tensors:
             staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             staged.copy_(t)
-            out.append(staged.to(device, non_blocking=True))
+            out.append(staged)
         return out
+
+    def _to_device(self, pixels: np.ndarray, ids: np.ndarray, mask: np.ndarray,
+                   device: Optional[torch.device] = None):
+        """Host arrays → tensors on the device without waiting on the card."""
+        device = device or self.device
+        return [t.to(device, non_blocking=True)
+                for t in self._stage(device, pixels, ids, mask)]
 
     def _preprocess_images(self, images: Sequence[ImageInput]) -> np.ndarray:
         """Decode and resize → [N, S, S, 3] u8 (what the micro-batcher calls)."""
         self._ensure_loaded()
         return resize_batch_to_uint8(images, self.model.config.image_size)
 
-    @torch.inference_mode()
-    def dispatch_probs_from_pixels(self, pixels: np.ndarray, questions):
-        """Pad to a bucket and launch the forward: returns the padded
-        probabilities on the device (not yet fetched) and n, without
-        waiting on the card, so the caller can prepare the next batch while
-        this one runs. n must fit the largest bucket."""
-        self._ensure_loaded()
+    def _padded(self, pixels: np.ndarray, questions):
+        """(pixels, ids, mask) padded to the bucket by repeating the first
+        row, n and the bucket. n must fit the largest bucket."""
         n = len(questions)
         bucket = self._bucket(n)
         ids, mask = self.tokenizer.encode_batch_np(list(questions))
@@ -268,18 +326,55 @@ class VQAInference:
             pixels = np.concatenate([pixels, np.repeat(pixels[:1], pad, 0)])
             ids = np.concatenate([ids, np.repeat(ids[:1], pad, 0)])
             mask = np.concatenate([mask, np.repeat(mask[:1], pad, 0)])
+        return (pixels, ids, mask), n, bucket
+
+    def _gather(self, probs: List[torch.Tensor]) -> torch.Tensor:
+        """Every replica is launched; gather on the first one's device."""
+        if len(probs) == 1:
+            return probs[0]
+        return torch.cat([p.to(self.device, non_blocking=True) for p in probs])
+
+    @torch.inference_mode()
+    def dispatch_probs_from_pixels(self, pixels: np.ndarray, questions):
+        """Pad to a bucket and launch the forward: returns the padded
+        probabilities on the device (not yet fetched) and n, without
+        waiting on the card, so the caller can prepare the next batch while
+        this one runs. n must fit the largest bucket.
+
+        On the card each replica stages its rows in pinned memory, copies
+        them into its bucket graph's static inputs, replays the graph and
+        copies the static output out, so every dispatch returns a tensor of
+        its own, however many are in flight."""
+        self._ensure_loaded()
+        if not self._graphed:
+            return self._dispatch_eager(pixels, questions)
+        arrays, n, bucket = self._padded(pixels, questions)
+        bucket_graphs = (self._graphs or {}).get(bucket)
+        if bucket_graphs is None:
+            raise RuntimeError(
+                f"no CUDA graph for bucket {bucket} (captured: {sorted(self._graphs or {})}); "
+                "load captures every effective bucket")
+        per = bucket // len(bucket_graphs)
+        staged = [self._stage(d, *(a[i * per:(i + 1) * per] for a in arrays))
+                  for i, d in enumerate(self.devices)]
+        with self._replay_lock:
+            probs = [g.run(s) for g, s in zip(bucket_graphs, staged)]
+        return self._gather(probs), n
+
+    @torch.inference_mode()
+    def _dispatch_eager(self, pixels: np.ndarray, questions):
+        """``dispatch_probs_from_pixels`` through the eager forward: the
+        CPU's path, and on the card the yardstick the graphs are timed and
+        checked against (no request takes it there)."""
+        self._ensure_loaded()
+        arrays, n, bucket = self._padded(pixels, questions)
         per = bucket // len(self.replicas)
         probs = []
         for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
-            rows = slice(i * per, (i + 1) * per)
-            pixels_t, ids_t, mask_t = self._to_device(pixels[rows], ids[rows], mask[rows],
-                                                      device=device)
-            logits, _ = model(device_normalize(pixels_t), ids_t.long(), mask_t)
-            probs.append(torch.softmax(logits, dim=-1))
-        if len(probs) == 1:
-            return probs[0], n
-        # every replica is launched; gather on the first one's device
-        return torch.cat([p.to(self.device, non_blocking=True) for p in probs]), n
+            tensors = self._to_device(*(a[i * per:(i + 1) * per] for a in arrays),
+                                      device=device)
+            probs.append(forward_probs(model, *tensors))
+        return self._gather(probs), n
 
     def predict_probs_from_pixels(self, pixels: np.ndarray,
                                   questions: Sequence[str]) -> np.ndarray:

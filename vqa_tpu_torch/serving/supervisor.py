@@ -27,9 +27,17 @@ is the point. Workers are separate processes started with ``subprocess``
 warmups spend the same ``--max-restarts`` budget as worker deaths, as in
 the JAX package.
 
+The default bound, ``DEFAULT_RECYCLE_RSS_MB`` (8192 MB), is not the JAX
+package's 2048: a full-width bf16 port worker on the H100 is ready at
+~6.1-6.2 GB of RSS, where the JAX worker starts at ~0.5 GB. Most of it is
+not the worker's own: ``import torch`` maps CUDA libraries worth ~4.6 GB
+of RSS before any CUDA call, and cuDNN's image and the libraries' first
+use add ~1.3 GB. Below that figure every worker would be recycled at its
+first check, forever.
+
 Usage:
     python -m vqa_tpu_torch.serving.supervisor --port 8000 \
-        --recycle-rss-mb 4096 [--tiny] [--checkpoint-dir D] [--device cuda]
+        --recycle-rss-mb 8192 [--tiny] [--checkpoint-dir D] [--device cuda]
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ import threading
 import time
 
 READY_MARKER = "[API] serving on "
+# above a full-width worker's ready RSS on the card, with room for growth
+DEFAULT_RECYCLE_RSS_MB = 8192.0
 # how long Worker.stop waits for the pump to echo an exited child's last lines
 PUMP_JOIN_S = 5.0
 
@@ -140,7 +150,7 @@ def main(argv=None) -> int:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000,
                    help="0 picks a free port (printed in the ready event)")
-    p.add_argument("--recycle-rss-mb", type=float, default=2048.0,
+    p.add_argument("--recycle-rss-mb", type=float, default=DEFAULT_RECYCLE_RSS_MB,
                    help="recycle the worker when its RSS crosses this")
     p.add_argument("--check-interval", type=float, default=1.0)
     p.add_argument("--ready-timeout", type=float, default=900.0,
