@@ -177,7 +177,36 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     RSS at ready split by mapping, 30 s idle with no ``recycle_start``,
     exit 0 and no worker left, while a worker of this script
     (``--worker rss_stages``) builds a bf16 engine step by step and reads
-    its RSS after each step.
+    its RSS after each step;
+16. the trainer's and the evaluator's CUDA graphs (one per batch shape for
+    each train step, device augmentation, validation and evaluation
+    forward, ``training/step_graph.py``: every Trainer of phases 10-14
+    above that trained on the card over NCCL or alone was graphed, the gloo
+    ranks of phase 13 (b) eager by the stated rule) and the ablation
+    runner, at full width: (a) five steps at B = 32 from the same weights,
+    batches and dropout generator, eagerly and graphed (two eager warm
+    steps, the capture's replay, two more), deterministic cuDNN, for f32,
+    bf16, ``grad_accum`` 2 and remat stages and full: the losses, the
+    clipped gradients and their norm, the parameters and BN's statistics
+    within 1e-6 (f32) or ``compare_bf16_steps``'s bound (bf16), the
+    generator's state before each step equal; two replays on one batch at
+    learning rate 0 with other losses (fresh dropout masks per replay);
+    phase 13 (a)'s rank: five f32 steps graphed on the NCCL world-of-one
+    mesh within the plain steps' run-to-run difference; (b) eager and graph
+    in turns on one model, four rounds, bf16 and f32 at B = 32 and 256: ms
+    per step, host ms per step, pairs/s, the card's busy share, peak memory
+    of the eager steps and of the capture and the graph pool's size; the
+    data pipeline's host ms per batch (``prefetch_to_device`` over the
+    synthetic loader); (c) a bf16 Trainer's augment graph bit-equal to the
+    eager augmentation, its validation graph after a trained epoch equal to
+    the eager validation of the same weights and launching the bf16 forms
+    1, 4 and 2 times per replay, the graphed evaluator's top-1 equal to the
+    trainer's; (d) phase 12 (b)'s 12-epoch run: every train step and
+    validation forward after the two warm ones a replay; (e)
+    ``tools/run_ablation.py`` cut to 3 epochs on spatial corpora of 600/150
+    scenes, three variants trained and evaluated in subprocesses on the
+    card (each training logging its graphs), the table written, then the
+    same call again running nothing.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -203,7 +232,7 @@ each form's launches over phase 12 (b)'s validation forwards, and
 ``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
 (rank 0) and replicas, and ``launches_tools``, over phase 14's CBAMBlock
 calls, faithfulness and visualization forwards and the in-process soak's
-engine), and before that the ``graphs``, ``tools``, ``multi_device``,
+engine), and before that the ``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
 ``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
 phase, supervisor) and ``engine`` lines.
 """
@@ -1265,14 +1294,21 @@ def drive_train_cli(torch, tmp: str, extra=(), argv=None, form: str = "") -> tup
     seen = {"trainer": None, "epochs": []}
     train_epoch, validate = train_mod.Trainer.train_epoch, train_mod.Trainer.validate
 
+    def replays(graphed):
+        """Replays so far of a graphed call (None where it runs eagerly)."""
+        return getattr(getattr(graphed, "calls", graphed), "replays", None)
+
     def counted_train_epoch(self, epoch):
         seen["trainer"] = self
         ops.reset_launch_counts()
+        before = replays(self.train_step)
         t0 = time.perf_counter()
         out = train_epoch(self, epoch)
         seen["epochs"].append(dict(epoch=epoch, train_launches=ops.launch_counts(),
                                    train_steps=len(self.train_loader),
                                    train_s=time.perf_counter() - t0,
+                                   train_replays=(None if before is None else
+                                                  replays(self.train_step) - before),
                                    backend=(torch.distributed.get_backend()
                                             if torch.distributed.is_initialized() else None),
                                    world=train_mod.distributed.process_count()))
@@ -1280,11 +1316,14 @@ def drive_train_cli(torch, tmp: str, extra=(), argv=None, form: str = "") -> tup
 
     def counted_validate(self):
         ops.reset_launch_counts()
+        before = replays(self.val_step)
         t0 = time.perf_counter()
         out = validate(self)
         seen["epochs"][-1].update(val_launches=ops.launch_counts(),
                                   val_forwards=len(self.val_loader),
                                   val_s=time.perf_counter() - t0,
+                                  val_replays=(None if before is None else
+                                               replays(self.val_step) - before),
                                   val_top1=out["val_top1"], val_top5=out["val_top5"])
         return out
 
@@ -1301,9 +1340,10 @@ def drive_train_cli(torch, tmp: str, extra=(), argv=None, form: str = "") -> tup
     other = "_bf16" if not form else ""
     for e in seen["epochs"]:
         log(f"train CLI epoch {e['epoch']}: {e['train_steps']} train steps in "
-            f"{e['train_s']:.1f} s launched {e['train_launches']}; {e['val_forwards']} "
-            f"validation forwards in {e['val_s']:.1f} s launched {e['val_launches']}; val "
-            f"top-1 {e['val_top1']:.4f}, top-5 {e['val_top5']:.4f}")
+            f"{e['train_s']:.1f} s ({e['train_replays']} graph replays) launched "
+            f"{e['train_launches']}; {e['val_forwards']} validation forwards in "
+            f"{e['val_s']:.1f} s ({e['val_replays']} graph replays) launched "
+            f"{e['val_launches']}; val top-1 {e['val_top1']:.4f}, top-5 {e['val_top5']:.4f}")
         require(all(v == 0 for v in e["train_launches"].values()),
                 f"kernels launched during train steps: {e['train_launches']}")
         for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
@@ -1548,7 +1588,7 @@ def compare_bf16_steps(torch, runs, lr: float) -> dict:
         out[kind] = dict(cpu_noise=m_cpu, card_noise=m_card, n_past_bound=len(past), worst=[
             dict(name=n, err=e, cpu_noise=z, share_of_bound=f) for f, n, e, z in shares[:4]])
     card_params = dict(runs["card16"][0].named_parameters())
-    param_err = max(float((card_params[n].detach().cpu() - p.detach()).abs().max())
+    param_err = max(float((card_params[n].detach().cpu() - p.detach().cpu()).abs().max())
                     for n, p in runs["cpu16"][0].named_parameters())
     if param_err > 2 * lr + 1e-6:
         failures.append(f"parameters off by {param_err:.3e} > 2·lr")
@@ -2346,13 +2386,15 @@ def worker_nccl_world_one(torch, args) -> dict:
     require(dist.get_backend() == "nccl" and mesh.data_group is not None, "no NCCL group")
     cfg = ModelConfig()
     step = mesh_step_equals_plain(torch, cfg, device, mesh)
+    graph_step = mesh_graph_equals_plain(torch, cfg, device, mesh)  # phase 16 (a)
     # plain, mesh, mesh, plain in this process (the step is host-bound)
     timing = {}
     for name in ("plain", "mesh", "mesh", "plain"):
         t = train_timing(torch, cfg, device, 256, dtype=torch.bfloat16,
                          mesh=mesh if name == "mesh" else None)
         timing.setdefault(name, []).append(t)
-    return dict(backend=dist.get_backend(), cli=cli, step=step, timing=timing)
+    return dict(backend=dist.get_backend(), cli=cli, step=step, graph_step=graph_step,
+                timing=timing)
 
 
 def _sharded_forward(torch, cfg, device, mesh, arrays, seed: int):
@@ -3457,6 +3499,468 @@ def drive_graphs(torch, rng, multi_device: dict, tmp: str) -> dict:
     return out
 
 
+# ---- phase 16: the trainer's and the evaluator's CUDA graphs, the ablation runner
+#
+# On the card every Trainer step, device augmentation and validation forward,
+# and every evaluation forward, is the replay of one CUDA graph per batch
+# shape (training/step_graph.py); the eager step stays as the yardstick.
+# (a) holds the graph to the eager step from the same state with
+# deterministic cuDNN, so that what differs is the graph alone.
+
+GRAPH_STEPS = 5           # (a): two eager warm steps, the capture's replay, two more replays
+GRAPH_BATCH = 32
+GRAPH_CASES = {           # (a): name → (model dtype, grad_accum, remat)
+    "f32": ("f32", 1, "none"), "bf16": ("bf16", 1, "none"), "f32_accum2": ("f32", 2, "none"),
+    "f32_remat_stages": ("f32", 1, "stages"), "f32_remat_full": ("f32", 1, "full")}
+STEP_TIMING_STEPS = {32: 10, 256: 6}  # (b): steps per side and round
+PIPELINE_BATCHES = 6      # (b): batches timed through prefetch_to_device
+VAL_GRAPH_BATCH = 32      # (c): four validation batches of the 640-sample synthetic split
+ABLATION_ARGV = ("--epochs", "3", "--num-images", "600", "--val-num-images", "150",
+                 "--seeds", "42")  # (e): the JAX script's corpora cut from 2,500/500 scenes
+
+
+def train_runs(torch, cfg, device, batches, dtype=None, graphed=False, grad_accum=1,
+               remat="none", mesh=None, lr=1e-4, seed=16) -> dict:
+    """``len(batches)`` train steps from seeded weights and a seeded dropout
+    generator, with deterministic cuDNN, through the eager step or
+    ``GraphedTrainStep``: the model, its TrainState and step, the loss of
+    each step and the card's generator state before each step."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.models.vqa_model import shard_model
+    from vqa_tpu_torch.training.step_graph import GraphedTrainStep
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    model = create_vqa_model(config=cfg, device=device, seed=seed,
+                             dtype=dtype or torch.float32)
+    if mesh is not None:
+        shard_model(model, mesh)
+    state = TrainState.create(
+        model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
+    step = make_train_step(model, grad_accum=grad_accum, remat=remat)
+    if graphed:
+        step = GraphedTrainStep(step, state)
+    torch.manual_seed(21)
+    losses, rng = [], []
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+        for b in batches:
+            rng.append(torch.cuda.get_rng_state(device))
+            losses.append(float(step(state, *b)["loss"]))
+    return dict(model=model, state=state, step=step, losses=losses, rng=rng)
+
+
+def _grad_norm(model) -> float:
+    return math.sqrt(sum(float((p.grad.double() ** 2).sum())
+                         for p in model.parameters() if p.grad is not None))
+
+
+def compare_runs(torch, got, want) -> dict:
+    """Largest differences of ``got`` from ``want`` (runs of ``train_runs``):
+    per-step losses, the clipped gradients' norm after the last step,
+    parameters, clipped gradients and BN's running statistics."""
+    a, b = got["model"], want["model"]
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    ba, bb = dict(a.named_buffers()), dict(b.named_buffers())
+    bn = [k for k in bb if k.endswith(("running_mean", "running_var"))]
+    return dict(
+        loss=max(abs(x - y) for x, y in zip(got["losses"], want["losses"])),
+        grad_norm=abs(_grad_norm(a) - _grad_norm(b)),
+        param=max(_max_diff(pa[n], p) for n, p in pb.items()),
+        grad=max(_max_diff(pa[n].grad, p.grad) for n, p in pb.items() if p.grad is not None),
+        bn=max(_max_diff(ba[k], bb[k]) for k in bn),
+        rng_equal=all(torch.equal(x, y) for x, y in zip(got["rng"], want["rng"])))
+
+
+def graph_batches(torch, cfg, device, batch: int = GRAPH_BATCH, steps: int = GRAPH_STEPS):
+    return [[torch.from_numpy(a).to(device) for a in synthetic_batch(cfg, batch, seed=30 + i)]
+            for i in range(steps)]
+
+
+def fresh_masks(torch, run, batch) -> dict:
+    """Two replays of a graphed run on one batch with the learning rate at 0
+    (the weights stay; BN's running statistics do not enter a training
+    forward): their losses differ only if the dropout masks do."""
+    state = run["state"]
+    state.schedule = lambda step: 0.0
+    before = [p.detach().clone() for p in run["model"].parameters()]
+    replays = run["step"].calls.replays
+    losses = [float(run["step"](state, *batch)["loss"]) for _ in range(2)]
+    moved = max(_max_diff(p, q) for p, q in zip(run["model"].parameters(), before))
+    require(run["step"].calls.replays == replays + 2, "the two steps were not replays")
+    require(moved == 0.0, f"weights moved by {moved:.3e} at learning rate 0")
+    require(losses[0] != losses[1], f"two replays drew the same dropout masks: {losses}")
+    return dict(losses=losses)
+
+
+def graph_vs_eager(torch, cfg, device) -> dict:
+    """(a) Each of GRAPH_CASES, eagerly and graphed, from the same weights,
+    batches and dropout generator: every case within REMAT_TOL (the same
+    kernels on the same state, so bf16 too), and bf16 also within
+    ``compare_bf16_steps``'s bound (its f32 runs the f32 case's); the
+    graphed run's generator state before each step equal to the eager
+    run's; then two replays at learning rate 0 draw other masks."""
+    from vqa_tpu_torch.utils.graphs import WARM_FORWARDS
+
+    batches = graph_batches(torch, cfg, device)
+    out, runs = {}, {}
+    for name, (dtype, accum, remat) in GRAPH_CASES.items():
+        kw = dict(dtype=torch.bfloat16 if dtype == "bf16" else torch.float32,
+                  grad_accum=accum, remat=remat)
+        t0 = time.perf_counter()
+        eager = train_runs(torch, cfg, device, batches, **kw)
+        graph = train_runs(torch, cfg, device, batches, graphed=True, **kw)
+        calls = graph["step"].calls
+        require((calls.eager_calls, calls.replays) == (WARM_FORWARDS, GRAPH_STEPS - WARM_FORWARDS),
+                f"{name}: {calls.eager_calls} eager steps, {calls.replays} replays")
+        r = compare_runs(torch, graph, eager)
+        r["seconds"] = time.perf_counter() - t0
+        require(r["rng_equal"], f"{name}: the graphed run's generator states differ")
+        for k in ("loss", "grad_norm", "param", "grad", "bn"):
+            require(r[k] <= REMAT_TOL, f"{name}: graph vs eager {k} off by {r[k]:.3e}")
+        log(f"phase 16 (a) {name}: {GRAPH_STEPS} steps at B={GRAPH_BATCH} ({WARM_FORWARDS} "
+            f"eager, then the capture's replay and {GRAPH_STEPS - WARM_FORWARDS - 1} more), "
+            f"graph vs eager: loss {r['loss']:.3e}, clipped-gradient norm {r['grad_norm']:.3e}, "
+            f"parameters {r['param']:.3e}, gradients {r['grad']:.3e}, BN {r['bn']:.3e} "
+            f"(tol {REMAT_TOL}); losses {[round(x, 6) for x in graph['losses']]}; {r['seconds']:.1f} s")
+        out[name] = r
+        if name in ("f32", "bf16"):
+            runs[name] = (eager, graph)
+        else:
+            del eager, graph
+    (e32, g32), (e16, g16) = runs["f32"], runs["bf16"]
+    b = compare_bf16_steps(torch, {k: (run["model"], {"loss": run["losses"][-1]}) for k, run in (
+        ("cpu32", e32), ("cpu16", e16), ("card32", g32), ("card16", g16))}, lr=1e-4)
+    log(f"phase 16 (a) bf16 graph vs eager by compare_bf16_steps (eager f32/bf16 in the CPU's "
+        f"place): loss err {b['loss_err']:.3e} (noise {b['loss_noise']:.3e}); gradient tensors "
+        f"past the bound {b['grad']['n_past_bound']}, BN {b['bn']['n_past_bound']}; params "
+        f"{b['param_err']:.3e}")
+    require(not b["failures"], "bf16 graph vs eager: " + "; ".join(b["failures"][:5]))
+    out["bf16"]["bound"] = {k: b[k] for k in ("loss_err", "loss_noise", "param_err")}
+    out["fresh_masks"] = fresh_masks(torch, g32, batches[0])
+    log(f"phase 16 (a): two f32 replays on one batch at learning rate 0: losses "
+        f"{out['fresh_masks']['losses']} (fresh dropout masks per replay)")
+    del runs, e32, g32, e16, g16
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_graph_equals_plain(torch, cfg, device, mesh) -> dict:
+    """(a) GRAPH_STEPS f32 steps through ``GraphedTrainStep`` on the NCCL
+    world-of-one mesh (the gradient all_reduce inside the graph) against
+    the plain eager steps, deterministic cuDNN: every tensor within the
+    plain run's own run-to-run difference."""
+    batches = graph_batches(torch, cfg, device)
+    plain = train_runs(torch, cfg, device, batches)
+    again = train_runs(torch, cfg, device, batches)
+    graph = train_runs(torch, cfg, device, batches, graphed=True, mesh=mesh)
+    got, noise = compare_runs(torch, graph, plain), compare_runs(torch, again, plain)
+    past = [k for k in ("loss", "param", "grad", "bn") if got[k] > noise[k]]
+    log(f"phase 16 (a): {GRAPH_STEPS} f32 steps graphed on the NCCL world-of-one mesh vs "
+        f"plain: {', '.join(f'{k} {got[k]:.3e}' for k in ('loss', 'param', 'grad', 'bn'))} "
+        f"(run-to-run {', '.join(f'{k} {noise[k]:.3e}' for k in ('loss', 'param', 'grad', 'bn'))}"
+        f"); replays {graph['step'].calls.replays}")
+    require(not past, f"graphed mesh step vs plain: {past} past the run-to-run difference")
+    return dict(diff={k: got[k] for k in ("loss", "param", "grad", "bn")},
+                noise={k: noise[k] for k in ("loss", "param", "grad", "bn")},
+                replays=graph["step"].calls.replays)
+
+
+def _spread(values) -> dict:
+    return dict(median=statistics.median(values), min=min(values), max=max(values))
+
+
+def step_timing(torch, cfg, device, batch: int, dtype, rounds: int = TIMING_ROUNDS) -> dict:
+    """(b) One model and TrainState stepped by the eager step and by its
+    graph in turns (the order flipped each round): ms per step (CUDA events
+    over STEP_TIMING_STEPS[batch] steps), host ms per step (the dispatch
+    loop's wall time before the sync), train pairs/s; the card's busy ms
+    per step from a profiled window of 5 steps per side, and its share of
+    the median ms per step (a window's own wall time would count the
+    profiler's start); peak memory of the eager warm steps and of the
+    capture, and the graph pool's size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.step_graph import GraphedTrainStep
+    from vqa_tpu_torch.training.train import TrainState, make_train_step
+    from vqa_tpu_torch.utils.config import TrainingConfig
+    from vqa_tpu_torch.utils.graphs import WARM_FORWARDS
+
+    rng = np.random.default_rng(batch)
+    size, L = cfg.image_size, cfg.max_question_length
+    args = [torch.from_numpy(a).to(device) for a in (
+        rng.standard_normal((batch, size, size, 3)).astype(np.float32),
+        rng.integers(4, cfg.vocab_size, (batch, L)).astype(np.int32),
+        np.ones((batch, L), np.int32),
+        rng.integers(0, cfg.num_answers, batch).astype(np.int32))]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    model = create_vqa_model(config=cfg, device=device, seed=13, dtype=dtype)
+    state = TrainState.create(model, TrainingConfig(warmup_epochs=0), 100)
+    sides = {"eager": make_train_step(model)}
+    sides["graph"] = GraphedTrainStep(sides["eager"], state)
+    for _ in range(WARM_FORWARDS):  # the graph's warm steps run the eager step
+        sides["graph"](state, *args)
+    torch.cuda.synchronize(device)
+    eager_peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    sides["graph"](state, *args)  # the capture and its replay
+    torch.cuda.synchronize(device)
+    graph_peak = torch.cuda.max_memory_allocated(device)
+    pool = torch.cuda.memory_reserved(device) - reserved
+    n = STEP_TIMING_STEPS[batch]
+    per = {k: {"step_ms": [], "host_ms": []} for k in sides}
+    for r in range(rounds):
+        for name in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            fn = sides[name]
+            fn(state, *args)
+            torch.cuda.synchronize(device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                m = fn(state, *args)
+            host_ms = (time.perf_counter() - t0) * 1e3 / n
+            end.record()
+            end.synchronize()
+            per[name]["step_ms"].append(start.elapsed_time(end) / n)
+            per[name]["host_ms"].append(host_ms)
+    require(math.isfinite(float(m["loss"])), "non-finite loss in the timed steps")
+    out = dict(batch=batch, dtype=str(dtype).replace("torch.", ""), steps_per_round=n,
+               rounds=rounds, eager_peak_bytes=eager_peak, capture_peak_bytes=graph_peak,
+               graph_pool_bytes=pool)
+    window = 5
+    for name, fn in sides.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(window):
+                fn(state, *args)
+            torch.cuda.synchronize(device)
+        busy_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / window
+        step = _spread(per[name]["step_ms"])
+        out[name] = dict(step_ms=step, host_ms=_spread(per[name]["host_ms"]),
+                         pairs_per_s=batch / step["median"] * 1e3,
+                         device_busy_ms_per_step=busy_ms,
+                         device_busy_share=busy_ms / step["median"],
+                         step_ms_rounds=per[name]["step_ms"], host_ms_rounds=per[name]["host_ms"])
+    require(sides["graph"].calls.replays > rounds * n, "the graph side did not replay")
+    e, g = out["eager"], out["graph"]
+    log(f"phase 16 (b) {out['dtype']} B={batch}, eager / graph, median of {rounds} rounds "
+        f"[min, max]: ms per step {e['step_ms']['median']:.3f} [{e['step_ms']['min']:.3f}, "
+        f"{e['step_ms']['max']:.3f}] / {g['step_ms']['median']:.3f} [{g['step_ms']['min']:.3f}, "
+        f"{g['step_ms']['max']:.3f}]; host ms per step {e['host_ms']['median']:.3f} / "
+        f"{g['host_ms']['median']:.3f}; pairs/s {e['pairs_per_s']:.1f} / {g['pairs_per_s']:.1f}; "
+        f"card busy {e['device_busy_ms_per_step']:.3f} / {g['device_busy_ms_per_step']:.3f} ms "
+        f"per step, {100 * e['device_busy_share']:.1f}% / {100 * g['device_busy_share']:.1f}%; "
+        f"peak memory eager {eager_peak / 2**30:.2f} GiB, capture {graph_peak / 2**30:.2f} GiB, "
+        f"graph pool {pool / 2**30:.2f} GiB")
+    del model, state, sides, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_host_ms(torch, device, batch: int, batches: int = PIPELINE_BATCHES,
+                     image_size: int = 224) -> dict:
+    """(b) Host ms per batch of ``prefetch_to_device`` over the synthetic
+    train loader as the 12-epoch run builds it (uint8 scenes for device
+    augmentation, 4 decode threads), with nothing else running: the time
+    between yielded batches after the first."""
+    from vqa_tpu_torch.data.pipeline import prefetch_to_device
+    from vqa_tpu_torch.data.synthetic import create_synthetic_loaders
+
+    samples = math.ceil((batches + 1) * batch / 0.8) + 1
+    loader, _, _, _ = create_synthetic_loaders(
+        num_samples=samples, batch_size=batch, eval_batch_size=batch, image_size=image_size,
+        max_question_length=20, device_augment=True, seed=5, num_workers=4)
+    it = prefetch_to_device(loader, device)
+    next(it)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    log(f"phase 16 (b): data pipeline at B={batch}: {ms:.3f} host ms per batch over {n} "
+        f"batches (synthetic scenes, uint8, 4 threads, prefetch_to_device)")
+    return dict(batch=batch, batches=n, host_ms_per_batch=ms)
+
+
+def trainer_graphs(torch, device) -> dict:
+    """(c) A full-width bf16 Trainer on the synthetic split: the augment
+    graph bit-equal to the eager augmentation from the same seeds; the
+    validation graph, captured after epoch 0, after epoch 1 equal to the
+    eager validation of epoch 1's weights, launching the bf16 forms 1, 4
+    and 2 times per replayed forward; the evaluator's graphed top-1 equal
+    to the trainer's."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.data.preprocess import device_augment
+    from vqa_tpu_torch.data.synthetic import create_synthetic_loaders
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.evaluate import Evaluator
+    from vqa_tpu_torch.training.train import Trainer, _augment_seed, make_val_step
+    from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
+    from vqa_tpu_torch.utils.graphs import WARM_FORWARDS
+
+    base = ModelConfig()
+    size = base.image_size
+    train_loader, val_loader, tok, vocab = create_synthetic_loaders(
+        num_samples=640, batch_size=64, eval_batch_size=VAL_GRAPH_BATCH, image_size=size,
+        max_question_length=base.max_question_length, device_augment=True, seed=3,
+        num_workers=4)
+    cfg = ModelConfig(vocab_size=tok.vocab_size, num_answers=vocab.num_answers)
+    model = create_vqa_model(config=cfg, device=device, seed=17, dtype=torch.bfloat16)
+    trainer = Trainer(model, train_loader, val_loader, config=TrainingConfig(
+        num_epochs=2, warmup_epochs=0), save_checkpoints=False, seed=3)
+    pixels = torch.from_numpy(next(iter(train_loader))["image"]).to(device)
+    equal = []
+    for step in range(WARM_FORWARDS + 3):
+        got = trainer.augment(pixels, 0, step)
+        gen = torch.Generator(device=device).manual_seed(_augment_seed(trainer.seed, 0, step))
+        equal.append(bool(torch.equal(got, device_augment(pixels, gen, image_size=size))))
+    aug_replays = trainer._augment.replays
+    require(all(equal) and aug_replays == 3,
+            f"augment graph vs eager: bit-equal {equal}, {aug_replays} replays")
+    trainer.train_epoch(0)
+    first = trainer.validate()
+    trainer.train_epoch(1)
+    ops.reset_launch_counts()
+    replays = trainer.val_step.replays
+    graphed = trainer.validate()
+    launches = ops.launch_counts()
+    forwards = len(val_loader)
+    require(trainer.val_step.replays - replays == forwards, "validation forwards not replayed")
+    for name, per in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(launches[name + "_bf16"] == per * forwards and launches[name] == 0,
+                f"validation graph launches {launches} in {forwards} replays")
+    with mock.patch.object(trainer, "val_step", make_val_step(
+            model, num_types=len(trainer.val_type_vocab or ()))):
+        eager = trainer.validate()
+    loss_err = abs(graphed["val_loss"] - eager["val_loss"])
+    log(f"phase 16 (c): augment graph bit-equal to eager over {len(equal)} seeds "
+        f"({aug_replays} replays); validation after epoch 1 (the graph captured "
+        f"after epoch 0): graph loss {graphed['val_loss']:.7f} top-1 {graphed['val_top1']:.4f}, "
+        f"eager {eager['val_loss']:.7f} / {eager['val_top1']:.4f} (epoch 0: "
+        f"{first['val_loss']:.7f}); launches over {forwards} replays {launches}")
+    require(loss_err <= 1e-6 * max(1.0, abs(eager["val_loss"]))
+            and graphed["val_top1"] == eager["val_top1"]
+            and graphed["val_top5"] == eager["val_top5"],
+            f"validation graph vs eager: loss off by {loss_err:.3e}")
+    require(graphed["val_loss"] != first["val_loss"], "validation did not see epoch 1's weights")
+    ev = Evaluator(model)
+    res = ev.evaluate(val_loader)
+    log(f"phase 16 (c): evaluator top-1 {res['top1_accuracy']:.4f} over {res['num_samples']} "
+        f"samples ({ev._eval_step.replays} graph replays), the trainer's {graphed['val_top1']:.4f}")
+    require(res["top1_accuracy"] == graphed["val_top1"] and ev._eval_step.replays > 0,
+            "the evaluator's graphed top-1 differs from the trainer's")
+    out = dict(augment_bit_equal=len(equal), val_loss_graph=graphed["val_loss"],
+               val_loss_eager=eager["val_loss"], val_loss_err=loss_err,
+               val_top1=graphed["val_top1"], val_launches=launches, val_forwards=forwards,
+               evaluator_top1=res["top1_accuracy"], evaluator_replays=ev._eval_step.replays)
+    del trainer, model, ev
+    torch.cuda.empty_cache()
+    return out
+
+
+def ablation_on_card(torch, tmp: str, extra=()) -> dict:
+    """(e) ``tools/run_ablation.py`` cut (ABLATION_ARGV): corpora, then three
+    variants trained and evaluated in subprocesses on the card, the table
+    written; then the same call again, which must run nothing. ``extra``
+    flags go to the runner (``--device cpu`` rehearses it, with the runner's
+    ``sh`` wrapped to give the train commands ``--tiny``)."""
+    from vqa_tpu_torch.tools import run_ablation
+
+    out_path, log_path = os.path.join(tmp, "ABLATION.json"), os.path.join(tmp, "ablation.log")
+    argv = [*ABLATION_ARGV, "--train-corpus", os.path.join(tmp, "train"),
+            "--val-corpus", os.path.join(tmp, "val"), "--checkpoint-root",
+            os.path.join(tmp, "checkpoints"), "--out", out_path, "--log", log_path, *extra]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        run_ablation.main(argv)
+    except SystemExit:
+        with open(log_path, errors="replace") as f:
+            log("ablation log, last lines:\n" + "".join(f.readlines()[-40:]))
+        raise
+    first_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        table = json.load(f)
+    with open(log_path, errors="replace") as f:
+        graphed = f.read().count("train steps and device augmentation: one CUDA graph per")
+    calls = []
+    t0 = time.perf_counter()
+    with mock.patch.object(run_ablation, "sh", lambda cmd, log=None: calls.append(cmd)):
+        run_ablation.main(argv)
+    rerun_s = time.perf_counter() - t0
+    variants = table["variants"]
+    require(set(variants) == {"full", "no_spatial", "no_attention"}
+            and all(v["n_seeds"] == 1 for v in variants.values()),
+            f"ablation table: {sorted(variants)}")
+    require(graphed == 3, f"{graphed} of the 3 training runs logged CUDA graphs")
+    require(not calls, f"the rerun ran {len(calls)} subprocesses")
+    for name, v in variants.items():
+        cell = v["per_seed"]["42"]
+        log(f"phase 16 (e): {name}: held-out top-1 {cell['heldout_top1']:.4f}, top-5 "
+            f"{cell['heldout_top5']:.4f}, soft {cell['vqa_soft_accuracy']:.4f} on "
+            f"{cell['num_samples']} questions, trained in {cell['train_wall_s']:.1f} s; per type "
+            + ", ".join(f"{k} {a:.3f}" for k, a in sorted(cell["per_type_accuracy"].items())))
+    log(f"phase 16 (e): the cut ablation in {first_s:.1f} s, its rerun in {rerun_s:.1f} s "
+        f"(nothing rerun)")
+    return dict(seconds=first_s, rerun_seconds=rerun_s, argv=list(ABLATION_ARGV),
+                heldout_top1={k: v["mean_heldout_top1"] for k, v in variants.items()},
+                table=table)
+
+
+def drive_train_graphs(torch, tmp: str, bf16_training: dict, multi_device: dict,
+                       device=None, extra=()) -> dict:
+    """Phase 16 at full width (``ModelConfig()``): (a) graph vs eager steps
+    and phase 13 (a)'s graphed NCCL world-of-one step, (b) paired timing and
+    the data pipeline, (c) augmentation, validation and evaluator graphs,
+    (d) phase 12 (b)'s 12-epoch run through the graphs, (e) the ablation
+    runner (``extra`` its flags); each part's seconds logged."""
+    from vqa_tpu_torch.utils.config import ModelConfig
+    from vqa_tpu_torch.utils.graphs import WARM_FORWARDS
+
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig()
+    out, seconds = {}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        seconds[name] = time.perf_counter() - t
+        log(f"phase 16 ({name}): {seconds[name]:.1f} s")
+        return result
+
+    out["graph_vs_eager"] = part("a", lambda: graph_vs_eager(torch, cfg, device))
+    out["nccl_world_one"] = multi_device["nccl_world_one"]["graph_step"]
+    out["timing"] = part("b", lambda: {
+        f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_{b}": step_timing(torch, cfg, device,
+                                                                            b, dtype)
+        for dtype in (torch.bfloat16, torch.float32) for b in TRAIN_BATCH_SIZES})
+    out["pipeline"] = {str(b): pipeline_host_ms(torch, device, b, image_size=cfg.image_size)
+                       for b in TRAIN_BATCH_SIZES}
+    out["trainer_graphs"] = part("c", lambda: trainer_graphs(torch, device))
+    syn = bf16_training["synthetic"]
+    steps = sum(e["train_steps"] for e in syn["epochs"])
+    replays = sum(e["train_replays"] for e in syn["epochs"])
+    val_replays = sum(e["val_replays"] for e in syn["epochs"])
+    forwards = sum(e["val_forwards"] for e in syn["epochs"])
+    log(f"phase 16 (d): phase 12 (b)'s 12-epoch bf16 run through the graphs: {replays} of "
+        f"{steps} train steps and {val_replays} of {forwards} validation forwards replayed; "
+        f"seconds per epoch {[round(e['train_s'] + e['val_s'], 1) for e in syn['epochs']]}; best "
+        f"val top-1 {syn['best_val_top1']:.4f} (at least {SYNTHETIC_MIN_TOP1})")
+    require(replays == steps - WARM_FORWARDS and val_replays == forwards - WARM_FORWARDS,
+            "the 12-epoch run did not go through the graphs")
+    out["synthetic"] = dict(train_replays=replays, train_steps=steps, val_replays=val_replays,
+                            val_forwards=forwards, best_val_top1=syn["best_val_top1"],
+                            epoch_seconds=[e["train_s"] + e["val_s"] for e in syn["epochs"]])
+    out["ablation"] = part("e", lambda: ablation_on_card(torch, tmp, extra))
+    out["phase_seconds"] = seconds
+    log("phase 16: " + ", ".join(f"({k}) {v:.1f} s" for k, v in seconds.items()))
+    return out
+
+
 def _free_port() -> int:
     import socket
 
@@ -3593,6 +4097,8 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs.") as tmp:
         graphs = drive_graphs(torch, rng, multi_device, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_graphs.") as tmp:
+        train_graphs = drive_train_graphs(torch, tmp, bf16_training, multi_device)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {
@@ -3609,6 +4115,7 @@ def main(argv=None) -> int:
     log(json.dumps({"multi_device": multi_device}))
     log(json.dumps({"tools": tools}))
     log(json.dumps({"graphs": graphs}))
+    log(json.dumps({"train_graphs": train_graphs}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools")

@@ -88,7 +88,8 @@ def test_cbam_block_eval_forward_on_the_cpu_computes_plain_se(monkeypatch):
 
 def test_modules_compute_in_bf16_from_their_own_copies():
     """Each module is the root of its own compute dtype: bf16 copies in eval
-    mode, dropped in training mode, remade on leaving it and on a load."""
+    mode, not read in training mode, refreshed in place on leaving it and on
+    a load."""
     x = torch.randn(2, 16, 5, 3).to(torch.bfloat16)
     for m in (CBAMBlock(16, reduction=4), SelfAttention2D(16, reduction=4)):
         m.eval().set_compute_dtype(torch.bfloat16)
@@ -97,13 +98,17 @@ def test_modules_compute_in_bf16_from_their_own_copies():
         with torch.no_grad():
             y = m(x)
         assert y.dtype == torch.bfloat16 and y.shape == x.shape and bool(torch.isfinite(y).all())
+        ptr = conv.compute_weight.data_ptr()
         m.train()
-        assert conv.compute_weight is None
+        # a training forward casts the f32 weight, differentiably
+        assert conv.compute("weight") is not conv.compute_weight
+        assert conv.compute("weight").requires_grad
         m.eval()
         with torch.no_grad():
             conv.weight.add_(1.0)
         m.load_state_dict(m.state_dict(), strict=True)
         torch.testing.assert_close(conv.compute_weight, conv.weight.to(torch.bfloat16))
+        assert conv.compute_weight.data_ptr() == ptr
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         CBAMBlock(16).set_compute_dtype(torch.float16)
 

@@ -240,15 +240,17 @@ def test_bf16_model_keeps_the_f32_state_dict_and_checkpoint(tmp_path):
     loaded.load_state_dict(other.state_dict())
     fc1 = loaded.text_encoder.layers[0].ffn.fc1
     assert torch.equal(fc1.compute_weight, other.text_encoder.layers[0].ffn.fc1.weight.to(BF16))
-    # training mode works and keeps the f32 parameters; it drops the bf16
-    # copies, which leaving it remakes
+    # training mode works and keeps the f32 parameters; it does not read the
+    # bf16 copies, which leaving it refreshes in place
+    ptr = fc1.compute_weight.data_ptr()
     loaded.train()
     assert loaded.training and loaded.dtype == BF16
     assert all(p.dtype == torch.float32 for p in loaded.parameters())
-    assert loaded.text_encoder.layers[0].ffn.fc1.compute_weight is None
+    assert fc1.compute("weight") is not fc1.compute_weight
     loaded.eval()
     assert torch.equal(loaded.text_encoder.layers[0].ffn.fc1.compute_weight,
                        other.text_encoder.layers[0].ffn.fc1.weight.to(BF16))
+    assert fc1.compute_weight.data_ptr() == ptr
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         m32.set_compute_dtype(torch.float16)
 

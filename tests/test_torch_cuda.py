@@ -786,3 +786,203 @@ def test_two_graphed_replicas_on_one_card_match_one(cuda):
         assert np.abs(got - want).max() <= 1e-4
         assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem": 2, "se": 8,
                                        "cross_attention": 4}
+
+
+# ---- the trainer's CUDA graphs -------------------------------------------------
+
+
+def _graph_batches(cfg, cuda, n=5, b=8):
+    return [[t.to(cuda) for t in _train_batch(cfg, b, 40 + i)] for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_graph_matches_the_eager_step(cuda, dtype):
+    """Five steps at tiny width from the same weights, batches and dropout
+    generator, eagerly and through one graph (two eager warm steps, the
+    capture's replay, two more), deterministic cuDNN: chip_smoke.py phase
+    16 (a)'s bounds: within 1e-6 (the same kernels on the same state),
+    and bf16 also by ``compare_bf16_steps`` against the two f32 runs; the
+    generator's state before each step equal."""
+    import chip_smoke
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    cfg = tiny_model_config()
+    batches = _graph_batches(cfg, cuda)
+    runs = {}
+    for name, dt in (("32", torch.float32), ("16", dtype)):
+        runs["eager" + name] = chip_smoke.train_runs(torch, cfg, cuda, batches, dtype=dt)
+        runs["graph" + name] = chip_smoke.train_runs(torch, cfg, cuda, batches, dtype=dt,
+                                                     graphed=True)
+    graph = runs["graph16"]
+    assert (graph["step"].calls.eager_calls, graph["step"].calls.replays) == (2, 3)
+    r = chip_smoke.compare_runs(torch, graph, runs["eager16"])
+    assert r["rng_equal"]
+    assert max(r[k] for k in ("loss", "grad_norm", "param", "grad", "bn")) <= 1e-6, r
+    if dtype == torch.bfloat16:
+        out = chip_smoke.compare_bf16_steps(torch, {k: (run["model"], {"loss": run["losses"][-1]})
+                                                    for k, run in (
+            ("cpu32", runs["eager32"]), ("cpu16", runs["eager16"]),
+            ("card32", runs["graph32"]), ("card16", graph))}, lr=1e-4)
+        assert not out["failures"], out["failures"]
+
+
+def test_train_graph_draws_fresh_dropout_masks_per_replay(cuda):
+    """Two replays on one batch at learning rate 0: the weights stay, the
+    losses differ (other dropout masks)."""
+    import chip_smoke
+    from vqa_tpu_torch.utils.config import tiny_model_config
+
+    cfg = tiny_model_config()
+    batches = _graph_batches(cfg, cuda)
+    run = chip_smoke.train_runs(torch, cfg, cuda, batches, graphed=True)
+    losses = chip_smoke.fresh_masks(torch, run, batches[0])["losses"]
+    assert losses[0] != losses[1]
+
+
+def test_train_graph_augment_is_bit_equal_to_eager(cuda):
+    """The augmentation graph, its generator seeded before each call, gives
+    the eager augmentation's pixels from the same seeds, bit for bit."""
+    from vqa_tpu_torch.data.preprocess import device_augment
+    from vqa_tpu_torch.utils.graphs import GraphedCalls
+
+    rng = np.random.default_rng(17)
+    pixels = torch.from_numpy(rng.integers(0, 256, (8, 96, 96, 3), dtype=np.uint8)).to(cuda)
+    gen = torch.Generator(device=cuda)
+    graphed = GraphedCalls(lambda px: device_augment(px, gen, image_size=64), generators=(gen,))
+    outs = []
+    for seed in range(6):
+        gen.manual_seed(seed)
+        got = graphed(pixels)
+        want = device_augment(pixels, torch.Generator(device=cuda).manual_seed(seed),
+                              image_size=64)
+        assert torch.equal(got, want), seed
+        outs.append(got)
+    assert graphed.replays == 4 and not torch.equal(outs[-1], outs[-2])
+
+
+def test_train_graph_validation_after_a_weight_change(cuda):
+    """A bf16 Trainer's validation graph, captured before an epoch of
+    training, gives the eager validation of the trained weights after it
+    (the bf16 copies it reads are refreshed in place), and launches the
+    bf16 forms 1, 4 and 2 times per replay."""
+    from vqa_tpu_torch.data.dataset import create_demo_loaders
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer, make_val_step
+    from vqa_tpu_torch.utils.config import TrainingConfig, tiny_model_config
+
+    cfg = tiny_model_config()
+    train_loader, val_loader = create_demo_loaders(
+        batch_size=4, eval_batch_size=4, num_samples=80, image_size=cfg.image_size,
+        max_question_length=cfg.max_question_length, vocab_size=cfg.vocab_size,
+        num_answers=cfg.num_answers)
+    model = create_vqa_model(config=cfg, device=cuda, seed=5, dtype=torch.bfloat16)
+    trainer = Trainer(model, train_loader, val_loader,
+                      config=TrainingConfig(warmup_epochs=0, num_epochs=1),
+                      save_checkpoints=False)
+    before = trainer.validate()
+    trainer.train_epoch(0)
+    ops.reset_launch_counts()
+    graphed = trainer.validate()
+    torch.cuda.synchronize()
+    n = len(val_loader)
+    assert trainer.val_step.replays == 2 * n - 2
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem_bf16": n,
+                                   "se_bf16": 4 * n, "cross_attention_bf16": 2 * n}
+    trainer.val_step = make_val_step(model, num_types=len(trainer.val_type_vocab or ()))
+    eager = trainer.validate()
+    assert graphed["val_loss"] == pytest.approx(eager["val_loss"], rel=1e-6, abs=1e-6)
+    assert graphed["val_top1"] == eager["val_top1"]
+    assert graphed["val_loss"] != before["val_loss"]
+
+
+def test_train_graph_resume_across_the_optimizer_forms(cuda, tmp_path):
+    """A checkpoint of the card's capturable AdamW resumes in the CPU's
+    plain AdamW and back: each keeps its own form (a rate tensor on the
+    card, a float on the CPU), the moments and step counts carry over, and
+    the card's next step after the round trip is the one it would have
+    taken."""
+    import dataclasses
+
+    from vqa_tpu_torch.data.dataset import create_demo_loaders
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import TrainingConfig, tiny_model_config
+
+    cfg = dataclasses.replace(tiny_model_config(), dropout=0.0, answer_dropout=0.0)
+
+    def trainer(where, ckpt):
+        loaders = create_demo_loaders(
+            batch_size=4, eval_batch_size=4, num_samples=40, image_size=cfg.image_size,
+            max_question_length=cfg.max_question_length, vocab_size=cfg.vocab_size,
+            num_answers=cfg.num_answers)
+        return Trainer(create_vqa_model(config=cfg, device=where, seed=5), *loaders,
+                       config=TrainingConfig(warmup_epochs=0, num_epochs=2),
+                       checkpoint_dir=str(ckpt), seed=5)
+
+    card = trainer(cuda, tmp_path / "card")
+    card.train_loader.set_epoch(0)
+    card.train_epoch(0)
+    card.save("latest", 0)
+    cpu = trainer("cpu", tmp_path / "card")
+    cpu.resume("latest")
+    group = cpu.state.optimizer.param_groups[0]
+    assert group["capturable"] is False and isinstance(group["lr"], float)
+    for p, q in zip(card.model.parameters(), cpu.model.parameters()):
+        a, b = card.state.optimizer.state[p], cpu.state.optimizer.state[q]
+        assert torch.equal(a["exp_avg"].cpu(), b["exp_avg"])
+        assert float(a["step"]) == float(b["step"]) and b["step"].device.type == "cpu"
+    cpu.checkpoint_dir = str(tmp_path / "cpu")
+    cpu.save("latest", 0)
+    back = trainer(cuda, tmp_path / "cpu")
+    lr = back.state.optimizer.param_groups[0]["lr"]
+    back.resume("latest")
+    group = back.state.optimizer.param_groups[0]
+    assert group["capturable"] is True and group["lr"] is lr and lr.device.type == "cuda"
+    assert all(st["step"].device.type == "cuda" for st in back.state.optimizer.state.values())
+    batch = [t.to(cuda) for t in _train_batch(cfg, 4, 19)]
+    losses = [float(t.train_step(t.state, *batch)["loss"]) for t in (card, back)]
+    assert losses[1] == pytest.approx(losses[0], abs=1e-5)
+    for a, b in zip(card.model.parameters(), back.model.parameters()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_train_graph_resume_after_the_capture(cuda, tmp_path):
+    """A resume after the step's graph was captured loads the checkpoint's
+    moments and counts into the tensors the graph reads: the graphed
+    trainer's next step equals that of a fresh trainer resumed from the
+    same checkpoint."""
+    import dataclasses
+
+    from vqa_tpu_torch.data.dataset import create_demo_loaders
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import TrainingConfig, tiny_model_config
+
+    cfg = dataclasses.replace(tiny_model_config(), dropout=0.0, answer_dropout=0.0)
+
+    def trainer():
+        loaders = create_demo_loaders(
+            batch_size=4, eval_batch_size=4, num_samples=40, image_size=cfg.image_size,
+            max_question_length=cfg.max_question_length, vocab_size=cfg.vocab_size,
+            num_answers=cfg.num_answers)
+        return Trainer(create_vqa_model(config=cfg, device=cuda, seed=5), *loaders,
+                       config=TrainingConfig(warmup_epochs=0, num_epochs=3),
+                       checkpoint_dir=str(tmp_path), seed=5)
+
+    graphed = trainer()
+    graphed.train_loader.set_epoch(0)
+    graphed.train_epoch(0)
+    graphed.save("latest", 0)
+    graphed.train_loader.set_epoch(1)
+    graphed.train_epoch(1)  # moves the moments the resume takes back
+    replays = graphed.train_step.calls.replays
+    graphed.resume("latest")
+    fresh = trainer()
+    fresh.resume("latest")
+    batch = [t.to(cuda) for t in _train_batch(cfg, 4, 23)]
+    losses = [float(t.train_step(t.state, *batch)["loss"]) for t in (graphed, fresh)]
+    assert graphed.train_step.calls.replays == replays + 1
+    assert fresh.train_step.calls.replays == 0  # its first step runs eagerly
+    assert losses[0] == pytest.approx(losses[1], abs=1e-5)
+    for a, b in zip(graphed.model.parameters(), fresh.model.parameters()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)

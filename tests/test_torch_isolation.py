@@ -163,3 +163,34 @@ def test_the_engine_graphs_and_the_roofline_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_train_graphs_and_the_ablation_runner_import_no_jax():
+    """``training/step_graph.py``, ``utils/graphs.py`` and
+    ``tools/run_ablation.py`` in a fresh interpreter; the ablation runner
+    imports no torch either (its work runs in subprocesses), never imports
+    the JAX script it ports, and the package walk reaches all three."""
+    modules = ["vqa_tpu_torch.training.step_graph", "vqa_tpu_torch.utils.graphs",
+               "vqa_tpu_torch.tools.run_ablation"]
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vqa_tpu_torch.tools.run_ablation\n"
+        "assert 'torch' not in sys.modules, 'the ablation runner imported torch'\n"
+        "assert not any('run_ablation' in n and not n.startswith('vqa_tpu_torch.') "
+        "for n in sys.modules)\n"
+        "import vqa_tpu_torch\n"
+        f"wanted = {modules!r}\n"
+        "for name in wanted:\n"
+        "    importlib.import_module(name)\n"
+        "walked = {m.name for m in pkgutil.walk_packages(vqa_tpu_torch.__path__, "
+        "'vqa_tpu_torch.')}\n"
+        "assert set(wanted) <= walked, set(wanted) - walked\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

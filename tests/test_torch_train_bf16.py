@@ -315,7 +315,12 @@ def test_bf16_train_step_params_and_bn_stats_match_jax(bf16_step, accum):
         got, want = runs["port16"][3], runs["jax16"][3]
         assert max(np.abs(got[k] - want[k]).max() for k in want) <= 2 * LR + 1e-6
         assert all(p.dtype == torch.float32 for p in model.parameters())
-        assert all(b.dtype in (torch.float32, torch.int64) for b in model.buffers())
+        # the buffers a checkpoint holds (BN statistics, pe) stay f32; the
+        # bf16 eval copies beside them are not part of it
+        assert all(v.dtype in (torch.float32, torch.int64)
+                   for v in model.state_dict().values())
+        assert all(b.dtype == torch.bfloat16 for n, b in model.named_buffers()
+                   if n.rsplit(".", 1)[-1].startswith("compute_"))
         assert int(model.image_encoder.stem[1].num_batches_tracked) == accum
 
 
@@ -548,23 +553,27 @@ def test_bf16_resume_takes_the_uninterrupted_step_and_saves_f32(tmp_path):
 
 
 def test_bf16_eval_copies_follow_each_optimizer_step():
-    """Training mode keeps no weight copies (each forward casts the f32
-    parameter); leaving it remakes them from the stepped weights, so the
-    eval forward after a step is that of a bf16 model loaded with them."""
+    """Training mode reads no weight copy (each forward casts the f32
+    parameter); leaving it refreshes the copies in place from the stepped
+    weights, so the eval forward after a step is that of a bf16 model
+    loaded with them."""
     model = _port_model(BF16)
     state = port_train.TrainState.create(model, TrainingConfig(warmup_epochs=0), 10)
     step = port_train.make_train_step(model)
     batch = [torch.from_numpy(a) for a in _batch(model.config, seed=5)]
     fc1 = model.text_encoder.layers[0].ffn.fc1
     before = fc1.compute_weight.clone()
+    ptr = fc1.compute_weight.data_ptr()
     step(state, *batch)
-    assert model.training and fc1.compute_weight is None
+    assert model.training and fc1.compute("weight") is not fc1.compute_weight
+    assert torch.equal(fc1.compute_weight, before)  # not refreshed in training mode
     val = port_train.make_val_step(model)
     valid = torch.ones(B, dtype=torch.int32)
     out = val(*batch, valid)
     assert not model.training
     assert torch.equal(fc1.compute_weight, fc1.weight.detach().to(BF16))
     assert not torch.equal(fc1.compute_weight, before)
+    assert fc1.compute_weight.data_ptr() == ptr
     fresh = create_vqa_model(config=model.config, device="cpu", dtype=BF16)
     fresh.load_state_dict(model.state_dict())
     ref = port_train.make_val_step(fresh)(*batch, valid)

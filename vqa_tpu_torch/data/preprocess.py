@@ -186,10 +186,11 @@ def apply_augment(pixels_u8: torch.Tensor, draws: dict, image_size: int) -> torc
     def per_sample(v):
         return v.to(device=dev, dtype=torch.float32).view(b, 1, 1, 1)
 
+    luma, yiq2rgb, rgb2yiq, mean_t, std_inv = _augment_constants(dev)
     x = x * per_sample(draws["brightness"])
     mean = x.mean(dim=(1, 2, 3), keepdim=True)
     x = (x - mean) * per_sample(draws["contrast"]) + mean
-    gray = (x @ torch.as_tensor(_LUMA, device=dev))[..., None]
+    gray = (x @ luma)[..., None]
     x = (x - gray) * per_sample(draws["saturation"]) + gray
     theta = draws["hue"].to(device=dev, dtype=torch.float32)
     c, s = torch.cos(theta), torch.sin(theta)
@@ -197,12 +198,21 @@ def apply_augment(pixels_u8: torch.Tensor, draws: dict, image_size: int) -> torc
     rot = torch.stack([torch.stack([one, zero, zero], -1),
                        torch.stack([zero, c, -s], -1),
                        torch.stack([zero, s, c], -1)], -2)          # [B, 3, 3]
-    m = torch.einsum("dc,bce->bde", torch.as_tensor(_YIQ2RGB, device=dev), rot) \
-        @ torch.as_tensor(_RGB2YIQ, device=dev)                  # RGB → RGB per sample
+    m = torch.einsum("dc,bce->bde", yiq2rgb, rot) @ rgb2yiq   # RGB → RGB per sample
     x = torch.einsum("bhwc,bdc->bhwd", x, m)
     x = torch.clamp(x, 0.0, 1.0)
-    mean_t = torch.as_tensor(IMAGENET_MEAN, device=dev)
-    return (x - mean_t) * torch.as_tensor(1.0 / IMAGENET_STD, device=dev)
+    return (x - mean_t) * std_inv
+
+
+@functools.lru_cache(maxsize=None)
+def _augment_constants(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``apply_augment``'s constants on ``device`` (luma weights, YIQ→RGB,
+    RGB→YIQ, ImageNet mean and 1/std), copied there once: the trainer
+    captures the augmentation in a CUDA graph, which may not copy from host
+    memory. Made outside inference mode."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device) for a in (
+            _LUMA, _YIQ2RGB, _RGB2YIQ, IMAGENET_MEAN, 1.0 / IMAGENET_STD))
 
 
 def device_augment(pixels_u8: torch.Tensor, generator: torch.Generator,

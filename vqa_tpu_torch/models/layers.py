@@ -7,14 +7,16 @@ BatchNorm take their statistics in f32 and return ``dtype``.
 
 Here the layers that hold weights (``Linear``, ``Conv2d``, ``Embedding``,
 and the positional tables through ``ComputeCopies``) take each weight in
-the compute dtype from ``compute(name)``. In eval mode that is a copy made
-once by ``set_compute_dtype`` (when the model is built, its weights are
-loaded, or it leaves training mode), kept as a non-persistent buffer
-(``compute_weight`` …), so no forward casts a weight. In training mode
-there is no copy: each forward casts the f32 parameter, a differentiable
-cast, so the gradient reaches the f32 parameter as flax's
-``kernel.astype(dtype)`` carries it. The state_dict holds the f32
-parameters and nothing else. In f32 there is no copy and each layer
+the compute dtype from ``compute(name)``. In eval mode that is a copy,
+kept as a non-persistent buffer (``compute_weight`` …), so no forward
+casts a weight. Each copy is made once, when the layer first computes in
+bf16, and lives as long as the layer: it is refreshed in place (``copy_``)
+when the weights are loaded and when the model leaves training mode, so a
+CUDA graph captured over an eval forward reads the current weights at
+every replay. In training mode the copy is not read: each forward casts
+the f32 parameter, a differentiable cast, so the gradient reaches the f32
+parameter as flax's ``kernel.astype(dtype)`` carries it. The state_dict
+holds the f32 parameters and nothing else. In f32 there is no copy and each layer
 computes exactly as its torch base class. ``LayerNorm`` normalises a
 low-precision input in f32 with its f32 affine and rounds once, as flax's
 LayerNorm does.
@@ -47,24 +49,31 @@ class ComputeCopies:
             self.register_buffer("compute_" + name, None, persistent=False)
 
     def set_compute_dtype(self, dtype: torch.dtype, copies: bool = True) -> None:
-        """Compute in ``dtype``; with ``copies`` (eval mode) (re)make the
-        copies from the current f32 tensors, else (training mode, or f32)
-        drop them."""
+        """Compute in ``dtype``. In bf16 each copy is made if it does not
+        exist yet (or no longer matches its tensor's shape or device), and
+        with ``copies`` (eval mode) refreshed in place from the current f32
+        tensor; in f32 there are no copies."""
         self.compute_dtype = dtype
-        keep = copies and dtype != torch.float32
-        # a copy made under inference_mode (a validation step) must still be
-        # usable by a forward outside it
+        # a copy made or refreshed under inference_mode (a validation step)
+        # must still be usable by a forward outside it
         with torch.inference_mode(False), torch.no_grad():
             for name in self.copied:
                 t = getattr(self, name)
-                copy = None if t is None or not keep else t.detach().to(dtype)
-                self.register_buffer("compute_" + name, copy, persistent=False)
+                copy = getattr(self, "compute_" + name)
+                if t is None or dtype == torch.float32:
+                    self.register_buffer("compute_" + name, None, persistent=False)
+                elif (copy is None or copy.dtype != dtype or copy.shape != t.shape
+                      or copy.device != t.device):
+                    self.register_buffer("compute_" + name, t.detach().to(dtype),
+                                         persistent=False)
+                elif copies:
+                    copy.copy_(t.detach())
 
     def compute(self, name: str) -> Optional[torch.Tensor]:
-        """The tensor ``name`` in the compute dtype: the eval copy, or a
-        differentiable cast of the f32 tensor."""
+        """The tensor ``name`` in the compute dtype: the eval copy in eval
+        mode, else a differentiable cast of the f32 tensor."""
         copy = getattr(self, "compute_" + name)
-        if copy is not None:
+        if copy is not None and not self.training:
             return copy
         t = getattr(self, name)
         return t if t is None else t.to(self.compute_dtype)
@@ -73,8 +82,8 @@ class ComputeCopies:
 class ComputeDtypeRoot(nn.Module):
     """The root of a tree of layers that compute in one dtype (``self.dtype``,
     f32 until ``set_compute_dtype``): the model, or a module used alone.
-    Weights loaded into it refresh its layers' copies, and leaving training
-    mode remakes them, so an eval forward never sees a stale copy."""
+    Weights loaded into it refresh its layers' copies, and so does leaving
+    training mode, so an eval forward never sees a stale copy."""
 
     def __init__(self):
         super().__init__()
@@ -86,7 +95,7 @@ class ComputeDtypeRoot(nn.Module):
 
     def set_compute_dtype(self, dtype: torch.dtype):
         """Compute in ``dtype`` (f32 or bf16) from now on. In eval mode every
-        layer (re)makes its copy of its weights in it from the current f32
+        layer refreshes its copy of its weights in it from the current f32
         weights; in training mode each forward casts them."""
         if dtype not in COMPUTE_DTYPES:
             raise ValueError(f"the port computes in float32 or bfloat16, got {dtype}")
@@ -97,9 +106,9 @@ class ComputeDtypeRoot(nn.Module):
         return self
 
     def train(self, mode: bool = True):
-        """Entering training mode drops the eval copies of the weights (the
-        optimizer is about to change the weights); leaving it remakes them
-        from the weights as they are then."""
+        """Leaving training mode refreshes the eval copies of the weights
+        in place from the weights as they are then (the optimizer has
+        changed them); in training mode the copies are not read."""
         was = self.training
         super().train(mode)
         if mode != was:

@@ -10,8 +10,12 @@ reference's key names beside the package's own.
 
 The batch math is the trainer's ``make_eval_step`` in eval mode, so every
 evaluation forward runs the stem, SE and cross-attention kernels (1, 4 and
-2 launches); the results of batch N are fetched after batch N+1 has been
-launched, so the device-to-host copy overlaps the next forward. The first
+2 launches); on the card it is the replay of one CUDA graph per batch
+shape, as JAX's evaluation step is one compiled program per shape (the
+eager rule of ``training/step_graph.py`` keeps the CPU and gloo groups
+eager). Each replay returns copies of its outputs, and the results of
+batch N are fetched after batch N+1 has been launched, so the
+device-to-host copy overlaps the next forward. The first
 64 samples' logits are kept, so ``sample_predictions`` on the same loader
 needs no second pass.
 
@@ -54,6 +58,7 @@ from vqa_tpu_torch.data.vocab import AnswerVocabulary
 from vqa_tpu_torch.models.vqa_model import shard_model
 from vqa_tpu_torch.parallel import distributed
 from vqa_tpu_torch.parallel import mesh as mesh_lib
+from vqa_tpu_torch.training import step_graph
 from vqa_tpu_torch.training.train import add_parallel_args, make_eval_step, mesh_config_from_args
 from vqa_tpu_torch.utils.metrics import confusion_matrix, per_class_accuracy
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
@@ -75,7 +80,10 @@ class Evaluator:
         self.mesh = model.mesh
         self.device = next(model.parameters()).device
         self.answer_vocab = answer_vocab
-        self._eval_step = make_eval_step(model)
+        reason = step_graph.eager_reason(model)
+        self._eval_step = step_graph.graphed(make_eval_step(model), reason)
+        if distributed.is_primary():
+            print(f"[Evaluator] evaluation forwards: {step_graph.describe(reason)}")
         # first-N (logits, token_ids, answer) captured during evaluate() so
         # sample_predictions can decode without a second pass over the loader
         self._sample_cache: Optional[Dict[str, np.ndarray]] = None
@@ -88,6 +96,8 @@ class Evaluator:
     def eval_step(self, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
         """``make_eval_step`` over the whole batch: under data parallelism
         this rank forwards its rows and the outputs are gathered back."""
+        if self.model.training:  # leaving it refreshes the weight copies the graphs read
+            self.model.eval()
         mesh = self.mesh
         if mesh is None or mesh.data_parallel == 1:
             return self._eval_step(images, token_ids, mask, labels)

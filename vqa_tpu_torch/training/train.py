@@ -25,7 +25,16 @@ Where the two packages' mechanics differ:
   buffers (BN running statistics, the ``pe`` table) are not decayed,
   exactly as optax's unmasked ``adamw`` leaves out ``batch_stats``. The
   learning rate of step t is set to ``schedule(t)`` before the update, as
-  optax evaluates its schedule at the update count;
+  optax evaluates its schedule at the update count. On the card AdamW is
+  ``capturable`` and its learning rate a tensor there, written in place
+  before each step, so that a CUDA graph of the step reads the current
+  rate; on the CPU it is a Python float. Checkpoints hold the CPU's form
+  either way, and resume in either;
+- on the card each train step, each device augmentation and each
+  validation forward is the replay of a CUDA graph, one per batch shape,
+  as JAX runs one compiled program per step (``training/step_graph.py``,
+  which also states the eager rule: the CPU, ``debug_nans`` and gloo
+  process groups run eagerly);
 - clipping is done by hand, the optax way: the gradients stay as they are
   when their global norm is below the bound and become ``g / norm * bound``
   otherwise (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm);
@@ -106,6 +115,7 @@ from vqa_tpu_torch.models.vqa_model import (
 from vqa_tpu_torch.parallel import distributed
 from vqa_tpu_torch.parallel import mesh as mesh_lib
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
+from vqa_tpu_torch.training import step_graph
 from vqa_tpu_torch.utils.config import MeshConfig, ModelConfig, TrainingConfig
 from vqa_tpu_torch.utils.metrics import MetricsLogger, topk_correct, topk_flags
 from vqa_tpu_torch.utils.profiling import StepTimer, maybe_trace, step_annotation
@@ -169,12 +179,54 @@ def make_schedule(cfg: TrainingConfig, steps_per_epoch: int) -> Schedule:
 def make_optimizer(model: torch.nn.Module, cfg: TrainingConfig, steps_per_epoch: int
                    ) -> Tuple[torch.optim.AdamW, Schedule]:
     """AdamW over the model's parameters and the schedule that sets its
-    learning rate step by step."""
+    learning rate step by step. On the card AdamW is ``capturable`` (its
+    step count stays on the device) and its learning rate a tensor there,
+    so that a CUDA graph can hold the update; on the CPU, where capturable
+    AdamW refuses the parameters, it is the plain AdamW with a float rate."""
     schedule = make_schedule(cfg, steps_per_epoch)
+    device = next(model.parameters()).device
+    capturable = device.type == "cuda"
+    lr = torch.tensor(schedule(0), dtype=torch.float32, device=device) if capturable \
+        else schedule(0)
     optimizer = torch.optim.AdamW(
-        model.parameters(), lr=schedule(0), betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8,
-        weight_decay=cfg.weight_decay)
+        model.parameters(), lr=lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8,
+        weight_decay=cfg.weight_decay, capturable=capturable)
     return optimizer, schedule
+
+
+def portable_optimizer_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """An AdamW state_dict in the form a checkpoint holds, whichever form
+    wrote it: the plain AdamW's (a float learning rate, ``capturable``
+    off, each step count a CPU tensor)."""
+    return {
+        "state": {i: {k: (v.detach().to("cpu", torch.float32) if k == "step" else v)
+                      for k, v in st.items()} for i, st in state["state"].items()},
+        "param_groups": [{**g, "lr": float(g["lr"]), "capturable": False}
+                         for g in state["param_groups"]],
+    }
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
+    """Load ``state`` (either form) into ``optimizer`` in its own form: its
+    ``capturable`` flag and learning-rate object stay (the rate is written
+    before the next step), and the step counts go where that form keeps
+    them. A state tensor the optimizer already holds keeps its memory and
+    takes the loaded value, since a captured train step's graph reads and
+    writes that memory: a resume may come after the capture."""
+    lrs = [g["lr"] for g in optimizer.param_groups]
+    held = {p: dict(st) for p, st in optimizer.state.items()}
+    state = portable_optimizer_state(state)
+    optimizer.load_state_dict({**state, "param_groups": [
+        {**saved, "capturable": own["capturable"]}
+        for saved, own in zip(state["param_groups"], optimizer.param_groups)]})
+    for g, lr in zip(optimizer.param_groups, lrs):
+        g["lr"] = lr
+    with torch.no_grad():
+        for p, old in held.items():
+            loaded = optimizer.state.get(p, {})
+            for k, t in old.items():
+                if torch.is_tensor(t) and torch.is_tensor(loaded.get(k)):
+                    loaded[k] = t.copy_(loaded[k])
 
 
 class TrainState:
@@ -215,12 +267,20 @@ class TrainState:
         torch._foreach_mul_(grads, torch.where(keep, one, one * self.grad_clip_norm))
         return norm
 
-    def update(self) -> None:
-        """Set the learning rate to ``schedule(step)``, update, count the
-        step."""
+    def set_lr(self) -> None:
+        """Set the learning rate to ``schedule(step)``: in place where it is
+        a tensor (the card's capturable AdamW), so that a CUDA graph of the
+        update reads it."""
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def update(self) -> None:
+        """Set the learning rate, update, count the step."""
+        self.set_lr()
         self.optimizer.step()
         self.step += 1
 
@@ -294,7 +354,13 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
     slice; each rank back-propagates its loss divided by the model degree
     (the ranks of a model group hold one replicated loss, and the
     collectives' backward sums over them), and ``reduce_gradients`` runs
-    once per step, after the microbatches."""
+    once per step, after the microbatches.
+
+    ``train_step.body(state, images, token_ids, mask, labels)`` is the part
+    of the step with no host work, which a CUDA graph holds
+    (``step_graph.GraphedTrainStep``): from ``zero_grad`` to AdamW's update.
+    ``train_step`` around it checks the batch, sets training mode and the
+    learning rate, and counts the step."""
     if remat not in REMAT_MODES:
         raise ValueError(f"remat={remat!r}: expected 'none', 'full' or 'stages'")
     mp = model.mesh.model_parallel if model.mesh is not None else 1
@@ -339,11 +405,12 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
                             grad_accum)
         return loss / grad_accum, c1, c5
 
-    def train_step(state: TrainState, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
+    def check(images) -> None:
         n = images.shape[0]
         if n % grad_accum:
             raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
-        model.train()
+
+    def body(state: TrainState, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
         batch = (images, token_ids, mask, labels)
         if debug_nans:
@@ -359,9 +426,18 @@ def make_train_step(model: VQAModel, grad_accum: int = 1, label_smoothing: float
                 raise FloatingPointError(
                     f"non-finite {what} (loss {float(loss)}, gradient norm {float(norm)}) "
                     f"at optimizer step {state.step}")
-        state.update()
+        state.optimizer.step()
         return {"loss": loss, "correct1": c1, "correct5": c5}
 
+    def train_step(state: TrainState, images, token_ids, mask, labels) -> Dict[str, torch.Tensor]:
+        check(images)
+        model.train()
+        state.set_lr()
+        out = body(state, images, token_ids, mask, labels)
+        state.step += 1
+        return out
+
+    train_step.body, train_step.check, train_step.model = body, check, model
     return train_step
 
 
@@ -492,13 +568,30 @@ class Trainer:
         steps_per_epoch = max(len(train_loader), 1)
         self.state = TrainState.create(model, self.cfg, steps_per_epoch)
         self.schedule = self.state.schedule
-        self.train_step = make_train_step(
+        # the eager step, kept as the yardstick of the graphed one
+        self.eager_train_step = make_train_step(
             model, grad_accum=self.cfg.grad_accum, label_smoothing=self.cfg.label_smoothing,
             remat=self.cfg.remat, debug_nans=debug_nans)
         self.val_type_vocab = getattr(val_loader, "type_vocab", None)
-        self.val_step = make_val_step(
-            model, num_types=len(self.val_type_vocab) if self.val_type_vocab else 0)
         self._aug_generator = torch.Generator(device=self.device)
+        # one CUDA graph per batch shape for each train step, augmentation
+        # and validation forward, unless the eager rule says otherwise
+        # (step_graph.eager_reason), decided here
+        step_reason = step_graph.eager_reason(model, debug_nans)
+        forward_reason = step_graph.eager_reason(model)
+        self.train_step = self.eager_train_step if step_reason else \
+            step_graph.GraphedTrainStep(self.eager_train_step, self.state)
+        self._augment = step_graph.graphed(
+            lambda pixels: device_augment(pixels, self._aug_generator,
+                                          image_size=model.config.image_size),
+            step_reason, generators=(self._aug_generator,))
+        self.val_step = step_graph.graphed(make_val_step(
+            model, num_types=len(self.val_type_vocab) if self.val_type_vocab else 0),
+            forward_reason)
+        if distributed.is_primary():
+            print(f"[Trainer] train steps and device augmentation: "
+                  f"{step_graph.describe(step_reason)}; validation forwards: "
+                  f"{step_graph.describe(forward_reason)}")
 
         self.logger = MetricsLogger()
         self.start_epoch = 0
@@ -516,11 +609,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def augment(self, pixels_u8: torch.Tensor, epoch: int, step: int) -> torch.Tensor:
-        """Device augmentation of a uint8 batch, seeded per (epoch, step)."""
+        """Device augmentation of a uint8 batch, seeded per (epoch, step):
+        on the card the replay of one CUDA graph per batch shape, which
+        draws from the generator as seeded here."""
         self._aug_generator.manual_seed(
             _augment_seed(self.seed, epoch, step, self.mesh.data_index))
-        return device_augment(pixels_u8, self._aug_generator,
-                              image_size=self.model.config.image_size)
+        return self._augment(pixels_u8)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         loss_sum, c1, c5, n = 0.0, 0, 0, 0
@@ -570,32 +664,23 @@ class Trainer:
         }
 
     def validate(self) -> Dict[str, float]:
-        # sums reduced on the device per batch, fetched one batch late so
-        # the next forward is launched before the fetch waits
-        loss_sum, c1, c5, n = 0.0, 0.0, 0.0, 0.0
+        # sums reduced on the device per batch and added up there, fetched
+        # once at the end; leaving training mode here refreshes the bf16
+        # weight copies that the validation graphs read
+        self.model.eval()
         use_types = bool(self.val_type_vocab)
-        t_correct = t_total = 0.0
-        pending = None
-
-        def consume(out):
-            nonlocal loss_sum, c1, c5, n, t_correct, t_total
-            loss_sum += float(out["loss_sum"])
-            c1 += float(out["correct1"])
-            c5 += float(out["correct5"])
-            n += float(out["n"])
-            if "type_correct" in out:
-                t_correct = t_correct + out["type_correct"].cpu().numpy()
-                t_total = t_total + out["type_total"].cpu().numpy()
-
+        totals: Dict[str, torch.Tensor] = {}
         for batch in prefetch_to_device(self.val_loader, self.device):
             out = self.val_step(batch["image"], batch["token_ids"], batch["attention_mask"],
                                 batch["answer"], batch["valid_mask"],
                                 batch.get("type_ids") if use_types else None)
-            if pending is not None:
-                consume(pending)
-            pending = out
-        if pending is not None:
-            consume(pending)
+            totals = {k: totals[k] + v if k in totals else v for k, v in out.items()}
+        loss_sum, c1, c5, n = (float(totals[k]) if k in totals else 0.0
+                               for k in ("loss_sum", "correct1", "correct5", "n"))
+        t_correct = t_total = 0.0
+        if "type_correct" in totals:
+            t_correct = totals["type_correct"].cpu().numpy()
+            t_total = totals["type_total"].cpu().numpy()
         if self.mesh.data_parallel > 1:  # each rank validated its shard
             per_type = np.concatenate([t_correct, t_total]) if np.ndim(t_total) else []
             sums = _sum_over([loss_sum, c1, c5, n, *per_type], self.mesh.data_group,
@@ -641,7 +726,7 @@ class Trainer:
         state, gathered from the shards (every rank takes part)."""
         return {
             "model_state_dict": self.model.full_state_dict(),
-            "optimizer_state_dict": self._optimizer_state(full=True),
+            "optimizer_state_dict": portable_optimizer_state(self._optimizer_state(full=True)),
             "scheduler_step": self.state.step,
             "step": self.state.step,
         }
@@ -672,8 +757,8 @@ class Trainer:
         if meta.get("model_only", False):
             print("[Trainer] model-only checkpoint: optimizer starts fresh")
         else:
-            self.state.optimizer.load_state_dict(
-                self._optimizer_state(full=False, state=payload["optimizer_state_dict"]))
+            load_optimizer_state(self.state.optimizer, self._optimizer_state(
+                full=False, state=payload["optimizer_state_dict"]))
             self.state.step = int(payload["step"])
         self.start_epoch = int(meta["epoch"]) + 1
         self.best_val_accuracy = float(meta["best_val_accuracy"])
