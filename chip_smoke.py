@@ -70,7 +70,10 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     stem, SE and cross-attention kernels against their bf16 plain versions
     at the bucket-32 shapes, within one bf16 ulp per element, timed beside
     their bf16 bounds (bytes over 3.35 TB/s or operations over 989 TFLOP/s)
-    and, for cross-attention, SDPA in bf16; the stem also at buckets 1 and
+    and, for cross-attention, SDPA in bf16; SE per stage with its plan and
+    bound (kept in the kernel's JSON entry under ``stages``), and at 448 px
+    with part of the rows streamed and with every row streamed;
+    cross-attention's launch geometry held to ``bf16_geometry``; the stem also at buckets 1 and
     8, each with its launch plan (``stem_plan``; the library's shared
     memory must match it, and the engine's stem must take the TMA route)
     and cuDNN's bf16 channels_last conv alone as a yardstick (conv only,
@@ -232,15 +235,19 @@ each form's launches over phase 12 (b)'s validation forwards, and
 ``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
 (rank 0) and replicas, and ``launches_tools``, over phase 14's CBAMBlock
 calls, faithfulness and visualization forwards and the in-process soak's
-engine), and before that the ``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
-``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
-phase, supervisor) and ``engine`` lines.
+engine; ``stages``, the bf16 SE's per-stage numbers, null elsewhere);
+before that, the graphed forward's device ms per bucket-32 call in f32 and
+bf16 (phase 15 (d), each round's); and before that the ``train_graphs``,
+``graphs``, ``tools``, ``multi_device``, ``bf16_training``, ``bf16``,
+``training``, ``serving`` (load bench, HTTP phase, supervisor) and
+``engine`` lines.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import math
@@ -1886,7 +1893,9 @@ def check_kernels_bf16(torch, engine, rng):
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.data.preprocess import device_normalize
     from vqa_tpu_torch.ops._build import load_library
-    from vqa_tpu_torch.ops.se_kernel import max_active_clusters, se_plan
+    from vqa_tpu_torch.ops.cross_attention_kernel import bf16_geometry
+    from vqa_tpu_torch.ops.se_kernel import (SEPlan, _smem_bytes, max_active_clusters,
+                                             se_plan)
     from vqa_tpu_torch.ops.stem_kernel import stem_plan
 
     dev, model, bf16 = engine.device, engine.model, torch.bfloat16
@@ -1951,7 +1960,7 @@ def check_kernels_bf16(torch, engine, rng):
     # ---- SE, at the four stage shapes ---------------------------------
     se = dict(route="cuda", source="vqa_tpu_torch/csrc/se.cu",
               replaces="vqa_tpu/ops/se_kernel.py:50", max_abs_err=0.0, ms=0.0,
-              plain_ms=0.0, call_ms=0.0, plain_call_ms=0.0, library_ms=None)
+              plain_ms=0.0, call_ms=0.0, plain_call_ms=0.0, library_ms=None, stages=[])
     se_bytes = se_flops = 0
     for i, (hw, c) in enumerate(SE_STAGES, start=1):
         mod = getattr(model.image_encoder, f"stage{i}").attention.se
@@ -1972,14 +1981,46 @@ def check_kernels_bf16(torch, engine, rng):
         p_ms, p_call = time_ms(torch, lambda: ops.plain_se(xs, w1, w2), 50)
         nbytes = 2 * (2 * xs.numel() + w1.numel() + w2.numel())
         flops = 2 * xs.numel() + 4 * BUCKET * c * r + 4 * BUCKET * c
+        stage_bound, stage_by = bound16_ms(nbytes, flops)
         log(f"se bf16 stage{i}: kernel {k_ms:.4f} ms on the device ({k_call:.4f} ms per call), "
-            f"plain {p_ms:.4f} ms, bound {bound16_ms(nbytes, flops)[0]:.4f} ms")
+            f"plain {p_ms:.4f} ms, bound {stage_bound:.4f} ms ({stage_by}; "
+            f"{100 * stage_bound / k_ms:.0f}% of it)")
+        se["stages"].append(dict(stage=i, shape=list(xs.shape), cluster=plan.cluster,
+                                 rows=plan.rows, keep_rows=plan.keep_rows, ms=k_ms,
+                                 call_ms=k_call, plain_ms=p_ms, bound_ms=stage_bound,
+                                 bound_by=stage_by))
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("call_ms", k_call),
                        ("plain_call_ms", p_call)):
             se[key] += v
         se_bytes += nbytes
         se_flops += flops
     se["bound_ms"], se["bound_by"] = bound16_ms(se_bytes, se_flops)
+    # the streaming mode: stage 1 at 448 px, too large for a resident cluster
+    # per image at B = 32 (a block keeps part of its rows and reads the rest
+    # twice), and a plan that keeps no row at all, through the launcher
+    mod = model.image_encoder.stage1.attention.se
+    w1, w2 = mod.fc1.compute("weight"), mod.fc2.compute("weight")
+    r = w1.shape[0]
+    xs = torch.relu(torch.from_numpy(
+        rng.standard_normal((BUCKET, 112, 112, 64)).astype(np.float32)).to(dev)).to(bf16)
+    plan = se_plan(BUCKET, 112 * 112, 64, r, 2)
+    require(not plan.resident(112 * 112), f"se bf16 at 448 px is resident: {plan}")
+    log(f"se bf16 at 448 px plan: cluster {plan.cluster}, {plan.keep_rows} of "
+        f"{plan.block_rows(112 * 112)} rows kept, split by {'rows' if plan.rows else 'channels'}")
+    want = ops.plain_se(xs, w1, w2)
+    se["max_abs_err"] = max(se["max_abs_err"], check(
+        f"se bf16 {tuple(xs.shape)} r={r} (streaming part of the rows)",
+        ops.fused_se(xs, w1, w2), want))
+    streamed = SEPlan(plan.cluster, plan.rows, 0,
+                      _smem_bytes(64, r, plan.cluster, 0, plan.rows, 2))
+    out = torch.empty_like(xs)
+    rc = load_library().vqa_se_bf16(
+        xs.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), BUCKET, 112 * 112, 64, r,
+        streamed.cluster, 0, int(streamed.rows), streamed.smem_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"se bf16 refused the streaming plan {streamed}: CUDA error {rc}")
+    se["max_abs_err"] = max(se["max_abs_err"], check(
+        f"se bf16 {tuple(xs.shape)} r={r} (every row streamed)", out, want))
     results["se_bf16"] = se
 
     # ---- cross-attention, both fusion layers -------------------------
@@ -1989,6 +2030,14 @@ def check_kernels_bf16(torch, engine, rng):
     q, k, v = (torch.from_numpy(rng.standard_normal((BUCKET, n, heads, dh)).astype(np.float32))
                .to(dev).to(bf16).transpose(1, 2) for n in (lq, lkv, lkv))
     sc = math.sqrt(dh)
+    geo = bf16_geometry(BUCKET * heads, lq, lkv, dh)
+    lib_geo = (ctypes.c_int * 3)()
+    require(load_library().vqa_cross_attention_bf16_geometry(
+        BUCKET, heads, lq, lkv, dh, lib_geo) == 0, "the bf16 cross-attention geometry query failed")
+    log(f"cross_attention bf16 geometry: {geo.blocks} blocks (one slice each) of {geo.warps} "
+        f"warps, {geo.smem_bytes} bytes of shared memory (the library's: {list(lib_geo)})")
+    require(list(lib_geo) == [geo.warps, geo.threads, geo.smem_bytes],
+            "bf16_geometry disagrees with the library's launch geometry")
     (ctx, wts), (pctx, pw) = (ops.fused_cross_attention(q, k, v, sc),
                               ops.plain_cross_attention(q, k, v, sc))
     err = max(check("cross_attention bf16 context", ctx, pctx),
@@ -4118,8 +4167,15 @@ def main(argv=None) -> int:
     log(json.dumps({"train_graphs": train_graphs}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_bf16_training_validation", "launches_multi_device", "launches_tools")
-    log(json.dumps({"kernels": [{k: ({"name": name, **r}[k]) for k in keys}
+            "launches_bf16_training_validation", "launches_multi_device", "launches_tools",
+            "stages")
+    # the graphed forward's device ms per bucket-32 call (phase 15 (d)), beside
+    # the kernels it runs
+    log(json.dumps({"graphed_forward_device_ms_b32": {
+        name: dict(median=t["graph"]["device_ms_b32"],
+                   rounds=t["graph"]["rounds"]["device_ms_b32"])
+        for name, t in graphs["timing"].items()}}))
+    log(json.dumps({"kernels": [{k: ({"name": name, "stages": None, **r}[k]) for k in keys}
                                 for name, r in kernels.items()]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -293,23 +293,50 @@ def test_engine_dtype_policy_on_the_cpu():
     assert probs.dtype == np.float32 and abs(float(probs.sum()) - 1) < 1e-5
 
 
-@pytest.mark.parametrize("b", [1, 32])
+def _bf16_plan_holds(plan, b, hw, c):
+    """Within 227 KB, a legal cluster (up to 16 blocks, the most the
+    kernel launches, and no more blocks than rows or channels), channel
+    slices of whole 16-byte vectors where C has them, and the tiles cover
+    the image once."""
+    assert plan.smem_bytes <= MAX_SMEM
+    assert 1 <= plan.cluster <= 16 and plan.cluster <= (hw if plan.rows else c)
+    assert 0 <= plan.keep_rows <= plan.block_rows(hw)
+    seen = np.zeros((hw, c), np.int64)
+    for r0, r1, c0, c1 in plan.tiles(hw, c, 2):
+        seen[r0:r1, c0:c1] += 1
+        assert plan.rows or c % 8 or (c1 - c0) % 8 == 0
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
 @pytest.mark.parametrize("hw,c", [(56, 64), (28, 128), (14, 256), (7, 512)])
 def test_se_plan_for_bf16_holds_every_stage(b, hw, c):
     """In bf16 a block holds twice the rows: every full-width stage is
     resident (stage 1 at B = 32 too, which in f32 keeps two thirds of its
     rows), within 227 KB, with channel slices of whole 16-byte vectors (8
-    bf16), and the tiles cover the image once."""
+    bf16), and the tiles cover the image once; the cluster sizes are the
+    f32 form's (8 from 17 images up, else 16), stage 1 split by rows at
+    B = 32 and every stage with 16-channel slices or wider by channels."""
     plan = se_plan(b, hw * hw, c, c // 16, 2)
-    assert plan.smem_bytes <= MAX_SMEM
+    _bf16_plan_holds(plan, b, hw * hw, c)
     assert plan.resident(hw * hw) and plan.keep_rows == plan.block_rows(hw * hw)
     assert plan.smem_bytes >= 2 * hw * hw * c // plan.cluster
     assert plan.smem_bytes < se_plan(b, hw * hw, c, c // 16).smem_bytes
-    seen = np.zeros((hw * hw, c), np.int64)
-    for r0, r1, c0, c1 in plan.tiles(hw * hw, c, 2):
-        seen[r0:r1, c0:c1] += 1
-        assert plan.rows or (c1 - c0) % 8 == 0
-    assert (seen == 1).all()
+    assert plan.cluster == se_plan(b, hw * hw, c, c // 16).cluster == (8 if b == 32 else 16)
+    assert plan.rows is (c // plan.cluster < 16)
+
+
+# the narrow widths of test_torch_models.py::test_narrow_widths_match_jax
+# (tiny stages of 8-64 channels at 64 px, a first stage of 12, a last of 6)
+# and CBAMBlock's channel counts (the module tests' and chip_smoke's)
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("hw,c,r", [
+    (16 * 16, 8, 1), (8 * 8, 16, 1), (4 * 4, 32, 2), (2 * 2, 64, 4), (16 * 16, 12, 1),
+    (2 * 2, 6, 1), (7 * 7, 32, 4), (5 * 3, 16, 2), (7 * 7, 512, 32), (56 * 56, 64, 4)])
+def test_se_plan_for_bf16_at_narrow_and_cbam_widths(b, hw, c, r):
+    plan = se_plan(b, hw, c, r, 2)
+    _bf16_plan_holds(plan, b, hw, c)
+    assert plan.resident(hw)
 
 
 @pytest.mark.parametrize("b,hw,c,r", [(32, 112 * 112, 64, 4), (3, 15, 6, 1), (3, 15, 12, 3),

@@ -520,10 +520,138 @@ def test_bf16_se_kernel_takes_misaligned_input_and_refuses_the_f32_plan(cuda):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("b,h,w,c,r", [(32, 56, 56, 64, 4), (3, 9, 7, 6, 1),
+                                       (32, 112, 112, 64, 4), (32, 7, 7, 512, 32),
+                                       (32, 14, 14, 256, 16)])
+def test_bf16_se_kernel_is_deterministic(cuda, b, h, w, c, r):
+    """The bf16 form's twin of the f32 test: sums in a fixed order, no
+    atomics, so two calls agree bit for bit, a block alone (stage 4), a
+    cluster split by channels (stage 3), by rows (stage 1) and streaming
+    part of its rows (448 px)."""
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (b, h, w, c), cuda).bfloat16()
+    w1, w2 = _randn(rng, (r, c), cuda, 0.2).bfloat16(), _randn(rng, (c, r), cuda, 0.2).bfloat16()
+    first = ops.fused_se(x, w1, w2)
+    second = ops.fused_se(x, w1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# the narrow widths of test_torch_models.py::test_narrow_widths_match_jax
+# (tiny stages of 8-64 channels, a first stage of 12, a last of 6) and
+# CBAMBlock's (reduction 8; chip_smoke's module shapes at reduction 16)
+@pytest.mark.parametrize("b,h,w,c,r", [
+    (2, 16, 16, 8, 1), (2, 8, 8, 16, 1), (2, 4, 4, 32, 2), (2, 2, 2, 64, 4),
+    (2, 16, 16, 12, 1), (2, 2, 2, 6, 1), (2, 7, 7, 32, 4), (2, 5, 3, 16, 2),
+    (32, 7, 7, 512, 32), (32, 56, 56, 64, 4)])
+def test_bf16_se_kernel_at_narrow_and_cbam_widths(cuda, b, h, w, c, r):
+    rng = np.random.default_rng(9)
+    x = torch.relu(_randn(rng, (b, h, w, c), cuda)).bfloat16()
+    w1, w2 = _randn(rng, (r, c), cuda, 0.2).bfloat16(), _randn(rng, (c, r), cuda, 0.2).bfloat16()
+    before = ops.fused_se_bf16.launches
+    got = ops.fused_se(x, w1, w2)
+    torch.cuda.synchronize()
+    assert ops.fused_se_bf16.launches == before + 1
+    assert _ulps(got, ops.plain_se(x, w1, w2)) <= 1
+
+
+@pytest.mark.parametrize("b,side,c,r", [(8, 28, 128, 8), (3, 56, 64, 4), (2, 7, 512, 32)])
+def test_bf16_se_kernel_takes_every_plan(cuda, b, side, c, r):
+    """Through the launcher, every plan the sweep tool tries: 1 to 16
+    blocks per image, split by rows or by channels, every row resident or
+    every row streamed from device memory (read twice); each within one
+    ulp of plain_se and deterministic."""
+    from vqa_tpu_torch.ops._build import load_library
+    from vqa_tpu_torch.tools.se_plan_sweep import plans
+
+    rng = np.random.default_rng(10)
+    hw = side * side
+    x = torch.relu(_randn(rng, (b, side, side, c), cuda)).bfloat16()
+    w1, w2 = _randn(rng, (r, c), cuda, 0.2).bfloat16(), _randn(rng, (c, r), cuda, 0.2).bfloat16()
+    want = ops.plain_se(x, w1, w2)
+    stream = torch.cuda.current_stream().cuda_stream
+    tried = set()
+    for plan in plans(hw, c, r, 2):
+        outs = []
+        for _ in range(2):
+            out = torch.full_like(x, float("nan"))
+            rc = load_library().vqa_se_bf16(
+                x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), b, hw, c, r,
+                plan.cluster, plan.keep_rows, int(plan.rows), plan.smem_bytes, stream)
+            assert rc == 0, plan
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]), plan
+        assert _ulps(outs[0], want) <= 1, plan
+        tried.add((plan.cluster, plan.keep_rows == 0))
+    assert any(streamed for _, streamed in tried) and any(not streamed for _, streamed in tried)
+    assert any(n == 1 for n, _ in tried)
+
+
+def test_bf16_kernels_replay_in_a_cuda_graph(cuda):
+    """Each bf16 kernel captured in a CUDA graph (as the engine's and the
+    trainer's graphs capture them) replays what an eager call computes on
+    the inputs copied into the captured tensors."""
+    rng = np.random.default_rng(11)
+    xs = [torch.relu(_randn(rng, (32, s, s, c), cuda)).bfloat16()
+          for s, c in ((56, 64), (7, 512))]
+    ws = [(_randn(rng, (c // 16, c), cuda, 0.2).bfloat16(),
+           _randn(rng, (c, c // 16), cuda, 0.2).bfloat16()) for c in (64, 512)]
+    q, k, v = (_randn(rng, (32, n, 8, 32), cuda).bfloat16().transpose(1, 2) for n in (20, 49, 49))
+    sc = math.sqrt(32)
+
+    def run():
+        return ([ops.fused_se(x, *w) for x, w in zip(xs, ws)]
+                + list(ops.fused_cross_attention(q, k, v, sc)))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.fused_se_bf16.launches, ops.fused_cross_attention_bf16.launches
+    with torch.cuda.graph(graph):
+        static = run()
+    assert (ops.fused_se_bf16.launches, ops.fused_cross_attention_bf16.launches) == (
+        before[0] + 2, before[1] + 1)
+    for t in (*xs, q, k, v):
+        t.copy_(torch.relu(_randn(rng, tuple(t.shape), cuda)).bfloat16())
+    graph.replay()
+    eager = run()
+    torch.cuda.synchronize()
+    for got, want in zip(static, eager):
+        assert torch.equal(got, want)
+
+
+def test_bf16_cross_attention_geometry_matches_the_library(cuda):
+    """ops/cross_attention_kernel.py:bf16_geometry mirrors the launcher's
+    geometry (warps and threads per block, shared memory) and its
+    refusals."""
+    import ctypes
+
+    from vqa_tpu_torch.ops._build import load_library
+    from vqa_tpu_torch.ops.cross_attention_kernel import bf16_geometry
+
+    lib = load_library()
+    out = (ctypes.c_int * 3)()
+    for b, h, lq, lkv, d in ((32, 8, 20, 49, 32), (1, 1, 20, 49, 32), (3, 4, 20, 49, 64),
+                             (2, 3, 7, 33, 6), (1, 8, 20, 196, 32), (2, 2, 400, 64, 32),
+                             (1, 2, 20, 256, 128), (3, 2, 8, 4, 16)):
+        g = bf16_geometry(b * h, lq, lkv, d)
+        assert lib.vqa_cross_attention_bf16_geometry(b, h, lq, lkv, d, out) == 0
+        assert list(out) == [g.warps, g.threads, g.smem_bytes]
+    for b, h, lq, lkv, d in ((1, 1, 20, 49, 129), (1, 1, 20, 257, 32), (2, 2, 9000, 49, 32)):
+        with pytest.raises(ValueError):
+            bf16_geometry(b * h, lq, lkv, d)
+        assert lib.vqa_cross_attention_bf16_geometry(b, h, lq, lkv, d, out) != 0
+
+
 @pytest.mark.parametrize("b,h,lq,lkv,d", [(32, 8, 20, 49, 32), (1, 8, 20, 49, 32),
                                           (1, 2, 5, 7, 8), (3, 1, 1, 1, 4), (1, 2, 6, 70, 16),
                                           (2, 4, 20, 49, 64), (1, 8, 20, 196, 32),
-                                          (2, 3, 7, 33, 6)])
+                                          (2, 3, 7, 33, 6), (3, 3, 37, 101, 32),
+                                          (1, 1, 20, 49, 32), (1, 2, 40, 192, 128)])
 def test_bf16_cross_attention_kernel_matches_plain(cuda, b, h, lq, lkv, d):
     rng = np.random.default_rng(2)
     q, k, v = (_randn(rng, (b, h, n, d), cuda).bfloat16() for n in (lq, lkv, lkv))

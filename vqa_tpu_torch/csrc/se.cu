@@ -55,13 +55,32 @@
 //
 // bf16 form (vqa_se_bf16): x, the weights and the output in bf16, every
 // sum, dot product and scale in f32, the output rounded once, as the TPU
-// kernel upcasts its block (se_kernel.py:32-42) and casts once. The kernel
-// is the f32 one over 2-byte elements: kept rows and staged weights stay
-// bf16 in shared memory, so a block holds twice the rows; 16-byte copies
-// carry 8 elements (C % 8 == 0, and channel slices rounded to multiples of
-// 8), else elements are copied one at a time with plain loads (cp.async
-// has no 2-byte size). Sums, pooled means, scales and the exchanged shares
-// are f32 in either form.
+// kernel upcasts its block (se_kernel.py:32-42) and casts once. It has its
+// own kernel (se_bf16, below) on the f32 form's plan and layout in 2-byte
+// elements (a block holds twice the rows; 16-byte copies carry 8 elements
+// where C % 8 == 0, else single elements with plain loads: cp.async has no
+// 2-byte size):
+//
+// - What bounds it: bytes for stage 1 (401 KB an image at 224 px), whose
+//   blocks bring x in and write it out near the memory's rate; for the
+//   smaller stages the fixed part of a launch: ~1.5 us of launch and
+//   drain, then the block's sums, the cluster's exchange and the FCs,
+//   during which no byte moves (tools/bf16_phases.py stamps each phase).
+// - The exchange is Hopper's asynchronous one: each block's mbarrier
+//   expects the bytes every rank will push to it, the pushes are st.async
+//   stores counted on the receiver's mbarrier as they land, and a block
+//   waits only for its own mbarrier. The f32 kernel's second cluster
+//   barrier (publish, then read) is gone; on the H100 that took stage 1's
+//   exchange from ~2,660 to ~1,530 SM cycles.
+// - Tried and dropped, by measurement (PERF.md, PR 13): summing x in four
+//   commit groups as they land (slower than one group for the rows and
+//   one for the weights); one block per image, which bf16 allows up to
+//   stage 2 (slower at every stage: one SM's bandwidth, and the whole FCs
+//   in one block); staged weight rows padded against bank conflicts (no
+//   gain); other cluster sizes (none more than 5% faster at any stage).
+//   Not tried: staging the weights before griddepcontrol.wait under
+//   programmatic dependent launch, since a caller's weights may be written
+//   by the kernel just before (a cast) and the read would race it.
 
 #include <cooperative_groups.h>
 
@@ -91,9 +110,10 @@ constexpr int round16(int v) { return (v + 15) & ~15; }
 // 16/esize where C is one); mirrored by ops/se_kernel.py:_smem_bytes. The
 // weights the block's FCs take (w = cs columns of w1 and rows of w2) are
 // staged, in the element type, when they fit MAX_WEIGHT_SMEM, else read
-// from device memory. Every vector of sums, means and scales is f32.
+// from device memory. Every vector of sums, means and scales is f32. The
+// bf16 form's layout starts with the 8-byte mbarrier of its exchange.
 struct Layout {
-  int cs, w, xch, pooled, s, hidden, w1s, w2s, red, xs, total;
+  int cs, w, bar, xch, pooled, s, hidden, w1s, w2s, red, xs, total;
   bool staged;
   Layout(int C, int R, int n, int keep_rows, bool rows_mode, int esize) {
     const int per16 = 16 / esize;        // elements in 16 bytes
@@ -101,7 +121,8 @@ struct Layout {
     if (C % per16 == 0) cs = (cs + per16 - 1) / per16 * per16;
     w = rows_mode ? C : cs;
     staged = 2LL * esize * R * w <= MAX_WEIGHT_SMEM;
-    xch = 0;  // f32 [n][C] sums (rows) or [n][R] shares (channels)
+    bar = 0;  // the bf16 form's exchange mbarrier
+    xch = bar + (esize == 2 ? 16 : 0);  // f32 [n][C] sums (rows) or [n][R] shares (channels)
     pooled = xch + round16(4 * n * (rows_mode ? C : R));  // f32 [w]
     s = pooled + round16(4 * w);                          // f32 [w]
     hidden = s + round16(4 * w);                          // f32 [R]
@@ -131,7 +152,7 @@ struct Params {
   int lg1, lg2;  // log2 lanes per row of fc1 and fc2
   int staged;
   float inv_hw;
-  int xch, pooled, s, hidden, w1s, w2s, red, xs;  // Layout offsets in bytes
+  int bar, xch, pooled, s, hidden, w1s, w2s, red, xs;  // Layout offsets in bytes
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -490,6 +511,238 @@ __global__ void __launch_bounds__(THREADS) se_cluster(const __grid_constant__ Pa
   }
 }
 
+// ---- the bf16 form: its own kernel --------------------------------------
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// Asynchronous stores into a peer's shared memory, each counted in bytes
+// on the peer's mbarrier as it lands.
+__device__ __forceinline__ void push(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void push(uint32_t addr, const float4& v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+      "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void push(uint32_t addr, const F8& v, uint32_t bar) {
+  push(addr, v.lo, bar);
+  push(addr + 16, v.hi, bar);
+}
+
+// One image per cluster of n blocks (n = 1: a block alone), the plan from
+// se_plan(esize=2). The split and the order of every sum are the f32
+// kernel's; the exchange between the blocks of a cluster is Hopper's
+// asynchronous one. Each block's mbarrier is set up at its start to expect
+// the bytes every rank will push to it (n x C sums split by rows, n x R
+// shares split by channels); a block pushes with st.async, each store
+// counted on the receiving block's mbarrier as it lands, and a block waits
+// only for its own mbarrier: the one cluster barrier of the kernel is the
+// one at its start (every block has started, so its shared memory and
+// mbarrier exist), which costs little since every block reaches it at once,
+// and the f32 kernel's second barrier (publish the pushes, then read) is
+// gone. The kept rows and the weights are copied as two commit groups, so
+// the sums start when the rows have landed. A block alone exchanges
+// nothing.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS) se_bf16(const __grid_constant__ Params p) {
+  using E = __nv_bfloat16;
+  using V = Vec<E, VEC>;
+  using T = typename V::T;
+  using A = typename V::A;
+  extern __shared__ __align__(16) unsigned char smc[];
+  const int t = threadIdx.x;
+  const int n = p.n, C = p.C, R = p.R, HW = p.HW;
+  const int q = blockIdx.x % n;  // rank in the image's cluster
+  const int b = blockIdx.x / n;  // image
+  const E* w1 = static_cast<const E*>(p.w1);
+  const E* w2 = static_cast<const E*>(p.w2);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smc + p.bar);
+  float* xch = reinterpret_cast<float*>(smc + p.xch);
+  float* pooled = reinterpret_cast<float*>(smc + p.pooled);
+  float* s = reinterpret_cast<float*>(smc + p.s);
+  float* hidden = reinterpret_cast<float*>(smc + p.hidden);
+  E* w1s = reinterpret_cast<E*>(smc + p.w1s);
+  E* w2s = reinterpret_cast<E*>(smc + p.w2s);
+  A* red = reinterpret_cast<A*>(smc + p.red);
+  T* xs = reinterpret_cast<T*>(smc + p.xs);
+
+  int r0 = 0, rows = HW, c0 = 0, nc = C;
+  if (p.rows_mode) {
+    r0 = q * HW / n;
+    rows = (q + 1) * HW / n - r0;
+  } else {
+    c0 = min(C, q * p.cs);
+    nc = min(C, c0 + p.cs) - c0;
+  }
+  const int keep = min(p.keep_rows, rows), L = nc / VEC;
+  const size_t C4 = C / VEC;
+  const size_t origin = (static_cast<size_t>(b) * HW + r0) * C + c0;
+  const T* xg = reinterpret_cast<const T*>(static_cast<const E*>(p.x) + origin);
+  T* og = reinterpret_cast<T*>(static_cast<E*>(p.out) + origin);
+  const int P = L >= THREADS || L == 0 ? 1 : THREADS / L;
+  const int work = L * P;
+  const int g0 = L > THREADS ? t : (L ? t % L : 0), ph = L > THREADS ? 0 : (L ? t / L : 0);
+
+  // phase 0: start
+  // 1. the exchange's mbarrier (one arrival: its own, with the bytes it
+  //    expects), then the kept rows and the weights, two commit groups
+  if (n > 1 && t == 0) {
+    vqa::mbar_init(bar, 1);
+    vqa::mbar_expect_tx(bar, 4u * n * (p.rows_mode ? C : R));
+  }
+  for (int w = t, g = g0; w < work; w += THREADS, g += THREADS)
+    for (int r = ph; r < keep; r += P) V::copy(xs + r * L + g, xg + r * C4 + g);
+  cp_async_commit();
+  if (p.staged) {
+    const int ld = p.rows_mode ? C : p.cs;
+    stage(w1s, ld, w1 + c0, C, R, nc, t);
+    stage(w2s, R * nc, w2 + static_cast<size_t>(c0) * R, R * nc, 1, R * nc, t);
+  }
+  cp_async_commit();
+  if (n > 1) cluster_arrive_relaxed();  // this block and its mbarrier exist
+
+  // phase 1: copies issued
+  // 2. per-channel sums in a fixed order: the streamed rows, read from
+  //    device memory while the copies are in flight, then the kept rows
+  //    once they have landed (a thread sums what it copied: no barrier)
+  for (int w = t, g = g0; w < work; w += THREADS, g += THREADS) {
+    A acc = V::zero();
+#pragma unroll 4
+    for (int r = keep + (ph - keep % P + P) % P; r < rows; r += P) V::accum(acc, xg[r * C4 + g]);
+    red[w] = acc;
+  }
+  cp_async_wait_group<1>();  // the rows; the weights may be in flight
+  for (int w = t, g = g0; w < work; w += THREADS, g += THREADS) {
+    A acc = red[w];
+#pragma unroll 4
+    for (int r = ph; r < keep; r += P) V::accum(acc, xs[r * L + g]);
+    red[w] = acc;
+  }
+  // phase 2: each thread's sums
+  //    then over the P phases, in a fixed order (as the f32 kernel)
+  if (P > 1 && 32 % L == 0) {
+    A acc = red[t];
+    for (int off = L; off < 32; off <<= 1) V::add(acc, V::shfl_xor(acc, off));
+    __syncthreads();
+    if ((t & 31) < L) red[(t >> 5) * L + (t & 31)] = acc;
+    __syncthreads();
+    if (t < L) {
+      A a = red[t];
+      for (int wp = 1; wp < WARPS; ++wp) V::add(a, red[wp * L + t]);
+      red[t] = a;
+    }
+  } else if (P > 1) {
+    __syncthreads();
+    int span = 1;
+    while (span < P) span <<= 1;
+    for (span >>= 1; span > 0; span >>= 1) {
+      if (t < span * L && ph + span < P) V::add(red[t], red[t + span * L]);
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  const float* sums = reinterpret_cast<const float*>(red);  // [nc]
+
+  // phase 3: the block's sums
+  // 3. the pooled means: split by rows across a cluster, every rank's sums
+  //    pushed to every rank and summed in rank order
+  if (n > 1 && p.rows_mode) {
+    cluster_wait();  // every peer has started
+    for (int e = t; e < n * L; e += THREADS) {
+      const int r = e / L, g = e - r * L;
+      push(peer_addr(xch + (q * L + g) * VEC, r), reinterpret_cast<const A*>(sums)[g],
+           peer_addr(bar, r));
+    }
+    vqa::mbar_wait(bar, 0);  // every rank's sums have landed
+    for (int k = t; k < C; k += THREADS) {
+      float a = xch[k];
+      for (int r = 1; r < n; ++r) a += xch[r * C + k];
+      pooled[k] = a * p.inv_hw;
+    }
+  } else {
+    for (int k = t; k < nc; k += THREADS) pooled[k] = sums[k] * p.inv_hw;
+  }
+  cp_async_wait_group<0>();  // the staged weights
+  __syncthreads();
+
+  // phase 4: pooled means and staged weights
+  // 4. fc1 and relu: whole in the block (alone, or split by rows), else
+  //    this block's share of every hidden unit pushed to every rank and
+  //    the shares summed in rank order
+  const E* wa = p.staged ? w1s : w1 + c0;
+  const int lda = p.staged ? (p.rows_mode ? C : p.cs) : C;
+  if (n == 1 || p.rows_mode) {
+    row_dots(pooled, wa, lda, R, nc, p.lg1, t, [&](int j, float v, int gl) {
+      if (gl == 0) hidden[j] = fmaxf(v, 0.f);
+    });
+  } else {
+    cluster_wait();  // every peer has started
+    row_dots(pooled, wa, lda, R, nc, p.lg1, t, [&](int j, float v, int gl) {
+      for (int r = gl; r < n; r += 1 << p.lg1) push(peer_addr(xch + q * R + j, r), v, peer_addr(bar, r));
+    });
+    vqa::mbar_wait(bar, 0);  // every rank's shares have landed
+    for (int j = t; j < R; j += THREADS) {
+      float a = xch[j];
+      for (int r = 1; r < n; ++r) a += xch[r * R + j];
+      hidden[j] = fmaxf(a, 0.f);
+    }
+  }
+  __syncthreads();
+
+  // phase 5: hidden units
+  // 5. fc2 and sigmoid for this block's channels
+  const E* wb = p.staged ? w2s : w2 + static_cast<size_t>(c0) * R;
+  row_dots(hidden, wb, R, nc, R, p.lg2, t, [&](int k, float v, int gl) {
+    if (gl == 0) s[k] = 1.f / (1.f + expf(-v));
+  });
+  __syncthreads();
+
+  // phase 6: scales
+  // 6. rescale with 16-byte stores: kept rows from shared memory, streamed
+  //    rows from device memory again
+  const A* sv = reinterpret_cast<const A*>(s);
+  for (int w = t, g = g0; w < work; w += THREADS, g += THREADS) {
+    const A sg = sv[g];
+    for (int r = ph; r < rows; r += P)
+      og[r * C4 + g] = V::scale(r < keep ? xs[r * L + g] : xg[r * C4 + g], sg);
+  }
+  // phase 7: stores issued
+}
+
+// The kernel of each form: the f32 one, and the bf16 form's own.
+template <typename E, int VEC>
+struct Kernel {
+  static constexpr auto fn = se_cluster<E, VEC>;
+};
+template <int VEC>
+struct Kernel<__nv_bfloat16, VEC> {
+  static constexpr auto fn = se_bf16<VEC>;
+};
+
 // Raises the kernel's shared-memory limit (never lowers it) and allows
 // clusters above 8, once per device and instantiation: the attributes stay
 // set, and setting them on every call costs host time at small batches.
@@ -506,12 +759,12 @@ cudaError_t prepare(size_t smem, int cluster) {
   if (smem > smem_set[dev].load() || (cluster > 8 && !nonportable_set[dev].load())) {
     std::lock_guard<std::mutex> lock(mu);
     if (smem > smem_set[dev].load()) {
-      err = vqa::allow_smem(se_cluster<E, VEC>, smem);
+      err = vqa::allow_smem(Kernel<E, VEC>::fn, smem);
       if (err != cudaSuccess) return err;
       smem_set[dev].store(smem);
     }
     if (cluster > 8 && !nonportable_set[dev].load()) {
-      err = cudaFuncSetAttribute(se_cluster<E, VEC>,
+      err = cudaFuncSetAttribute(Kernel<E, VEC>::fn,
                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       if (err != cudaSuccess) return err;
       nonportable_set[dev].store(true);
@@ -578,6 +831,7 @@ Params make_params(const void* x, const void* w1, const void* w2, void* out, int
   p.w2s = lay.w2s;
   p.red = lay.red;
   p.xs = lay.xs;
+  p.bar = lay.bar;
   return p;
 }
 
@@ -600,8 +854,8 @@ int launch_se(const void* x, const void* w1, const void* w2, void* out, int B, i
   cudaError_t err = wide ? configure<E, WIDE>(cfg, attr, B * cluster, cluster, smem_bytes, st)
                          : configure<E, 1>(cfg, attr, B * cluster, cluster, smem_bytes, st);
   if (err != cudaSuccess) return err;
-  err = wide ? cudaLaunchKernelEx(&cfg, se_cluster<E, WIDE>, p)
-             : cudaLaunchKernelEx(&cfg, se_cluster<E, 1>, p);
+  err = wide ? cudaLaunchKernelEx(&cfg, Kernel<E, WIDE>::fn, p)
+             : cudaLaunchKernelEx(&cfg, Kernel<E, 1>::fn, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -613,7 +867,7 @@ int active_clusters(int HW, int C, int R, int cluster, int keep_rows, int rows_m
   cudaLaunchAttribute attr[1];
   const cudaError_t err = configure<E, VEC>(cfg, attr, cluster, cluster, smem_bytes, 0);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(clusters, se_cluster<E, VEC>, &cfg);
+  return cudaOccupancyMaxActiveClusters(clusters, Kernel<E, VEC>::fn, &cfg);
 }
 
 }  // namespace
@@ -628,8 +882,8 @@ VQA_EXPORT int vqa_se_f32(const float* x, const float* w1, const float* w2, floa
                           smem_bytes, stream);
 }
 
-// The same in bf16 (x, w1, w2 and out), computed in f32; the plan is
-// se_plan's for 2-byte elements.
+// The same in bf16 (x, w1, w2 and out), computed in f32, by the bf16 form's
+// own kernel (se_bf16); the plan is se_plan's for 2-byte elements.
 VQA_EXPORT int vqa_se_bf16(const void* x, const void* w1, const void* w2, void* out, int B,
                            int HW, int C, int R, int cluster, int keep_rows, int rows_mode,
                            int smem_bytes, void* stream) {

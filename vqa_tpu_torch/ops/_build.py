@@ -62,6 +62,8 @@ _SIGNATURES = {
     "vqa_stem_bf16": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "vqa_se_bf16": [_P] * 4 + [_I] * 8 + [_P],
     "vqa_cross_attention_bf16": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # B, H, Lq, Lkv, D, out[3]: the bf16 form's launch geometry
+    "vqa_cross_attention_bf16_geometry": [_I] * 5 + [ctypes.POINTER(_I)],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -4,9 +4,13 @@ Counterpart of ``vqa_tpu/ops/cross_attention_kernel.py``.
 ``fused_cross_attention`` launches the hand-written CUDA kernel
 ``csrc/cross_attention.cu`` on CUDA tensors and computes
 ``plain_cross_attention`` on CPU tensors. Layout [B, H, L, d] as in the
-JAX package. f32 inputs give f32 outputs; bf16 inputs launch the kernel's
-bf16 form (``fused_cross_attention_bf16``), which computes in f32 and
-writes both outputs in bf16, as the Pallas kernel does for bf16 blocks.
+JAX package. f32 inputs give f32 outputs; bf16 inputs launch the bf16
+form's own kernel (``fused_cross_attention_bf16``), which stages q, k and
+v as bf16 by asynchronous copies, computes in f32 in the f32 form's order
+and writes both outputs in bf16 with 16-byte stores, as the Pallas kernel
+computes bf16 blocks in f32 and casts its outputs once.
+Its launch geometry (one slice per block, shared-memory layout, the
+shapes it refuses) is mirrored here by ``bf16_geometry``.
 
 q, k and v may be strided views — the model passes head-transposed views
 of its [B, L, H, d] projections — as long as the last dimension has unit
@@ -17,7 +21,7 @@ costs no copy; the weights are contiguous [B, H, L_q, L_kv].
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,11 +33,52 @@ MAX_SMEM = 227 * 1024
 
 
 def smem_bytes(lq: int, lkv: int, d: int) -> int:
-    """Shared memory of one block: Q, K (odd float4 row stride) and V,
+    """Shared memory of one f32 block: Q, K (odd float4 row stride) and V,
     the keys zero-padded to a multiple of 32 (as ``csrc/cross_attention.cu``)."""
     d4 = -(-d // 4)
     nkeys = 32 * -(-lkv // 32)
     return 16 * (lq * d4 + nkeys * (d4 | 1) + nkeys * d4)
+
+
+ROWS16 = 2        # bf16 form: query rows a warp holds at once
+MAX_WARPS16 = 16  # warps per block (one slice per block)
+
+
+def _round16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+class Geometry16(NamedTuple):
+    warps: int       # warps per block (one (batch, head) slice)
+    threads: int     # threads per block
+    smem_bytes: int  # dynamic shared memory per block
+    blocks: int      # blocks of the launch: one per slice
+
+
+def bf16_geometry(bh: int, lq: int, lkv: int, d: int) -> Geometry16:
+    """The bf16 form's launch for ``bh`` (batch·head) slices, one per block
+    of ``ceil(lq / 2)`` warps (at most 16, which then loop over the rows),
+    and its shared memory (``csrc/cross_attention.cu``, ``Geometry16``): q,
+    k (rows 16 bytes wider) and v as bf16, and for each warp its rows' f32
+    probabilities, staged weights (16 bytes more, to shift them to their
+    destination's alignment) and context rows. Raises ValueError for a
+    shape the kernel refuses: d > 128, L_kv > 256, or beyond 227 KB of
+    shared memory."""
+    if min(bh, lq, lkv, d) <= 0 or d > MAX_D or lkv > MAX_LKV:
+        raise ValueError(
+            f"the bf16 cross-attention kernel takes d <= {MAX_D} and L_kv <= {MAX_LKV}, "
+            f"got L_q={lq}, L_kv={lkv}, d={d}")
+    warps = min(MAX_WARPS16, -(-lq // ROWS16))
+    ldq = -(-d // 8) * 8
+    per_warp = (_round16(4 * lkv * ROWS16) + _round16(2 * ROWS16 * lkv + 16)
+                + _round16(2 * ROWS16 * ldq))
+    smem = (_round16(2 * lq * ldq) + _round16(2 * lkv * (ldq + 8)) + _round16(2 * lkv * ldq)
+            + warps * per_warp)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"the bf16 cross-attention kernel needs {smem} bytes of shared memory for "
+            f"L_q={lq}, L_kv={lkv}, d={d}, more than {MAX_SMEM}")
+    return Geometry16(warps, 32 * warps, smem, bh)
 
 
 def _validate(q, k, v) -> None:
@@ -57,7 +102,9 @@ def _validate(q, k, v) -> None:
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != (b, h, lkv, d):
             raise ValueError(f"{name} must have shape {(b, h, lkv, d)}, got {tuple(t.shape)}")
-    if d > MAX_D or lkv > MAX_LKV or smem_bytes(lq, lkv, d) > MAX_SMEM:
+    if q.dtype == torch.bfloat16:
+        bf16_geometry(b * h, lq, lkv, d)
+    elif d > MAX_D or lkv > MAX_LKV or smem_bytes(lq, lkv, d) > MAX_SMEM:
         raise ValueError(
             f"the cross-attention kernel takes d <= {MAX_D} and L_kv <= {MAX_LKV} within "
             f"{MAX_SMEM} bytes of shared memory, got L_q={lq}, L_kv={lkv}, d={d}")

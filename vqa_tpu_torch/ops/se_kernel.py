@@ -12,11 +12,12 @@ transposes of the flax kernels ``fused_se`` of the JAX package takes.
 channels, rows kept in shared memory, shared-memory bytes) in plain
 Python; the launcher refuses a plan that does not match its own layout.
 
-bf16 x (with bf16 weights) launches the kernel's bf16 form
-(``fused_se_bf16``): pooling, both FCs and the scales in f32, the output
-rounded once to bf16, as the Pallas kernel computes a bf16 block. Its
-plan is the same arithmetic over 2-byte elements (``esize=2``): a block
-keeps twice the rows in the same shared memory.
+bf16 x (with bf16 weights) launches the bf16 form's own kernel
+(``fused_se_bf16``, ``csrc/se.cu:se_bf16``): pooling, both FCs and the
+scales in f32, the output rounded once to bf16, as the Pallas kernel
+computes a bf16 block. Its plan (``esize=2``) counts 2-byte elements, so a
+block keeps twice the rows in the same shared memory (and 16 bytes more
+for the mbarrier of its exchange).
 """
 
 from __future__ import annotations
@@ -59,15 +60,18 @@ def _smem_bytes(c: int, r: int, cluster: int, keep_rows: int, rows: bool,
                 esize: int = 4) -> int:
     """Bytes of csrc/se.cu's shared-memory layout for a block owning w
     channels (all C split by rows, a slice split by channels) of
-    esize-byte elements: what every rank pushes (f32 [cluster, C] sums or
-    [cluster, R] shares); f32 pooled means and scales [w]; the f32 hidden
-    units [R]; the block's weights [R, w] twice where they fit
-    MAX_WEIGHT_SMEM; the f32 pooling scratch; the kept rows [keep, w]. Each
-    part is rounded up to 16 bytes but the last."""
+    esize-byte elements: the bf16 form's exchange mbarrier (16 bytes); what
+    every rank pushes (f32 [cluster, C] sums or [cluster, R] shares); f32
+    pooled means and scales [w]; the f32 hidden units [R]; the block's
+    weights [R, w] twice where they fit MAX_WEIGHT_SMEM; the f32 pooling
+    scratch; the kept rows [keep, w]. Each part is rounded up to 16 bytes
+    but the last."""
     w = c if rows else slice_width(c, cluster, esize)
     weights = 2 * _round16(esize * r * w) if 2 * esize * r * w <= MAX_WEIGHT_SMEM else 0
-    return (_round16(4 * cluster * (c if rows else r)) + 2 * _round16(4 * w) + _round16(4 * r)
-            + weights + _round16(4 * max(w, 16 // esize * THREADS)) + keep_rows * w * esize)
+    bar = 16 if esize == 2 else 0  # the bf16 form's exchange mbarrier
+    return (bar + _round16(4 * cluster * (c if rows else r)) + 2 * _round16(4 * w)
+            + _round16(4 * r) + weights + _round16(4 * max(w, 16 // esize * THREADS))
+            + keep_rows * w * esize)
 
 
 @dataclass(frozen=True)
@@ -101,8 +105,12 @@ def se_plan(b: int, hw: int, c: int, r: int, esize: int = 4) -> SEPlan:
 
     Clusters of 8 blocks (the portable size) from 17 images up; below
     that 16 (non-portable, still one cluster per image), so a small batch
-    keeps more SMs busy. Split by channels where each block's slice of a
-    row is at least 16 channels (64 bytes, so the strided copies stay
+    keeps more SMs busy; the bf16 form keeps these sizes (measured per
+    stage with ``tools/se_plan_sweep.py --bf16``: with its asynchronous
+    exchange no other cluster size, and no other split, was more than 5%
+    faster at any stage at B = 32, and one block per image was slower at
+    every stage). Split by channels where each block's slice of a row is
+    at least 16 channels (64 bytes in f32, so the strided copies stay
     efficient): no block barrier before the FCs, and each weight read once
     per image. Else split by rows, every block running the (then small)
     FCs whole. Resident when a block's part of the image fits its shared
