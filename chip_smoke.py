@@ -206,10 +206,28 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     1, 4 and 2 times per replay, the graphed evaluator's top-1 equal to the
     trainer's; (d) phase 12 (b)'s 12-epoch run: every train step and
     validation forward after the two warm ones a replay; (e)
-    ``tools/run_ablation.py`` cut to 3 epochs on spatial corpora of 600/150
+    ``tools/run_ablation.py`` cut to 1 epoch on spatial corpora of 300/100
     scenes, three variants trained and evaluated in subprocesses on the
     card (each training logging its graphs), the table written, then the
-    same call again running nothing.
+    same call again running nothing;
+17. the JAX trainer's Orbax checkpoint read without orbax, tensorstore or a
+    zstd library, from the committed fixture ``tests/fixtures/orbax_narrow``
+    (a narrow trainer tree at 224 px with its tokenizer, answer vocabulary
+    and ``expected.npz``: the JAX engine's f32 probabilities for the
+    requests of its ``inputs.py`` and every array's SHA-256): (a) the zstd
+    decoder built with g++ from ``vqa_tpu_torch/native/zstd_decode.cc``
+    (the build timed), the fixture's zarr chunks decoded in one call on one
+    thread and on the pool (MB/s), and the whole read
+    (``load_orbax_checkpoint``) timed, every array equal to its digest;
+    (b) ``VQAInference(checkpoint_dir=fixture)`` loaded in f32 and bf16
+    (ms, the graph captures included) and asked the fixture's requests:
+    f32 probabilities within 1e-4 of ``expected.npz``; the bf16 engine's
+    within phase 11 (b)'s bound (no further from the same model's plain
+    bf16 forward than that is from f32, and the argmax of f32 on every row
+    whose margin is clear of that noise), each forward launching its forms
+    1, 4 and 2 times; (c) ``python -m vqa_tpu_torch.compat.torch_export``
+    on the fixture, its ``.pth`` loaded by the f32 engine, the same
+    answers; (d) the evaluator CLI (``--demo``) on the fixture directory.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -235,9 +253,10 @@ each form's launches over phase 12 (b)'s validation forwards, and
 ``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
 (rank 0) and replicas, and ``launches_tools``, over phase 14's CBAMBlock
 calls, faithfulness and visualization forwards and the in-process soak's
-engine; ``stages``, the bf16 SE's per-stage numbers, null elsewhere);
-before that, the graphed forward's device ms per bucket-32 call in f32 and
-bf16 (phase 15 (d), each round's); and before that the ``train_graphs``,
+engine, and ``launches_orbax``, over phase 17 (b)'s engine answers;
+``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that,
+the graphed forward's device ms per bucket-32 call in f32 and bf16 (phase
+15 (d), each round's); and before that the ``orbax``, ``train_graphs``,
 ``graphs``, ``tools``, ``multi_device``, ``bf16_training``, ``bf16``,
 ``training``, ``serving`` (load bench, HTTP phase, supervisor) and
 ``engine`` lines.
@@ -3564,7 +3583,7 @@ GRAPH_CASES = {           # (a): name → (model dtype, grad_accum, remat)
 STEP_TIMING_STEPS = {32: 10, 256: 6}  # (b): steps per side and round
 PIPELINE_BATCHES = 6      # (b): batches timed through prefetch_to_device
 VAL_GRAPH_BATCH = 32      # (c): four validation batches of the 640-sample synthetic split
-ABLATION_ARGV = ("--epochs", "3", "--num-images", "600", "--val-num-images", "150",
+ABLATION_ARGV = ("--epochs", "1", "--num-images", "300", "--val-num-images", "100",
                  "--seeds", "42")  # (e): the JAX script's corpora cut from 2,500/500 scenes
 
 
@@ -4010,6 +4029,211 @@ def drive_train_graphs(torch, tmp: str, bf16_training: dict, multi_device: dict,
     return out
 
 
+# ---- phase 17: the JAX trainer's Orbax checkpoint ---------------------------
+
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "orbax_narrow")
+ORBAX_F32_TOL = 1e-4  # the f32 engine's probabilities against the JAX engine's
+
+
+def _orbax_fixture_inputs():
+    """``tests/fixtures/orbax_narrow/inputs.py`` (numpy only), by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "orbax_fixture_inputs", os.path.join(ORBAX_FIXTURE, "inputs.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _leaf_digests(tree, path=()) -> dict:
+    """{dotted key path: SHA-256} of every array leaf, as ``expected.npz``
+    names them."""
+    import hashlib
+
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _leaf_digests(tree[key], path + (key,)).items()}
+    if isinstance(tree, list):
+        return {k: v for i, x in enumerate(tree)
+                for k, v in _leaf_digests(x, path + (str(i),)).items()}
+    if tree is None or isinstance(tree, (int, float)):
+        return {}
+    return {".".join(path): hashlib.sha256(np.ascontiguousarray(tree).tobytes()).hexdigest()}
+
+
+def orbax_decode() -> dict:
+    """(a) Build the decoder, time it over the fixture's chunks (one
+    thread, the pool) and the whole read (``tools/checkpoint_read.py``),
+    and hold every array to its digest."""
+    from vqa_tpu_torch import native
+    from vqa_tpu_torch.native import zstd
+    from vqa_tpu_torch.tools import checkpoint_read
+    from vqa_tpu_torch.training.checkpoint import load_orbax_checkpoint
+
+    t0 = time.perf_counter()
+    native.compile_library(zstd.SOURCE, zstd.LIBRARY)
+    zstd.load()
+    build_s = time.perf_counter() - t0
+    out = checkpoint_read.measure(ORBAX_FIXTURE, "best_model")
+    tree, cfg, _ = load_orbax_checkpoint(ORBAX_FIXTURE, "best_model")
+    expected = np.load(os.path.join(ORBAX_FIXTURE, "expected.npz"))
+    want = dict(zip(expected["names"].astype(str), expected["sha256"].astype(str)))
+    got = _leaf_digests(tree)
+    require(got == want, f"phase 17 (a): {sum(got.get(k) != v for k, v in want.items())} of "
+            f"{len(want)} arrays differ from their digests")
+    out.update(build_s=build_s, step=int(tree["step"]), image_size=cfg.image_size)
+    log(f"phase 17 (a): zstd decoder built in {build_s:.1f} s; {out['chunks']} chunks, "
+        f"{out['chunk_mb']:.3f} MB decoded: one thread {out['one_thread']['mb_per_s']:.1f} "
+        f"MB/s, the pool {out['pool']['mb_per_s']:.1f} MB/s over {out['pool']['copies']} copies; "
+        f"the whole checkpoint read in {out['read_ms']:.2f} ms (median of 5), "
+        f"{len(got)} arrays equal to their digests")
+    return out
+
+
+def orbax_engines(torch, device="cuda") -> tuple:
+    """(b) The engine loaded from the fixture in f32 and bf16, its answers
+    held to ``expected.npz``; returns (results, launches per form)."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.data.preprocess import device_normalize
+    from vqa_tpu_torch.ops import cross_attention_kernel, se_kernel, stem_kernel
+    from vqa_tpu_torch.serving.engine import VQAInference
+
+    inputs = _orbax_fixture_inputs()
+    expected = np.load(os.path.join(ORBAX_FIXTURE, "expected.npz"))
+    want = expected["probs"]
+    pixels, questions = inputs.images(), list(inputs.QUESTIONS)
+    require(tuple(expected["questions"].astype(str)) == inputs.QUESTIONS,
+            "phase 17: expected.npz holds other questions than inputs.py")
+    out, launches = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = VQAInference(checkpoint_dir=ORBAX_FIXTURE, device=device, dtype=dtype).load()
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        require(engine.model_loaded_from_checkpoint, f"phase 17 (b): {name} engine not loaded")
+        form = "_bf16" if name == "bf16" else ""
+        ops.reset_launch_counts()
+        probs = engine.predict_probs_from_pixels(pixels, questions)
+        counts = ops.launch_counts()
+        forwards = -(-len(questions) // engine._bucket(len(questions)))
+        for kernel, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+            other = "" if form else "_bf16"
+            require(counts[kernel + form] == per_forward * forwards
+                    and counts[kernel + other] == 0,
+                    f"phase 17 (b): {name} launches {counts} in {forwards} forwards")
+        launches.update({k: v for k, v in counts.items() if k.endswith("_bf16") == bool(form)})
+        require(bool(np.isfinite(probs).all()), f"phase 17 (b): non-finite {name} answers")
+        err = float(np.abs(probs - want).max())
+        res = dict(load_ms=load_ms, max_abs_err_vs_jax=err, forwards=forwards,
+                   argmax_equal=bool((probs.argmax(-1) == want.argmax(-1)).all()))
+        if name == "f32":
+            require(err <= ORBAX_F32_TOL, f"phase 17 (b): f32 answers {err:.3e} from JAX's "
+                    f"(tol {ORBAX_F32_TOL:.0e})")
+            f32_engine, f32_probs = engine, probs
+        else:
+            # phase 11 (b)'s bound: the kernels no further from the plain
+            # bf16 forward than that is from f32
+            ids, mask = engine.tokenizer.encode_batch_np(questions)
+            x = torch.from_numpy(pixels).to(engine.device)
+            ids = torch.from_numpy(ids).long().to(engine.device)
+            mask = torch.from_numpy(mask).to(engine.device)
+            with torch.inference_mode(), \
+                    mock.patch.object(stem_kernel, "fused_stem", stem_kernel.plain_stem), \
+                    mock.patch.object(se_kernel, "fused_se", se_kernel.plain_se), \
+                    mock.patch.object(cross_attention_kernel, "fused_cross_attention",
+                                      cross_attention_kernel.plain_cross_attention):
+                logits, _ = engine.model(device_normalize(x), ids, mask)
+                plain = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+            noise = float(np.abs(plain - f32_probs).max())
+            kernel_err = float(np.abs(probs - plain).max())
+            top2 = np.sort(f32_probs, axis=-1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > 2 * noise
+            agree = bool((probs.argmax(-1) == f32_probs.argmax(-1))[clear].all())
+            res.update(kernels_vs_plain=kernel_err, plain_vs_f32=noise,
+                       rows_compared=int(clear.sum()), argmax_agrees=agree)
+            require(kernel_err <= noise, f"phase 17 (b): bf16 kernels {kernel_err:.3e} from "
+                    f"the plain bf16 forward, over bf16's own noise {noise:.3e}")
+            require(agree, "phase 17 (b): bf16 argmax differs from f32 on a clear row")
+        out[name] = res
+        log(f"phase 17 (b): {name} engine from the Orbax fixture: load {load_ms:.1f} ms "
+            f"(graphs captured), answers vs the JAX engine's f32 max err {err:.3e}"
+            + (f", kernels vs plain bf16 {res['kernels_vs_plain']:.3e} within bf16's own "
+               f"{res['plain_vs_f32']:.3e}" if name == "bf16" else "")
+            + f"; launches {counts}")
+        if name == "bf16":
+            del engine
+    return out, launches, f32_engine, f32_probs
+
+
+def orbax_export(torch, tmp: str, f32_probs, device="cuda") -> dict:
+    """(c) The exporter CLI's ``.pth``, loaded by the f32 engine: the same
+    answers."""
+    import shutil
+
+    from vqa_tpu_torch.serving.engine import VQAInference
+
+    out_dir = os.path.join(tmp, "exported")
+    os.makedirs(out_dir)
+    for name in ("tokenizer.json", "answer_vocab.json"):
+        shutil.copyfile(os.path.join(ORBAX_FIXTURE, name), os.path.join(out_dir, name))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vqa_tpu_torch.compat.torch_export", "--checkpoint-dir",
+         ORBAX_FIXTURE, "--which", "best_model", "--out", os.path.join(out_dir, "model.pth")],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    export_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"phase 17 (c): the exporter exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    engine = VQAInference(checkpoint_dir=out_dir, checkpoint_name="model.pth", device=device,
+                          dtype=torch.float32).load()
+    inputs = _orbax_fixture_inputs()
+    probs = engine.predict_probs_from_pixels(inputs.images(), list(inputs.QUESTIONS))
+    err = float(np.abs(probs - f32_probs).max())
+    require(err <= 1e-6 and (probs.argmax(-1) == f32_probs.argmax(-1)).all(),
+            f"phase 17 (c): the exported .pth answers {err:.3e} from the Orbax directory's "
+            "engine")
+    log(f"phase 17 (c): torch_export CLI {export_s:.1f} s; the engine on its .pth gives the "
+        f"Orbax directory's answers (max err {err:.1e})")
+    return dict(export_s=export_s, max_abs_err=err)
+
+
+def orbax_evaluate(torch, tmp: str, extra=()) -> dict:
+    """(d) The evaluator CLI on the fixture directory (demo data at the
+    fixture's geometry), f32 on the card."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.training import evaluate
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate.main(["--checkpoint-dir", ORBAX_FIXTURE, "--demo", "--max-samples", "64",
+                         "--batch-size", "32", "--output-dir", os.path.join(tmp, "eval"),
+                         *extra])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    forwards = -(-res["num_samples"] // 32)
+    for name, per_forward in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(counts[name] == per_forward * forwards,
+                f"phase 17 (d): evaluator launches {counts} in {forwards} forwards")
+    log(f"phase 17 (d): evaluate --demo on the Orbax fixture: {res['num_samples']} samples in "
+        f"{wall:.1f} s, top-1 {res['top1_accuracy']:.4f}; launches {counts}")
+    return dict(seconds=wall, samples=res["num_samples"], top1=res["top1_accuracy"],
+                launches=counts)
+
+
+def drive_orbax(torch, tmp: str, device="cuda", extra=()) -> tuple:
+    """Phase 17; returns (summary, launches per kernel form over (b))."""
+    t0 = time.perf_counter()
+    out = {"decode": orbax_decode()}
+    out["engines"], launches, engine, f32_probs = orbax_engines(torch, device)
+    del engine
+    out["export"] = orbax_export(torch, tmp, f32_probs, device)
+    out["evaluate"] = orbax_evaluate(torch, tmp, extra)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def _free_port() -> int:
     import socket
 
@@ -4148,6 +4372,10 @@ def main(argv=None) -> int:
         graphs = drive_graphs(torch, rng, multi_device, tmp)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_graphs.") as tmp:
         train_graphs = drive_train_graphs(torch, tmp, bf16_training, multi_device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax.") as tmp:
+        orbax, orbax_launches = drive_orbax(torch, tmp)
+    for name in kernels:  # (b)'s engines, each form in its own dtype
+        kernels[name]["launches_orbax"] = orbax_launches.get(name, 0)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {
@@ -4165,10 +4393,11 @@ def main(argv=None) -> int:
     log(json.dumps({"tools": tools}))
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"train_graphs": train_graphs}))
+    log(json.dumps({"orbax": orbax}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools",
-            "stages")
+            "launches_orbax", "stages")
     # the graphed forward's device ms per bucket-32 call (phase 15 (d)), beside
     # the kernels it runs
     log(json.dumps({"graphed_forward_device_ms_b32": {

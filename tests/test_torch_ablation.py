@@ -18,6 +18,7 @@ import os
 import pytest
 
 from vqa_tpu_torch.tools import run_ablation
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,6 +22,7 @@ from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.serving.fastapi_app import HAS_FASTAPI, create_app, create_asgi_app
 from vqa_tpu_torch.serving.server import VQAServer
 from vqa_tpu_torch.utils.config import InferenceConfig, model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=50, embed_dim=16, num_answers=8, num_transformer_layers=1,
             num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6,

@@ -16,6 +16,7 @@ from vqa_tpu.models import attention_modules as jax_modules
 from vqa_tpu_torch.compat.jax_weights import module_state_dict_from_jax
 from vqa_tpu_torch.models import CBAMBlock, SelfAttention2D
 from vqa_tpu_torch.ops import se_kernel
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 # (B, H, W, C): a 7x7 stage output, an odd H x W

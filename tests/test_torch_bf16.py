@@ -48,6 +48,7 @@ from vqa_tpu_torch.models import create_vqa_model
 from vqa_tpu_torch.ops.se_kernel import MAX_SMEM, se_plan
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.utils.config import InferenceConfig, model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = torch.bfloat16
 TINY = dict(vocab_size=50, embed_dim=32, num_answers=16, num_transformer_layers=1,

@@ -18,6 +18,7 @@ import torch
 from vqa_tpu_torch.ops.cross_attention_kernel import (
     MAX_SMEM, bf16_geometry, fused_cross_attention, plain_cross_attention, smem_bytes)
 from vqa_tpu_torch.utils.config import ModelConfig, tiny_model_config
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = torch.bfloat16
 

@@ -29,6 +29,7 @@ from vqa_tpu_torch.models import create_vqa_model
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
 from vqa_tpu_torch.training.train import Trainer
 from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig, tiny_model_config
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = ModelConfig(vocab_size=64, num_answers=16)

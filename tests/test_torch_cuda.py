@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from vqa_tpu_torch import ops
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

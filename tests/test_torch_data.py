@@ -24,6 +24,7 @@ from vqa_tpu.data import synthetic as jax_syn
 from vqa_tpu.utils import metrics as jax_metrics
 from vqa_tpu_torch.data import dataset, pipeline, preprocess, synthetic
 from vqa_tpu_torch.utils import metrics
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "mini_vqa")
 

@@ -27,6 +27,7 @@ from vqa_tpu_torch.data.dataset import BatchLoader, DemoVQADataset, shard_for_pr
 from vqa_tpu_torch.parallel import distributed
 from vqa_tpu_torch.serving import server
 from vqa_tpu_torch.training import evaluate, train
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LAUNCHER_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 

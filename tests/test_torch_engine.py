@@ -24,6 +24,7 @@ from vqa_tpu_torch.data.vocab import AnswerVocabulary
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.utils.config import InferenceConfig, model_config_from_dict
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=50, embed_dim=16, num_answers=8, num_transformer_layers=1,
             num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6,
@@ -144,14 +145,14 @@ def test_engine_loads_reference_pth_checkpoint(tmp_path):
     import torch
 
     from vqa_tpu_torch.models import create_vqa_model
-    from vqa_tpu_torch.serving.engine import _REFERENCE_CONFIG_KEYS
+    from vqa_tpu_torch.compat.jax_weights import REFERENCE_CONFIG_KEYS
     from vqa_tpu_torch.utils.config import ModelConfig
 
     cfg = ModelConfig(vocab_size=30, embed_dim=16, num_answers=5, num_transformer_layers=1,
                       num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6)
     model = create_vqa_model(config=cfg, device="cpu", seed=9)
     torch.save({"model_state_dict": model.state_dict(),
-                "config": {k: getattr(cfg, k) for k in _REFERENCE_CONFIG_KEYS}},
+                "config": {k: getattr(cfg, k) for k in REFERENCE_CONFIG_KEYS}},
                tmp_path / "ref.pth")
     engine = VQAInference(checkpoint_dir=str(tmp_path), checkpoint_name="ref.pth",
                           device="cpu").load()
@@ -164,7 +165,18 @@ def test_engine_loads_reference_pth_checkpoint(tmp_path):
 
 
 def test_engine_refuses_an_orbax_checkpoint_dir(tmp_path):
+    """An Orbax directory the port's reader cannot read (here: written with
+    zarr3) stops the load with an error naming what it lacks; readable
+    ones load (``tests/test_torch_orbax.py``)."""
+    import json
+
+    from vqa_tpu_torch.compat.orbax import OrbaxError
+
     (tmp_path / "best_model").mkdir()
+    (tmp_path / "best_model" / "_METADATA").write_text(json.dumps(
+        {"tree_metadata": {}, "use_ocdbt": True, "use_zarr3": True}))
+    (tmp_path / "best_model.meta.json").write_text(json.dumps(
+        {"config": model_config_dict(JaxModelConfig(**TINY)), "meta": {}}))
     engine = VQAInference(checkpoint_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    with pytest.raises(OrbaxError, match="zarr3"):
         engine.load()

@@ -30,6 +30,7 @@ from vqa_tpu_torch.serving import graphs
 from vqa_tpu_torch.serving.batcher import MicroBatcher
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.utils.config import InferenceConfig, MeshConfig, tiny_model_config
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # what one eval forward launches on the card (phase 3 of chip_smoke.py)
 PER_FORWARD = {"stem": 1, "se": 4, "cross_attention": 2}

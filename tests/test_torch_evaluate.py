@@ -41,6 +41,7 @@ from vqa_tpu_torch.models import create_vqa_model
 from vqa_tpu_torch.training import evaluate
 from vqa_tpu_torch.training.evaluate import Evaluator
 from vqa_tpu_torch.utils.config import model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "mini_vqa")
 TINY = dict(embed_dim=16, num_transformer_layers=1, num_attention_heads=2, ffn_hidden_dim=32,

@@ -10,9 +10,11 @@ import os
 import subprocess
 import sys
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "vqa_tpu_torch")
-FORBIDDEN_IMPORTS = ("jax", "flax", "vqa_tpu")
+FORBIDDEN_IMPORTS = ("jax", "flax", "vqa_tpu", "optax", "orbax", "tensorstore", "zstandard")
 
 
 def _port_files():

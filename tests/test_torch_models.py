@@ -26,6 +26,7 @@ from vqa_tpu_torch.compat.jax_weights import state_dict_from_jax
 from vqa_tpu_torch.models import create_vqa_model, forward_logits, get_attention_maps
 from vqa_tpu_torch.models.fusion import attention_visualization
 from vqa_tpu_torch.utils.config import model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=20, num_answers=7, embed_dim=16, num_transformer_layers=1,
             num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6,

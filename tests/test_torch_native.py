@@ -23,6 +23,7 @@ from PIL import Image
 from vqa_tpu import native as jax_native
 from vqa_tpu_torch import native
 from vqa_tpu_torch.data import preprocess
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RNG = np.random.default_rng(1234)

@@ -19,6 +19,7 @@ from vqa_tpu_torch import ops as tops
 from vqa_tpu_torch.ops.se_kernel import (
     CLUSTER_FILL, MAX_SMEM, NUM_SMS, SM_SHARED, se_plan)
 from vqa_tpu_torch.ops.stem_kernel import stem_output_hw, stem_takes
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

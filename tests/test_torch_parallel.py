@@ -55,6 +55,7 @@ from vqa_tpu_torch.parallel import (
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.training.checkpoint import load_model_for_inference
 from vqa_tpu_torch.utils.config import MeshConfig, model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(vocab_size=20, num_answers=7, embed_dim=16, num_transformer_layers=1,
             num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6,

@@ -25,6 +25,7 @@ from vqa_tpu_torch.utils.profiling import (
     stop_trace,
     time_chained,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_all_is_the_jax_list():

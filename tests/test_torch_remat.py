@@ -45,6 +45,7 @@ from vqa_tpu_torch.ops import stem_kernel
 from vqa_tpu_torch.training import train as port_train
 from vqa_tpu_torch.utils.config import (ModelConfig, TrainingConfig, model_config_from_dict,
                                         tiny_model_config)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 4
 

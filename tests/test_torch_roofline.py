@@ -19,6 +19,7 @@ import sys
 import pytest
 
 from vqa_tpu_torch.tools import roofline
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -38,6 +38,7 @@ from vqa_tpu_torch.serving.batcher import MicroBatcher, _Request
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.serving.server import VQAServer, _parse_multipart_email, parse_multipart
 from vqa_tpu_torch.utils.config import InferenceConfig, model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=50, embed_dim=16, num_answers=8, num_transformer_layers=1,
@@ -635,14 +636,16 @@ def test_server_cli_refuses_to_start_without_a_gpu():
 
 
 def test_server_cli_stops_on_an_orbax_checkpoint(tmp_path):
-    """An Orbax ``best_model`` directory stops the server with the
-    exporter's command; it does not serve a random model instead."""
+    """An Orbax ``best_model`` directory the port cannot load (here: without
+    its sidecar) stops the server, naming what is missing; it does not
+    serve a random model instead. One with its sidecar loads
+    (``tests/test_torch_orbax.py``)."""
     (tmp_path / "best_model").mkdir()
     proc = subprocess.run(
         [sys.executable, "-m", "vqa_tpu_torch.serving.server", "--tiny", "--device", "cpu",
          "--host", "127.0.0.1", "--port", "0", "--checkpoint-dir", str(tmp_path)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "vqa_tpu.compat.torch_export" in proc.stderr
+    assert "FileNotFoundError" in proc.stderr and "best_model.meta.json" in proc.stderr
     assert "[API] serving on" not in proc.stdout
     assert "randomly initialized" not in proc.stdout

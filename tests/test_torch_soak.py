@@ -18,6 +18,8 @@ import sys
 
 import pytest
 
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -33,6 +33,7 @@ from vqa_tpu_torch.ops import plain_stem
 from vqa_tpu_torch.ops.stem_kernel import (
     BOX_ROWS, KH_ORDER, MAX_SMEM, PITCH, SM_SHARED, STRIP, STRIP_ROWS, TCX, TCY, stem_k_slots,
     stem_k_taps, stem_output_hw, stem_plan)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ENGINE = [(1, 224, 224, 64), (8, 224, 224, 64), (32, 224, 224, 64)]
 ODD = [(1, 37, 50, 16), (2, 17, 9, 24), (1, 1, 1, 8)]

@@ -19,6 +19,7 @@ import torch
 
 from vqa_tpu_torch.ops import plain_stem
 from vqa_tpu_torch.ops.stem_kernel import stem_output_hw
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)

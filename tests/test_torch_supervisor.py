@@ -32,6 +32,7 @@ from vqa_tpu_torch.serving.supervisor import (
     _pick_port,
     rss_mb,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUPERVISOR = [sys.executable, "-m", "vqa_tpu_torch.serving.supervisor"]

@@ -41,6 +41,7 @@ from vqa_tpu_torch.models.vqa_model import create_vqa_model, get_attention_maps
 from vqa_tpu_torch.tools import attention_faithfulness, make_vqa_corpus, visualize_attention
 from vqa_tpu_torch.utils import attention_analysis as aa
 from vqa_tpu_torch.utils.config import model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5

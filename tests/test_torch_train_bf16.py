@@ -78,6 +78,7 @@ from vqa_tpu_torch.models import layers
 from vqa_tpu_torch.models.cnn_backbone import BatchNorm2d
 from vqa_tpu_torch.training import train as port_train
 from vqa_tpu_torch.utils.config import TrainingConfig, model_config_from_dict
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF16 = torch.bfloat16
 TINY = dict(vocab_size=20, num_answers=7, embed_dim=16, num_transformer_layers=1,

@@ -39,6 +39,7 @@ from vqa_tpu_torch.training import step_graph
 from vqa_tpu_torch.training import train as train_mod
 from vqa_tpu_torch.utils import graphs
 from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = ModelConfig(vocab_size=50, num_answers=8, embed_dim=16, num_transformer_layers=1,
                    num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6,
@@ -257,7 +258,7 @@ def test_device_augmentation_replays_its_seeded_draws(monkeypatch):
     the eager augmentation from the same (epoch, step) seeds, and the
     epoch's metrics as eagerly."""
     train_loader, val_loader, tok, vocab = create_synthetic_loaders(
-        num_samples=60, batch_size=4, eval_batch_size=4, image_size=TINY.image_size,
+        num_samples=30, batch_size=4, eval_batch_size=4, image_size=TINY.image_size,
         max_question_length=TINY.max_question_length, device_augment=True, seed=2)
     cfg = dataclasses.replace(TINY, vocab_size=tok.vocab_size, num_answers=vocab.num_answers)
     eager = _trainer(train_loader, val_loader, model_cfg=cfg)
@@ -299,8 +300,9 @@ def test_validation_and_the_evaluator_replay_without_aliasing(monkeypatch):
 def test_the_graphs_read_the_weights_of_each_epoch(monkeypatch):
     """A validation graph captured in epoch 0 gives epoch 1's eager
     validation on epoch 1's weights, in bf16 (the copies it reads are
-    refreshed in place)."""
-    loaders = _demo(samples=120, eval_batch=4)
+    refreshed in place): eight steps an epoch, and epoch 1's two
+    validation batches are both replays."""
+    loaders = _demo(batch=4, samples=40, eval_batch=4)
     _graphed(monkeypatch)
     trainer = _trainer(*loaders)
     trainer.model.set_compute_dtype(torch.bfloat16)

@@ -41,6 +41,7 @@ from vqa_tpu_torch.compat.jax_weights import state_dict_from_jax
 from vqa_tpu_torch.models import create_vqa_model, forward_logits
 from vqa_tpu_torch.training import train as port_train
 from vqa_tpu_torch.utils.config import TrainingConfig, model_config_from_dict
+from test_torch_threads import default_torch_threads, one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=20, num_answers=7, embed_dim=16, num_transformer_layers=1,
             num_attention_heads=2, ffn_hidden_dim=32, max_question_length=6,
@@ -260,9 +261,12 @@ def test_train_step_params_and_bn_stats_match_jax(one_step, case):
     assert int(model.image_encoder.stem[1].num_batches_tracked) == accum
 
 
+@pytest.mark.usefixtures("default_torch_threads")
 def test_three_steps_with_warmup_follow_jax():
     """warmup 1 epoch of 2 steps: lr 0, 5e-5, then the cosine; the loss of
-    each step and the parameters after the last match."""
+    each step and the parameters after the last match (with torch's default
+    thread count: one thread sums the conv gradients in another order, and
+    three AdamW steps carry that to 9.1e-5 on a stage-1 conv weight)."""
     kw = dict(learning_rate=1e-4, warmup_epochs=1, num_epochs=3)
     model = _port_model()
     state = port_train.TrainState.create(model, TrainingConfig(**kw), 2)

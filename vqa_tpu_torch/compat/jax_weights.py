@@ -19,11 +19,18 @@ An unknown flax path raises ``KeyError``, so structural drift fails loudly.
 ``models/attention_modules.py`` used alone (``CBAMBlock``,
 ``SelfAttention2D``, ``SEAttention``, ``SpatialAttention``,
 ``AttentionWrapper``): its flax ``{'params': ...}`` → its ``state_dict``.
+
+``reference_config(config)`` is the ``config`` entry of a reference-schema
+``.pth``; ``model_config_from_reference(config, state_dict)`` reads a
+model config back from one, its backbone geometry from the weights'
+shapes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import math
+import re
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -183,3 +190,50 @@ def module_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Ten
         else:
             raise KeyError(f"no mapping for params:{'/'.join(path)}")
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+# the reference config's keys, in the reference's order
+REFERENCE_CONFIG_KEYS = (
+    "vocab_size", "embed_dim", "num_answers", "use_se_attention",
+    "use_spatial_attention", "se_reduction", "num_transformer_layers",
+    "num_attention_heads", "ffn_hidden_dim", "max_question_length",
+    "num_cross_layers", "use_gating", "dropout", "answer_dropout",
+)
+_BLOCK = re.compile(r"^image_encoder\.stage(\d)\.blocks\.(\d+)\.conv1\.weight$")
+
+
+def reference_config(config: ModelConfig) -> Dict[str, Any]:
+    """The ``config`` entry of a reference ``.pth``."""
+    return {k: getattr(config, k) for k in REFERENCE_CONFIG_KEYS}
+
+
+def model_config_from_reference(ref_config: Mapping[str, Any],
+                                state_dict: Mapping[str, torch.Tensor]) -> ModelConfig:
+    """A ``.pth``'s model config: its reference keys, plus the backbone
+    geometry its weights' shapes give (the image size stays the default,
+    which the weights do not fix)."""
+    kw = {k: ref_config[k] for k in REFERENCE_CONFIG_KEYS if k in ref_config}
+    stem = state_dict.get("image_encoder.stem.0.weight")
+    if stem is not None:
+        kw["base_channels"], kw["in_channels"] = int(stem.shape[0]), int(stem.shape[1])
+    first = {}
+    blocks = {}
+    for key, value in state_dict.items():
+        m = _BLOCK.match(key)
+        if m:
+            stage, block = int(m.group(1)), int(m.group(2))
+            blocks[stage] = max(blocks.get(stage, 0), block + 1)
+            if block == 0:
+                first[stage] = int(value.shape[0])
+    if sorted(first) == [1, 2, 3, 4]:
+        kw["stage_channels"] = tuple(first[s] for s in (1, 2, 3, 4))
+        kw["blocks_per_stage"] = tuple(blocks[s] for s in (1, 2, 3, 4))
+    for stage in (3, 4):
+        spatial = state_dict.get(f"image_encoder.stage{stage}.attention.spatial.conv.weight")
+        if spatial is not None:
+            kw["spatial_kernel_size"] = int(spatial.shape[-1])
+            break
+    position = state_dict.get("fusion.image_projector.position_embedding")
+    if position is not None:
+        kw["feature_spatial_size"] = math.isqrt(int(position.shape[1]))
+    return ModelConfig(**kw)

@@ -18,6 +18,9 @@ server and its worker) never load a half-written library.
 Where no compiler works, ``available()`` is False and callers take PIL,
 which gives the same bytes. The compiler's output is kept:
 ``build_error()`` returns it, and it is logged once.
+
+The zstd decoder beside it (``zstd.py``, ``zstd_decode.cc``) is built the
+same way (``compile_library``) but has no fallback.
 """
 
 from __future__ import annotations
@@ -46,26 +49,30 @@ _error: Optional[str] = None
 _lock = threading.Lock()
 
 
-def _build() -> None:
-    """Compile into a temporary file in ``BUILD_DIR`` and rename it over
-    ``LIBRARY``; raise with the compiler's output on failure."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", prefix=".libvqa_preprocess.", dir=BUILD_DIR)
+def compile_library(source: str, library: str) -> None:
+    """Compile ``source`` into a temporary file beside ``library`` and
+    rename it over ``library``; raise with the compiler's output on
+    failure."""
+    build_dir = os.path.dirname(library)
+    os.makedirs(build_dir, exist_ok=True)
+    prefix = "." + os.path.splitext(os.path.basename(library))[0] + "."
+    fd, tmp = tempfile.mkstemp(suffix=".so", prefix=prefix, dir=build_dir)
     os.close(fd)
     try:
-        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True, timeout=120)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ exited {proc.returncode}:\n{proc.stderr}")
-        os.replace(tmp, LIBRARY)
+        os.replace(tmp, library)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
 
 
-def _stale() -> bool:
-    return (not os.path.exists(LIBRARY)
-            or os.path.getmtime(SOURCE) > os.path.getmtime(LIBRARY))
+def library_is_stale(source: str, library: str) -> bool:
+    """True when ``library`` is missing or older than ``source``."""
+    return (not os.path.exists(library)
+            or os.path.getmtime(source) > os.path.getmtime(library))
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -92,8 +99,8 @@ def _load() -> Optional[ctypes.CDLL]:
         if _tried:
             return _lib
         try:
-            if _stale():
-                _build()
+            if library_is_stale(SOURCE, LIBRARY):
+                compile_library(SOURCE, LIBRARY)
             lib = ctypes.CDLL(LIBRARY)
             _declare(lib)
             version = lib.vqa_native_abi_version()

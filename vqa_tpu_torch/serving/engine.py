@@ -25,12 +25,13 @@ forward. On the CPU the engine runs eagerly. ``attention_map`` is eager
 everywhere, as the JAX one is.
 
 Weights, in the JAX engine's order (its own checkpoint, a ``.pth``, a
-random model): the port's checkpoint ``checkpoint_dir/<name>.pt`` with its
+random model): the port's checkpoint ``checkpoint_dir/<name>.pt`` or the
+JAX trainer's Orbax directory ``checkpoint_dir/<name>/``, each with its
 sidecar (``training/checkpoint.py``; the model rebuilt from the sidecar's
 full config), else a reference-schema ``.pth`` (``model_state_dict`` +
-``config``, loaded strictly) named by ``checkpoint_dir/checkpoint_name``,
-else a seeded random model. The JAX package's Orbax checkpoints are not
-read yet: export one with ``python -m vqa_tpu.compat.torch_export`` first.
+``config``, loaded strictly, the backbone's geometry read from the
+weights' shapes) named by ``checkpoint_dir/checkpoint_name``, else a
+seeded random model.
 
 The engine runs on ``device="cuda"`` unless the caller asks for the CPU,
 and raises when no CUDA device is present. Its compute dtype is the JAX
@@ -64,6 +65,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vqa_tpu_torch.compat.jax_weights import model_config_from_reference
 from vqa_tpu_torch.data.preprocess import (
     ImageInput,
     device_normalize,
@@ -87,15 +89,6 @@ _DEFAULT_QUESTION_WORDS = [
     "a", "in", "on", "of", "man", "woman", "dog", "cat", "doing", "wearing",
 ]
 
-# reference checkpoint config keys → ModelConfig fields (the reference keeps
-# no CNN geometry, so those stay at their defaults)
-_REFERENCE_CONFIG_KEYS = (
-    "vocab_size", "embed_dim", "num_answers", "use_se_attention",
-    "use_spatial_attention", "se_reduction", "num_transformer_layers",
-    "num_attention_heads", "ffn_hidden_dim", "max_question_length",
-    "num_cross_layers", "use_gating", "dropout", "answer_dropout",
-)
-
 
 def forward_probs(model: VQAModel, pixels: torch.Tensor, ids: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
@@ -112,7 +105,7 @@ def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAMode
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     state_dict = ckpt.get("model_state_dict", ckpt)
     ref_cfg = ckpt.get("config", {}) if isinstance(ckpt, dict) else {}
-    cfg = ModelConfig(**{k: ref_cfg[k] for k in _REFERENCE_CONFIG_KEYS if k in ref_cfg})
+    cfg = model_config_from_reference(ref_cfg, state_dict)
     model = create_vqa_model(config=cfg, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).set_compute_dtype(dtype)
@@ -179,11 +172,11 @@ class VQAInference:
                 loaded = True
                 print(f"[Inference] loaded checkpoint {self.checkpoint_name}")
             elif os.path.isdir(path):
-                raise NotImplementedError(
-                    f"{path} looks like an Orbax checkpoint, which the port does "
-                    "not read yet; export it with "
-                    "`python -m vqa_tpu.compat.torch_export --checkpoint-dir ... "
-                    "--out X.pth` and load the .pth")
+                # a directory named as the checkpoint is never replaced by
+                # a random model: the JAX trainer's tree needs its sidecar
+                raise FileNotFoundError(
+                    f"{path} is a directory but no checkpoint: a JAX trainer's "
+                    f"checkpoint directory comes with {path}.meta.json")
             elif path.endswith(".pth") and os.path.exists(path):
                 self.model = load_reference_checkpoint(path, self.device, self.dtype)
                 loaded = True
