@@ -227,7 +227,32 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     whose margin is clear of that noise), each forward launching its forms
     1, 4 and 2 times; (c) ``python -m vqa_tpu_torch.compat.torch_export``
     on the fixture, its ``.pth`` loaded by the f32 engine, the same
-    answers; (d) the evaluator CLI (``--demo``) on the fixture directory.
+    answers; (d) the evaluator CLI (``--demo``) on the fixture directory;
+18. the port's trainer resumed from the JAX trainer's Orbax tree (optax's
+    AdamW moments and counts as torch AdamW's state, ``Trainer.resume``):
+    (a) the fixture's tree resumed in f32 (TF32 off, dropout 0) on the card
+    and three times on the CPU (as is, the batch in another order, one
+    torch thread; oneDNN off), its moments on the card equal to the mapped
+    tree's (0), its
+    counts 2 and its rate schedule(2); three steps on the batches of the
+    fixture's ``resumed.npz`` (JAX's three steps from the same tree,
+    ``make_fixture.py --resumed``): the card's losses, parameters and BN
+    statistics within STEP_NOISE_FACTOR times the CPU runs' own distance
+    from JAX plus floors; one validation pass of replays, the f32 forms
+    launched 1, 4 and 2 times per forward; (b) a full-width trainer tree of
+    seeded values at step 250 (the key paths, shapes and dtypes of
+    ``make_fixture.py --full-width``), written in the plain-directory zarr
+    v2 layout by this script (``write_trainer_tree``), read (ms, three
+    times) and resumed by a bf16 Trainer (ms: read, map, load, to the card)
+    twice: the counts tensors on the card holding 250, the rate
+    schedule(250) where warmup makes schedule(0) 0 and the first step
+    moving the weights; five steps eagerly and graphed (two warm, the
+    capture's replay, two more) from the same state, deterministic cuDNN,
+    within 1e-6 (phase 16's rule); ms per resumed graphed step at B = 32;
+    a validation pass of replays launching the bf16 forms 1, 4 and 2 times
+    per forward. Where a JAX-written full-width tree was carried into the
+    run at ``_checkout/fullwidth/trainer`` (``make_fixture.py --full-width
+    _checkout/fullwidth``), the resume from it is timed too.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -253,10 +278,12 @@ each form's launches over phase 12 (b)'s validation forwards, and
 ``launches_multi_device``, over phase 13's sharded forwards, dp2 evaluation
 (rank 0) and replicas, and ``launches_tools``, over phase 14's CBAMBlock
 calls, faithfulness and visualization forwards and the in-process soak's
-engine, and ``launches_orbax``, over phase 17 (b)'s engine answers;
+engine, and ``launches_orbax``, over phase 17 (b)'s engine answers, and
+``launches_resume``, over phase 18's validation passes: (a)'s f32, (b)'s
+bf16;
 ``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that,
 the graphed forward's device ms per bucket-32 call in f32 and bf16 (phase
-15 (d), each round's); and before that the ``orbax``, ``train_graphs``,
+15 (d), each round's); and before that the ``resume``, ``orbax``, ``train_graphs``,
 ``graphs``, ``tools``, ``multi_device``, ``bf16_training``, ``bf16``,
 ``training``, ``serving`` (load bench, HTTP phase, supervisor) and
 ``engine`` lines.
@@ -4234,6 +4261,510 @@ def drive_orbax(torch, tmp: str, device="cuda", extra=()) -> tuple:
     return out, launches
 
 
+# ---- phase 18: the port's trainer resumed from the JAX trainer's tree -------
+
+RESUME_STEPS = 3          # (a): JAX's three steps after the fixture's two (resumed.npz)
+RESUME_FULL_STEP = 250    # (b): the step, Adam's count and the schedule's count of the tree
+RESUME_FULL_SPE = 100     # (b): steps per epoch: warmup 200 steps, so schedule(0) = 0
+RESUME_VAL_BATCHES = 4    # (b): validation batches of 32 synthetic scenes
+RESUME_TIMED_STEPS = 10   # (b): graphed steps timed after the compared ones
+# a JAX-written full-width trainer tree (make_fixture.py --full-width DIR with DIR
+# here), carried into a run uncommitted; the phase times a resume from it where
+# it is there and never depends on it
+RESUME_JAX_TREE = os.path.join(REPO, "_checkout", "fullwidth", "trainer")
+
+# (b)'s writer: the port's state_dict key → the flax module path and kind, the
+# inverse of compat/jax_weights.py:_torch_key (each result is checked against it)
+_FLAX_MODULES = (
+    (r"image_encoder\.stem\.0", "image_encoder/stem_conv", "conv"),
+    (r"image_encoder\.stem\.1", "image_encoder/stem_bn", "norm"),
+    (r"image_encoder\.(stage\d+)\.attention\.se\.(fc\d)", r"image_encoder/\1/attention/se/\2",
+     "dense"),
+    (r"image_encoder\.(stage\d+)\.attention\.spatial\.conv",
+     r"image_encoder/\1/attention/spatial/conv", "conv"),
+    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.(conv\d)", r"image_encoder/\1/block\2/\3", "conv"),
+    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.(bn\d)", r"image_encoder/\1/block\2/\3", "norm"),
+    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.downsample\.0",
+     r"image_encoder/\1/block\2/down_conv", "conv"),
+    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.downsample\.1",
+     r"image_encoder/\1/block\2/down_bn", "norm"),
+    (r"text_encoder\.token_embedding", "text_encoder/token_embedding", "embed"),
+    (r"text_encoder\.final_norm", "text_encoder/final_norm", "norm"),
+    (r"text_encoder\.layers\.(\d+)\.self_attention\.(W_\w)",
+     r"text_encoder/layer\1/self_attention/\2", "dense"),
+    (r"text_encoder\.layers\.(\d+)\.(norm\d)", r"text_encoder/layer\1/\2", "norm"),
+    (r"text_encoder\.layers\.(\d+)\.ffn\.(fc\d)", r"text_encoder/layer\1/ffn/\2", "dense"),
+    (r"fusion\.image_projector\.projection\.0", "fusion/image_projector/proj", "dense"),
+    (r"fusion\.image_projector\.projection\.1", "fusion/image_projector/proj_norm", "norm"),
+    (r"fusion\.image_projector", "fusion/image_projector", "param"),
+    (r"fusion\.cross_attention\.layers\.(\d+)\.(norm_\w+)", r"fusion/cross_attention/layer\1/\2",
+     "norm"),
+    (r"fusion\.cross_attention\.layers\.(\d+)\.cross_attention\.(W_\w)",
+     r"fusion/cross_attention/layer\1/cross_attention/\2", "dense"),
+    (r"fusion\.cross_attention\.layers\.(\d+)\.ffn\.0", r"fusion/cross_attention/layer\1/ffn_fc1",
+     "dense"),
+    (r"fusion\.cross_attention\.layers\.(\d+)\.ffn\.3", r"fusion/cross_attention/layer\1/ffn_fc2",
+     "dense"),
+    (r"fusion\.gate\.gate\.0", "fusion/gate/gate", "dense"),
+    (r"fusion\.output_norm", "fusion/output_norm", "norm"),
+    (r"answer_head\.classifier\.0", "answer_head/fc1", "dense"),
+    (r"answer_head\.classifier\.3", "answer_head/fc2", "dense"),
+    (r"answer_head\.classifier\.6", "answer_head/fc3", "dense"),
+)
+_FLAX_LEAVES = {"conv": {"weight": "kernel"}, "dense": {"weight": "kernel", "bias": "bias"},
+                "embed": {"weight": "embedding"},
+                "norm": {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                         "running_var": "var"},
+                "param": {"position_embedding": "position_embedding"}}
+
+
+def flax_leaf(key: str, value: np.ndarray):
+    """(collection, flax path, array in flax's layout) of one state_dict
+    entry, or None for what flax does not store (``pe``,
+    ``num_batches_tracked``)."""
+    import re
+
+    from vqa_tpu_torch.compat import jax_weights
+
+    module, leaf = key.rsplit(".", 1)
+    if leaf == "num_batches_tracked" or key == "text_encoder.positional_encoding.pe":
+        return None
+    for pattern, template, kind in _FLAX_MODULES:
+        if re.fullmatch(pattern, module) and leaf in _FLAX_LEAVES[kind]:
+            path = tuple(re.sub(pattern, template, module).split("/")) + (
+                _FLAX_LEAVES[kind][leaf],)
+            collection = "batch_stats" if leaf.startswith("running_") else "params"
+            back, transform = jax_weights._torch_key(collection, path)
+            require(back == key, f"flax_leaf({key}) → {'/'.join(path)} maps back to {back}")
+            if transform is jax_weights._conv_kernel:
+                value = np.transpose(value, (2, 3, 1, 0))  # OIHW → HWIO
+            elif transform is jax_weights._linear_kernel:
+                value = value.T
+            return collection, path, np.ascontiguousarray(value, np.float32)
+    raise KeyError(f"no flax path for {key}")
+
+
+def flax_variables(state_dict) -> dict:
+    """The port's state_dict (numpy arrays) as flax ``{'params',
+    'batch_stats'}`` trees."""
+    out = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        leaf = flax_leaf(key, np.asarray(value))
+        if leaf is None:
+            continue
+        collection, path, arr = leaf
+        node = out[collection]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return out
+
+
+def write_orbax_tree(path: str, tree) -> int:
+    """``tree`` (dicts, lists, numpy arrays, Nones) as an Orbax checkpoint
+    directory in the plain-directory zarr v2 layout, uncompressed, one
+    chunk per array (``compat/orbax.py`` reads it; Orbax writes it with
+    ``use_ocdbt=False``). Returns the bytes of array data written."""
+    entries, written = {}, 0
+
+    def walk(node, keys):
+        nonlocal written
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, keys + [(str(k), 2)])
+            return
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, keys + [(str(i), 1)])
+            return
+        name = ".".join(k for k, _ in keys)
+        meta = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
+        if node is None:
+            meta["value_metadata"] = {"value_type": "None", "skip_deserialize": True}
+        else:
+            arr = np.array(node, order="C", copy=False) if np.ndim(node) else np.asarray(node)
+            meta["value_metadata"] = {"value_type": "jax.Array", "skip_deserialize": False,
+                                      "write_shape": list(arr.shape)}
+            folder = os.path.join(path, name)
+            os.makedirs(folder)
+            with open(os.path.join(folder, ".zarray"), "w", encoding="utf-8") as f:
+                json.dump({"zarr_format": 2, "shape": list(arr.shape), "chunks": list(arr.shape),
+                           "dtype": arr.dtype.str, "compressor": None, "fill_value": None,
+                           "order": "C", "filters": None, "dimension_separator": "."}, f)
+            with open(os.path.join(folder, ".".join(["0"] * max(arr.ndim, 1))), "wb") as f:
+                f.write(arr.tobytes())
+            written += arr.nbytes
+        entries[str(tuple(k for k, _ in keys))] = meta
+
+    os.makedirs(path)
+    walk(tree, [])
+    with open(os.path.join(path, "_METADATA"), "w", encoding="utf-8") as f:
+        json.dump({"tree_metadata": entries, "use_ocdbt": False, "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True, "custom_metadata": None}, f)
+    return written
+
+
+def write_trainer_tree(base: str, name: str, model, rng, step: int, meta: dict) -> int:
+    """The JAX trainer's tree (``vqa_tpu/training/train.py:_state_tree``) of
+    ``model``'s weights and BN statistics, with AdamW's moments of seeded
+    values (mu ~ 1e-4·N(0, 1), nu = mu² + (1e-3·N(0, 1))², as gradients
+    near 1e-3 leave them) and every count at ``step``, written to
+    ``<base>/<name>/`` with its sidecar. Returns the array bytes."""
+    from vqa_tpu_torch.utils.config import model_config_dict
+
+    variables = flax_variables({k: v.detach().cpu().numpy()
+                                for k, v in model.state_dict().items()})
+
+    def like(tree, draw):
+        return {k: like(v, draw) if isinstance(v, dict) else draw(v.shape)
+                for k, v in tree.items()}
+
+    mu = like(variables["params"], lambda s: (1e-4 * rng.standard_normal(s)).astype(np.float32))
+
+    def second(tree, first):  # nu >= mu², as a mean of squares is
+        return {k: second(v, first[k]) if isinstance(v, dict) else
+                (np.square(first[k]) + np.square(1e-3 * rng.standard_normal(v.shape))
+                 ).astype(np.float32) for k, v in tree.items()}
+
+    nu = second(variables["params"], mu)
+    count = np.asarray(step, np.int32)
+    tree = {**variables, "opt_state": [None, [{"count": count, "mu": mu, "nu": nu}, None,
+                                              {"count": count}]], "step": count}
+    written = write_orbax_tree(os.path.join(base, name), tree)
+    with open(os.path.join(base, name + ".meta.json"), "w", encoding="utf-8") as f:
+        json.dump({"config": model_config_dict(model.config), "meta": meta}, f)
+    return written
+
+
+def _sidecar_config(base: str, name: str):
+    from vqa_tpu_torch.utils.config import model_config_from_dict
+
+    with open(os.path.join(base, name + ".meta.json"), encoding="utf-8") as f:
+        return model_config_from_dict(json.load(f)["config"])
+
+
+def resumed_trainer(torch, base: str, name: str, device, dtype=None, cfg=None, config=None,
+                    steps_per_epoch: int = 2, val_loader=(), seed: int = 19):
+    """A Trainer whose model is built from the checkpoint's sidecar config
+    (``cfg`` in its place) with other seeded weights, resumed from
+    ``<base>/<name>``; returns (trainer, ms to resume)."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    model = create_vqa_model(config=cfg or _sidecar_config(base, name), device=device,
+                             seed=seed, dtype=dtype or torch.float32)
+    trainer = Trainer(model, [None] * steps_per_epoch, list(val_loader),
+                      config=config or TrainingConfig(warmup_epochs=0), checkpoint_dir=base,
+                      save_checkpoints=False)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    trainer.resume(name)
+    sync()
+    return trainer, (time.perf_counter() - t0) * 1e3
+
+
+def mapped_moments(base: str, name: str, names) -> dict:
+    """The tree's moments as ``compat/jax_weights.py`` maps them, on the
+    CPU: {position: state}."""
+    from vqa_tpu_torch.compat.jax_weights import adamw_state_from_jax
+    from vqa_tpu_torch.compat.orbax import training_state
+    from vqa_tpu_torch.training.checkpoint import load_orbax_checkpoint
+
+    tree, _, _ = load_orbax_checkpoint(base, name)
+    state = training_state(tree)
+    return adamw_state_from_jax(state["mu"], state["nu"], state["adam_count"], names)
+
+
+def check_resumed_state(torch, trainer, base: str, name: str, step: int) -> dict:
+    """Before any step: every moment on the trainer's device equal to the
+    mapped tree's (0), every count ``step`` (a tensor on the device where
+    AdamW is capturable), the rate ``schedule(step)`` in the form the
+    optimizer holds it."""
+    opt = trainer.state.optimizer
+    params = list(trainer.model.parameters())
+    names = [n for n, _ in trainer.model.named_parameters()]
+    want = mapped_moments(base, name, names)
+    err, on_device = 0.0, True
+    for i, p in enumerate(params):
+        st = opt.state[p]
+        for k in ("exp_avg", "exp_avg_sq"):
+            on_device &= st[k].device == p.device
+            err = max(err, float((st[k].detach().cpu() - want[i][k]).abs().max()))
+        on_device &= st["step"].device == p.device or p.device.type == "cpu"
+        require(float(st["step"]) == step, f"{names[i]}: Adam's count {float(st['step'])}")
+    lr = opt.param_groups[0]["lr"]
+    rate = float(lr)
+    expected = float(np.float32(trainer.schedule(step))) if torch.is_tensor(lr) else \
+        trainer.schedule(step)
+    require(err == 0.0, f"resumed moments {err:.3e} from the mapped tree's")
+    require(on_device, "a resumed moment or count is not on the model's device")
+    require(trainer.state.step == step and rate == expected,
+            f"resumed step {trainer.state.step}, rate {rate!r} (schedule({step}) = {expected!r})")
+    return dict(moments_err=err, step=step, lr=rate, lr_is_tensor=bool(torch.is_tensor(lr)),
+                schedule_0=trainer.schedule(0))
+
+
+def _resumed_batches(torch, device, permute=None):
+    """(a)'s three batches: ``inputs.images(4)`` normalized as the fixture's
+    steps were, the tokens and labels of ``resumed.npz``; ``permute`` the
+    rows in another order."""
+    inputs = _orbax_fixture_inputs()
+    want = np.load(os.path.join(ORBAX_FIXTURE, "resumed.npz"))
+    images = inputs.images(4).astype(np.float32) / 255.0 - 0.5
+    rows = np.arange(4) if permute is None else permute
+    return [[torch.from_numpy(np.ascontiguousarray(a[rows])).to(device)
+             for a in (images, want["ids"][i], want["mask"][i], want["labels"][i])]
+            for i in range(RESUME_STEPS)]
+
+
+def _steps(torch, trainer, batches, graphed: bool = True):
+    step = trainer.train_step if graphed else trainer.eager_train_step
+    return [float(step(trainer.state, *b)["loss"]) for b in batches]
+
+
+def resume_narrow(torch, device) -> dict:
+    """(a) The fixture's tree resumed in f32, dropout off, on the card and
+    three times on the CPU (as is, the batch in another order, one torch
+    thread), each taking JAX's three steps (``resumed.npz``): the card's
+    losses, parameters and BN statistics within STEP_NOISE_FACTOR times
+    the CPU runs' own distance from JAX plus floors; then one validation
+    pass on the card. The CPU runs keep oneDNN off: its convolution
+    backward at the fixture's widths corrupted the heap (glibc abort) in
+    one whole-script run on the card's host, as on other hosts."""
+    import dataclasses
+
+    from vqa_tpu_torch.compat.jax_weights import state_dict_from_jax
+
+    cfg = dataclasses.replace(_sidecar_config(ORBAX_FIXTURE, "best_model"), dropout=0.0,
+                              answer_dropout=0.0)
+    want = np.load(os.path.join(ORBAX_FIXTURE, "resumed.npz"))
+    variables = {"params": {}, "batch_stats": {}}
+    for key in want.files:
+        collection, *path = key.split(".")
+        if collection in variables:
+            node = variables[collection]
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = want[key]
+    jax_state = {k: v.double() for k, v in state_dict_from_jax(variables, cfg).items()
+                 if not k.endswith(("num_batches_tracked", ".pe"))}
+    perm = np.array([2, 0, 3, 1])
+    runs = {}
+    threads = torch.get_num_threads()
+    for label, where, rows, one_thread in (("card", device, None, False),
+                                           ("cpu", "cpu", None, False),
+                                           ("cpu_permuted", "cpu", perm, False),
+                                           ("cpu_one_thread", "cpu", None, True)):
+        torch.set_num_threads(1 if one_thread else threads)
+        try:
+            with torch.backends.mkldnn.flags(enabled=False):
+                trainer, resume_ms = resumed_trainer(torch, ORBAX_FIXTURE, "best_model", where,
+                                                     cfg=cfg)
+                checked = check_resumed_state(torch, trainer, ORBAX_FIXTURE, "best_model", 2)
+                losses = _steps(torch, trainer, _resumed_batches(torch, where, rows))
+        finally:
+            torch.set_num_threads(threads)
+        state = {k: v.detach().cpu().double() for k, v in trainer.model.state_dict().items()}
+        runs[label] = dict(trainer=trainer, losses=losses, state=state, resume_ms=resume_ms,
+                           checked=checked)
+    card = runs["card"]
+    noise_runs = [runs[k] for k in ("cpu", "cpu_permuted", "cpu_one_thread")]
+    want_losses = [float(x) for x in want["losses"]]
+
+    def dist(losses):
+        return max(abs(a - b) for a, b in zip(losses, want_losses))
+
+    loss_err, loss_noise = dist(card["losses"]), max(dist(r["losses"]) for r in noise_runs)
+    failures, worst = [], []
+    if loss_err > STEP_NOISE_FACTOR * loss_noise + STEP_REL_FLOOR * max(want_losses):
+        failures.append(f"losses {loss_err:.3e} from JAX's (CPU runs {loss_noise:.3e})")
+    for key, ref in jax_state.items():
+        err = float((card["state"][key] - ref).abs().max())
+        noise = max(float((r["state"][key] - ref).abs().max()) for r in noise_runs)
+        bn = key.endswith(("running_mean", "running_var"))
+        scale = max(1.0, float(ref.abs().max())) if bn else float(ref.abs().max())
+        bound = STEP_NOISE_FACTOR * noise + STEP_REL_FLOOR * scale
+        worst.append((err / bound, key, err, noise))
+    worst.sort(reverse=True)
+    failures += [f"{k}: {e:.3e} from JAX's (CPU runs {z:.3e})" for f, k, e, z in worst if f > 1]
+    log(f"phase 18 (a): the fixture's tree resumed at step 2 on the card (f32, TF32 off, "
+        f"dropout 0; moments equal to the mapped tree's, rate {card['checked']['lr']:.6e}) "
+        f"and three times on the CPU; JAX's three steps: losses {want_losses}, the card's "
+        f"{card['losses']} (err {loss_err:.3e}, CPU runs {loss_noise:.3e}); nearest to the "
+        "bound: " + "; ".join(f"{k} err {e:.3e} CPU {z:.3e} ({100 * f:.0f}%)"
+                              for f, k, e, z in worst[:3]))
+    require(not failures, "phase 18 (a): " + "; ".join(failures[:5]))
+    trainer = card["trainer"]
+    inputs = _orbax_fixture_inputs()
+    ids, mask, labels = (want[k][0] for k in ("ids", "mask", "labels"))
+    val = [{"image": inputs.images(4).astype(np.float32) / 255.0 - 0.5, "token_ids": ids,
+            "attention_mask": mask, "answer": labels, "valid_mask": np.ones(4, np.float32)}]
+    trainer.val_loader = val * 3
+    return dict(losses=card["losses"], losses_jax=want_losses, loss_err=loss_err,
+                loss_noise=loss_noise, worst=[dict(name=k, err=e, cpu=z, share_of_bound=f)
+                                              for f, k, e, z in worst[:3]],
+                resume_ms=card["resume_ms"], moments_err=card["checked"]["moments_err"],
+                trainer=trainer)
+
+
+def validation_launches(torch, trainer, form: str) -> dict:
+    """A validation pass, then another counted: every forward a replay
+    launching the ``form`` kernels 1, 4 and 2 times, the other forms none."""
+    from vqa_tpu_torch import ops
+
+    trainer.validate()
+    replays = getattr(trainer.val_step, "replays", 0)
+    ops.reset_launch_counts()
+    metrics = trainer.validate()
+    counts = ops.launch_counts()
+    forwards = len(trainer.val_loader)
+    require(getattr(trainer.val_step, "replays", 0) - replays == forwards,
+            f"phase 18: {forwards} validation forwards were not all replays")
+    other = "" if form else "_bf16"
+    for name, per in (("stem", 1), ("se", 4), ("cross_attention", 2)):
+        require(counts[name + form] == per * forwards and counts[name + other] == 0,
+                f"phase 18: validation launches {counts} in {forwards} forwards")
+    require(math.isfinite(metrics["val_loss"]), "phase 18: non-finite validation loss")
+    return counts, metrics, forwards
+
+
+def resume_full_width(torch, tmp: str, device, cfg=None) -> dict:
+    """(b) A full-width trainer tree of seeded values at step 250, written
+    by ``write_trainer_tree``, read and resumed by a bf16 Trainer twice:
+    its eager steps against its graphed ones (two warm, the capture's
+    replay, two more) from the same state and dropout generator, with
+    deterministic cuDNN; the counts on the device, the rate schedule(250)
+    (warmup makes schedule(0) 0, so a step that read it would not move a
+    weight); ms to read, to resume and per graphed step; a validation
+    pass of replays."""
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.training.checkpoint import load_orbax_checkpoint
+    from vqa_tpu_torch.utils.config import ModelConfig, TrainingConfig
+    from vqa_tpu_torch.utils.graphs import WARM_FORWARDS
+
+    cfg = cfg or ModelConfig()
+    rng = np.random.default_rng(18)
+    source = create_vqa_model(config=cfg, device="cpu", seed=18)
+    history = {"history": {"val_top1": [0.1 * i for i in range(10)]}, "epochs": list(range(10))}
+    t0 = time.perf_counter()
+    nbytes = write_trainer_tree(tmp, "latest", source, rng, RESUME_FULL_STEP, {
+        "epoch": 9, "best_val_accuracy": 0.9, "metrics_history": history})
+    write_s = time.perf_counter() - t0
+    del source
+    read_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        load_orbax_checkpoint(tmp, "latest")
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+    tcfg = TrainingConfig()
+    batches = graph_batches(torch, cfg, device)
+    val = [dict(zip(("image", "token_ids", "attention_mask", "answer"),
+                    synthetic_batch(cfg, VAL_GRAPH_BATCH, seed=40 + i)),
+                valid_mask=np.ones(VAL_GRAPH_BATCH, np.float32))
+           for i in range(RESUME_VAL_BATCHES)]
+    runs = {}
+    for label in ("eager", "graph"):
+        trainer, resume_ms = resumed_trainer(
+            torch, tmp, "latest", device, dtype=torch.bfloat16, config=tcfg,
+            steps_per_epoch=RESUME_FULL_SPE, val_loader=val)
+        checked = check_resumed_state(torch, trainer, tmp, "latest", RESUME_FULL_STEP)
+        require(checked["schedule_0"] == 0.0 and checked["lr"] > 0,
+                f"phase 18 (b): schedule(0) {checked['schedule_0']}, rate {checked['lr']}")
+        require(trainer.start_epoch == 10 and trainer.logger.to_dict() == history,
+                "phase 18 (b): the sidecar's epoch or history did not come back")
+        torch.manual_seed(21)
+        before = [p.detach().clone() for p in trainer.model.parameters()]
+        losses, rng_states = [], []
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+            for i, b in enumerate(batches):
+                rng_states.append(torch.cuda.get_rng_state(device))
+                losses.append(_steps(torch, trainer, [b], graphed=label == "graph")[0])
+                if i == 0:
+                    moved = max(_max_diff(p, q) for p, q in zip(trainer.model.parameters(),
+                                                                 before))
+        require(moved > 0.1 * checked["lr"],
+                f"phase 18 (b) {label}: the first resumed step moved no weight ({moved:.3e})")
+        runs[label] = dict(model=trainer.model, state=trainer.state, losses=losses,
+                           rng=rng_states, trainer=trainer, resume_ms=resume_ms,
+                           checked=checked, moved=moved)
+    graph = runs["graph"]
+    calls = graph["trainer"].train_step.calls
+    require((calls.eager_calls, calls.replays) == (WARM_FORWARDS, GRAPH_STEPS - WARM_FORWARDS),
+            f"phase 18 (b): {calls.eager_calls} eager steps, {calls.replays} replays")
+    diff = compare_runs(torch, graph, runs["eager"])
+    require(diff["rng_equal"], "phase 18 (b): the graphed run's generator states differ")
+    for k in ("loss", "grad_norm", "param", "grad", "bn"):
+        require(diff[k] <= REMAT_TOL, f"phase 18 (b): graph vs eager {k} off by {diff[k]:.3e}")
+    trainer = graph["trainer"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(RESUME_TIMED_STEPS):
+        trainer.train_step(trainer.state, *batches[i % len(batches)])
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / RESUME_TIMED_STEPS
+    counts, metrics, forwards = validation_launches(torch, trainer, "_bf16")
+    out = dict(array_mb=nbytes / 1e6, write_s=write_s, read_ms=read_ms,
+               resume_ms={k: runs[k]["resume_ms"] for k in runs}, step_ms=step_ms,
+               graph_vs_eager={k: diff[k] for k in ("loss", "grad_norm", "param", "grad", "bn")},
+               losses=graph["losses"], lr=graph["checked"]["lr"], moved=graph["moved"],
+               val_loss=metrics["val_loss"], val_forwards=forwards, launches=counts)
+    log(f"phase 18 (b): a full-width trainer tree at step {RESUME_FULL_STEP} "
+        f"({out['array_mb']:.1f} MB of arrays, written in {write_s:.1f} s) read in "
+        f"{', '.join(f'{t:.1f}' for t in read_ms)} ms, resumed by a bf16 Trainer in "
+        f"{out['resume_ms']['eager']:.1f} and {out['resume_ms']['graph']:.1f} ms (read, map, "
+        f"load, to the card); counts 250 on the card, rate {out['lr']:.6e} = schedule(250), "
+        f"first step moved a weight by {out['moved']:.3e}; {GRAPH_STEPS} steps graph vs eager: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in out["graph_vs_eager"].items())
+        + f" (tol {REMAT_TOL}); {step_ms:.3f} ms per resumed graphed step at B={GRAPH_BATCH}; "
+        f"validation over {forwards} replays launches {counts}")
+    del runs, graph, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_jax_written(torch, device) -> dict:
+    """A resume from a JAX-written full-width OCDBT tree (``RESUME_JAX_TREE``),
+    timed, where one was carried into the run; None otherwise."""
+    from vqa_tpu_torch.training.checkpoint import load_orbax_checkpoint
+    from vqa_tpu_torch.utils.config import TrainingConfig
+
+    if not os.path.isdir(os.path.join(RESUME_JAX_TREE, "best_model")):
+        return None
+    t0 = time.perf_counter()
+    load_orbax_checkpoint(RESUME_JAX_TREE, "best_model")
+    read_ms = (time.perf_counter() - t0) * 1e3
+    trainer, resume_ms = resumed_trainer(torch, RESUME_JAX_TREE, "best_model", device,
+                                         dtype=torch.bfloat16, config=TrainingConfig(),
+                                         steps_per_epoch=100)
+    step = trainer.state.step
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"phase 18: the JAX-written full-width tree {RESUME_JAX_TREE}/best_model (OCDBT, "
+        f"zstd) read in {read_ms:.1f} ms, resumed by a bf16 Trainer in {resume_ms:.1f} ms "
+        f"(step {step})")
+    return dict(read_ms=read_ms, resume_ms=resume_ms, step=step)
+
+
+def drive_resume(torch, tmp: str, device="cuda") -> tuple:
+    """Phase 18; returns (summary, launches per kernel form over its
+    validation passes: (a)'s f32, (b)'s bf16)."""
+    t0 = time.perf_counter()
+    narrow = resume_narrow(torch, device)
+    counts32, _, _ = validation_launches(torch, narrow.pop("trainer"), "")
+    out = {"narrow": narrow, "full_width": resume_full_width(torch, tmp, device),
+           "jax_written": resume_jax_written(torch, device)}
+    launches = {k: v for k, v in counts32.items() if not k.endswith("_bf16")}
+    launches.update({k: v for k, v in out["full_width"]["launches"].items()
+                     if k.endswith("_bf16")})
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {out['seconds']:.1f} s; {card_line()}")
+    return out, launches
+
+
 def _free_port() -> int:
     import socket
 
@@ -4376,6 +4907,10 @@ def main(argv=None) -> int:
         orbax, orbax_launches = drive_orbax(torch, tmp)
     for name in kernels:  # (b)'s engines, each form in its own dtype
         kernels[name]["launches_orbax"] = orbax_launches.get(name, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume.") as tmp:
+        resume, resume_launches = drive_resume(torch, tmp)
+    for name in kernels:  # (a)'s f32 and (b)'s bf16 validation replays
+        kernels[name]["launches_resume"] = resume_launches.get(name, 0)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {
@@ -4394,10 +4929,11 @@ def main(argv=None) -> int:
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"train_graphs": train_graphs}))
     log(json.dumps({"orbax": orbax}))
+    log(json.dumps({"resume": resume}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools",
-            "launches_orbax", "stages")
+            "launches_orbax", "launches_resume", "stages")
     # the graphed forward's device ms per bucket-32 call (phase 15 (d)), beside
     # the kernels it runs
     log(json.dumps({"graphed_forward_device_ms_b32": {

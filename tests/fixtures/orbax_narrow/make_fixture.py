@@ -23,6 +23,17 @@ values (no compile), for timing a read
 (``python -m vqa_tpu_torch.tools.checkpoint_read``): ``DIR/params/best_model``
 (params and batch_stats) and ``DIR/trainer/best_model`` (with AdamW's
 moments and a step, as a trainer saves them).
+
+    JAX_PLATFORMS=cpu python tests/fixtures/orbax_narrow/make_fixture.py --resumed
+
+writes only ``resumed.npz`` beside itself, leaving every other file as it
+is: the JAX trainer resumed from ``best_model`` (``load_checkpoint`` with
+a target) with dropout off, then three train steps on the first four
+requests of ``inputs.py`` (``images(4)``, normalized as in the two steps
+that made the tree), the labels rotated per step: the batches (``ids``,
+``mask``, ``labels``, one row per step), the ``losses``, and every leaf of
+the ``params`` and ``batch_stats`` after the third step, named by its key
+path joined with dots (``params.answer_head.fc1.kernel``).
 """
 
 from __future__ import annotations
@@ -100,10 +111,51 @@ def full_width(out: str) -> None:
         print(f"wrote {base}/best_model")
 
 
+def resumed(out: str) -> None:
+    """``--resumed``: the three steps after a resume from ``best_model``."""
+    import dataclasses
+
+    from vqa_tpu.utils.tokenizer import Tokenizer
+
+    _, cfg, _ = ckpt_lib.load_checkpoint(HERE, "best_model")
+    model = create_vqa_model(config=dataclasses.replace(cfg, dropout=0.0, answer_dropout=0.0))
+    shapes = jax.eval_shape(lambda: init_vqa_model(model, jax.random.PRNGKey(0)))
+    tx, _ = make_optimizer(TrainingConfig(warmup_epochs=0), 2)
+    target = {"params": shapes["params"], "batch_stats": shapes["batch_stats"],
+              "opt_state": jax.eval_shape(tx.init, shapes["params"]),
+              "step": jax.ShapeDtypeStruct((), jnp.int32)}
+    tree, _, _ = ckpt_lib.load_checkpoint(HERE, "best_model", target)
+    state = TrainState.create(apply_fn=model.apply, params=tree["params"], tx=tx,
+                              batch_stats=tree["batch_stats"])
+    state = state.replace(opt_state=tree["opt_state"], step=tree["step"])
+    tok = Tokenizer()
+    tok.load(os.path.join(HERE, "tokenizer.json"))
+    ids, mask = tok.encode_batch_np(list(inputs.QUESTIONS[:4]))
+    images = jnp.asarray(inputs.images(4).astype(np.float32) / 255.0 - 0.5)
+    step = make_train_step(model)
+    labels, losses = [], []
+    for i in range(3):
+        labels.append((np.arange(4) + 2 + 3 * i) % len(ANSWERS))
+        state, m = step(state, images, jnp.asarray(ids), jnp.asarray(mask),
+                        jnp.asarray(labels[-1], jnp.int32), jax.random.PRNGKey(10 + i))
+        losses.append(float(m["loss"]))
+    after = dict(leaves({"params": state.params, "batch_stats": state.batch_stats}))
+    np.savez_compressed(out, ids=np.stack([ids] * 3).astype(np.int32),
+                        mask=np.stack([mask] * 3).astype(np.int32),
+                        labels=np.stack(labels).astype(np.int32),
+                        losses=np.asarray(losses, np.float64), step=int(state.step),
+                        **{k: v.astype(np.float32) for k, v in after.items()})
+    print(f"wrote {out}: losses {losses}, step {int(state.step)}, {len(after)} arrays")
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--full-width", default=None, metavar="DIR")
+    p.add_argument("--resumed", action="store_true")
     args = p.parse_args()
+    if args.resumed:
+        resumed(os.path.join(HERE, "resumed.npz"))
+        return
     if args.full_width:
         full_width(args.full_width)
         return

@@ -238,3 +238,29 @@ def cli_checks(rank: int, world: int, tmp: str) -> dict:
     results = evaluate.main(["--checkpoint-dir", tmp, "--demo", "--batch-size", "8",
                              "--max-samples", "20", "--output-dir", f"{tmp}/eval"] + grid)
     return dict(seen, history=logger.history, evaluate=results)
+
+
+def resumed_moments(rank: int, world: int, base: str, name: str) -> dict:
+    """A Trainer on a 1×``world`` grid resumed from the JAX trainer's tree
+    ``<base>/<name>/``: this rank's AdamW moments by parameter name, its
+    step, the grid's split dimensions and this rank's model index."""
+    import json
+    import os
+
+    from vqa_tpu_torch.models import create_vqa_model
+    from vqa_tpu_torch.parallel import create_mesh
+    from vqa_tpu_torch.training.train import Trainer
+    from vqa_tpu_torch.utils.config import TrainingConfig, model_config_from_dict
+
+    with open(os.path.join(base, name + ".meta.json"), encoding="utf-8") as f:
+        cfg = model_config_from_dict(json.load(f)["config"])
+    mesh = create_mesh(1, world)
+    model = create_vqa_model(config=cfg, device="cpu", seed=5)
+    trainer = Trainer(model, [None] * 2, [], config=TrainingConfig(warmup_epochs=0), mesh=mesh,
+                      checkpoint_dir=base, save_checkpoints=False)
+    trainer.resume(name)
+    opt = trainer.state.optimizer
+    return {"moments": {n: {k: opt.state[p][k].numpy().copy() for k in ("exp_avg", "exp_avg_sq")}
+                        for n, p in model.named_parameters()},
+            "step": trainer.state.step, "splits": dict(model.tp_splits),
+            "model_index": mesh.model_index}

@@ -15,6 +15,14 @@ takes) and returns the port's ``state_dict``, which loads with
 
 An unknown flax path raises ``KeyError``, so structural drift fails loudly.
 
+``adamw_state_from_jax(mu, nu, count, param_names)`` carries optax's
+AdamW moments (``compat/orbax.py:training_state``) into torch AdamW's
+state: each moment leaf has its parameter's flax path, goes through the
+weight's key and transform (both permutations, so the moments map element
+by element), and lands at its parameter's position in the model's
+``named_parameters()``. optax's ``adamw`` and torch's decoupled AdamW
+compute the same update, so nothing but the state has to be carried.
+
 ``module_state_dict_from_jax(variables)`` does the same for one module of
 ``models/attention_modules.py`` used alone (``CBAMBlock``,
 ``SelfAttention2D``, ``SEAttention``, ``SpatialAttention``,
@@ -30,7 +38,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +179,40 @@ def state_dict_from_jax(variables: Dict[str, Any], config: ModelConfig
         if key.endswith("running_mean"):
             out[key[: -len("running_mean")] + "num_batches_tracked"] = np.asarray(0, np.int64)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def _moments(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    out = {}
+    for path, arr in _flatten(tree):
+        key, transform = _torch_key("params", path)
+        out[key] = transform(arr) if transform is not None else arr
+    return out
+
+
+def adamw_state_from_jax(mu: Dict[str, Any], nu: Dict[str, Any], count: int,
+                         param_names: Sequence[str]) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax's ``scale_by_adam`` state (``mu``, ``nu``: trees of the flax
+    params' paths; ``count``) → torch AdamW's per-parameter state in the
+    form ``training/train.py:portable_optimizer_state`` gives:
+    ``{position: {"step", "exp_avg", "exp_avg_sq"}}``, ``exp_avg`` = mu,
+    ``exp_avg_sq`` = nu, ``step`` = count as a float32 tensor, the position
+    that of the parameter in ``param_names`` (CPU tensors, contiguous).
+    Every parameter gets exactly one pair: a model whose parameters are not
+    the tree's raises ``KeyError`` naming the keys on each side."""
+    exp_avg, exp_avg_sq = _moments(mu), _moments(nu)
+    names = list(param_names)
+    only_model = sorted(set(names) - set(exp_avg))
+    only_tree = sorted(set(exp_avg) - set(names))
+    if only_model or only_tree or len(set(names)) != len(names):
+        raise KeyError(f"the model's parameters are not the tree's: only in the model "
+                       f"{only_model}, only in the tree {only_tree}")
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32, order="C"))
+
+    return {i: {"step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": tensor(exp_avg[n]), "exp_avg_sq": tensor(exp_avg_sq[n])}
+            for i, n in enumerate(names)}
 
 
 def module_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

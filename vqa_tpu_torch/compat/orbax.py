@@ -296,13 +296,84 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
     return _nest([(keys, value(v)) for keys, v in leaves])
 
 
+def _widen(node):
+    """A tree with its bfloat16 leaves widened to float32."""
+    if isinstance(node, dict):
+        return {k: _widen(v) for k, v in node.items()}
+    return to_float32(node) if is_bfloat16(node) else node
+
+
 def inference_variables(tree: Mapping[str, Any]) -> Dict[str, Any]:
     """The flax ``{'params', 'batch_stats'}`` of a restored trainer tree,
     bfloat16 leaves widened to float32."""
+    return {"params": _widen(tree["params"]), "batch_stats": _widen(tree.get("batch_stats", {}))}
 
-    def widen(node):
-        if isinstance(node, dict):
-            return {k: widen(v) for k, v in node.items()}
-        return to_float32(node) if is_bfloat16(node) else node
 
-    return {"params": widen(tree["params"]), "batch_stats": widen(tree.get("batch_stats", {}))}
+# optax.chain(clip_by_global_norm, adamw(schedule)) as the JAX trainer
+# builds it (vqa_tpu/training/train.py:make_optimizer) saves its state as
+# clip's empty state, then adamw's chain: scale_by_adam, the empty state of
+# add_decayed_weights, scale_by_schedule
+TRAINER_CHAIN = "[None, [{count, mu, nu}, None, {count}]]"
+
+
+def layout(node: Any) -> str:
+    """A tree's outline as ``TRAINER_CHAIN`` writes it: lists in brackets,
+    dicts as their sorted keys, ``None``, anything else ``array``."""
+    if isinstance(node, list):
+        return "[" + ", ".join(layout(v) for v in node) + "]"
+    if isinstance(node, dict):
+        return "{" + ", ".join(sorted(map(str, node))) + "}"
+    return "None" if node is None else "array"
+
+
+def _shapes(tree: Any, path: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Tuple[int, ...]]:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _shapes(sub, path + (key,)).items()}
+    return {path: tuple(np.shape(tree))}
+
+
+def _count(value: Any, what: str) -> int:
+    if np.ndim(value) or not np.issubdtype(np.asarray(value).dtype, np.integer):
+        raise OrbaxError(f"{what} is {value!r}, not an integer count")
+    return int(value)
+
+
+def training_state(tree: Mapping[str, Any], model_only: bool = False) -> Dict[str, Any]:
+    """The JAX trainer's tree (``vqa_tpu/training/train.py:_state_tree``:
+    ``params``, ``batch_stats``, ``opt_state``, ``step``) taken apart for a
+    resume: ``params`` and ``batch_stats`` (bfloat16 widened), AdamW's
+    ``mu`` and ``nu`` (trees of the params' paths and shapes), and the
+    three counts ``adam_count`` (``scale_by_adam``'s), ``schedule_count``
+    (``scale_by_schedule``'s) and ``step``. With ``model_only`` (a sidecar
+    flagged so) the optimizer is not read, and the last five are None.
+
+    ``opt_state`` must be ``TRAINER_CHAIN``'s layout; another one, or a
+    tree without ``opt_state`` that is not ``model_only``, raises
+    ``OrbaxError`` naming what it found."""
+    out = dict(inference_variables(tree), mu=None, nu=None, adam_count=None,
+               schedule_count=None, step=None)
+    if model_only:
+        return out
+    if "opt_state" not in tree:
+        raise OrbaxError(f"the tree holds {layout(dict(tree))} with no opt_state, and its "
+                         "sidecar is not flagged model_only: there is no optimizer to resume")
+    opt = tree["opt_state"]
+    found = layout(opt)
+    if found != TRAINER_CHAIN:
+        raise OrbaxError(f"opt_state is {found}, not the JAX trainer's clip_by_global_norm → "
+                         f"adamw chain {TRAINER_CHAIN}")
+    adam, schedule = opt[1][0], opt[1][2]
+    mu, nu = _widen(adam["mu"]), _widen(adam["nu"])
+    params = _shapes(out["params"])
+    for name, moment in (("mu", mu), ("nu", nu)):
+        shapes = _shapes(moment)
+        if shapes != params:
+            diff = sorted(set(shapes.items()) ^ set(params.items()))[:4]
+            raise OrbaxError(f"AdamW's {name} does not have the params' paths and shapes: "
+                             + ", ".join(f"{'/'.join(p)} {s}" for p, s in diff))
+    if "step" not in tree:
+        raise OrbaxError("the tree holds opt_state but no step")
+    out.update(mu=mu, nu=nu, adam_count=_count(adam["count"], "scale_by_adam's count"),
+               schedule_count=_count(schedule["count"], "scale_by_schedule's count"),
+               step=_count(tree["step"], "step"))
+    return out

@@ -14,14 +14,19 @@ both:
 
 - ``<base>/<name>/`` with the same sidecar: the JAX trainer's Orbax tree,
   read without orbax (``compat/orbax.py``; ``load_orbax_checkpoint``).
-  ``checkpoint_exists``, ``load_checkpoint_meta`` and
-  ``load_model_for_inference`` take either; where both are there, the
-  port's ``<name>.pt`` comes first.
+  ``checkpoint_exists``, ``load_checkpoint_meta``,
+  ``load_model_for_inference`` and ``load_training_checkpoint`` (the
+  trainer's resume, AdamW's state included) take either; where both are
+  there, the port's ``<name>.pt`` comes first.
 
-A save writes ``<name>.tmp.pt`` and ``<name>.tmp.meta.json`` and swaps
-them in with renames, so the previous checkpoint stays readable for the
-whole write; a crash inside the swap's few renames is undone on the next
-load (``_recover``).
+A name holds one checkpoint. A save writes ``<name>.tmp.pt`` and
+``<name>.tmp.meta.json`` and swaps them in with renames: the previous
+checkpoint under the name, the port's file or the JAX trainer's tree,
+is parked at ``<name>.old.pt`` or ``<name>.old/`` with its sidecar at
+``<name>.old.meta.json`` until the new pair is in, then removed, so it
+stays readable for the whole write and a crash inside the swap's few
+renames is undone on the next load (``_recover``). The JAX package's
+save swaps its own tree the same way.
 
 In a multi-process run every rank calls ``save_checkpoint`` and
 ``save_best_copy`` with the same payload (the trainer gathers the full
@@ -36,7 +41,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -45,6 +50,7 @@ from vqa_tpu_torch.utils.config import ModelConfig, model_config_dict, model_con
 
 _DATA, _META = ".pt", ".meta.json"
 _ORBAX = ""  # an Orbax checkpoint is the directory <base>/<name> itself
+_FORMS = (_DATA, _ORBAX)
 
 
 def _stem(base: str, name: str) -> str:
@@ -52,50 +58,56 @@ def _stem(base: str, name: str) -> str:
 
 
 def _remove(path: str) -> None:
-    if os.path.exists(path):
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
         os.remove(path)
 
 
+def _has_data(stem: str) -> bool:
+    """Whether ``stem`` holds a checkpoint's data: the port's file or the
+    JAX trainer's tree."""
+    return os.path.exists(stem + _DATA) or os.path.isdir(stem + _ORBAX)
+
+
 def _swap_into_place(tmp: str, stem: str) -> None:
-    """Replace ``stem``'s data file and sidecar with ``tmp``'s: the
-    previous pair is parked at ``<stem>.old`` for the two renames that
-    bring the new pair in, then removed."""
+    """Replace the checkpoint under ``stem`` (the port's file or the JAX
+    trainer's tree, with its sidecar) by ``tmp``'s pair: the previous one
+    is parked at ``<stem>.old`` for the two renames that bring the new
+    pair in, then removed."""
     old = stem + ".old"
-    for suffix in (_DATA, _META):
+    for suffix in _FORMS + (_META,):
         _remove(old + suffix)
-    if os.path.exists(stem + _DATA):
-        os.rename(stem + _DATA, old + _DATA)
+    if _has_data(stem):
+        for suffix in _FORMS:
+            if os.path.exists(stem + suffix):
+                os.rename(stem + suffix, old + suffix)
         if os.path.exists(stem + _META):
             os.rename(stem + _META, old + _META)
     os.rename(tmp + _DATA, stem + _DATA)
     os.rename(tmp + _META, stem + _META)
-    for suffix in (_DATA, _META):
+    for suffix in _FORMS + (_META,):
         _remove(old + suffix)
 
 
-def _recover(stem: str, data: str = _DATA) -> None:
-    """Undo a crash inside ``_swap_into_place``: the previous checkpoint
-    parked at ``<stem>.old`` comes back when nothing replaced it; a new
-    data file whose sidecar is still at ``<stem>.tmp.meta.json`` (it was
-    fully written before the swap began) gets its sidecar. ``data`` is
-    the data file's suffix: ``_ORBAX`` for the JAX trainer's directory,
-    whose swap (``vqa_tpu/training/checkpoint.py:_recover``) parks the
-    same names."""
+def _recover(stem: str) -> None:
+    """Undo a crash inside ``_swap_into_place``, the port's or the JAX
+    package's (``vqa_tpu/training/checkpoint.py:_recover``), which park
+    the same names: the previous checkpoint parked at ``<stem>.old`` comes
+    back when nothing replaced it; new data whose sidecar is still at
+    ``<stem>.tmp.meta.json`` (it was fully written before the swap began)
+    gets its sidecar."""
     old = stem + ".old"
-    if not os.path.exists(stem + data) and os.path.exists(old + data):
-        try:
-            os.rename(old + data, stem + data)
-        except OSError:
-            return  # another process won the recovery race
-        if not os.path.exists(stem + _META) and os.path.exists(old + _META):
-            try:
-                os.rename(old + _META, stem + _META)
-            except OSError:
-                pass
+    if not _has_data(stem) and _has_data(old):
+        for suffix in _FORMS + (_META,):
+            if os.path.exists(old + suffix) and not os.path.exists(stem + suffix):
+                try:
+                    os.rename(old + suffix, stem + suffix)
+                except OSError:
+                    pass  # another process won the recovery race
         return
     tmp_meta = stem + ".tmp" + _META
-    if (os.path.exists(stem + data) and not os.path.exists(stem + _META)
-            and os.path.exists(tmp_meta)):
+    if _has_data(stem) and not os.path.exists(stem + _META) and os.path.exists(tmp_meta):
         try:
             os.rename(tmp_meta, stem + _META)
         except OSError:
@@ -105,8 +117,9 @@ def _recover(stem: str, data: str = _DATA) -> None:
 def save_checkpoint(base_dir: str, name: str, payload: Dict[str, Any],
                     model_config: ModelConfig, meta: Dict[str, Any]) -> str:
     """Write ``payload`` (tensors on any device; saved as they are) and
-    the sidecar, crash-safely (the primary, between two barriers). Returns
-    the data file's path."""
+    the sidecar, crash-safely (the primary, between two barriers), in
+    place of whatever checkpoint held the name. Returns the data file's
+    path."""
     stem = _stem(base_dir, name)
     tmp = stem + ".tmp"
     distributed.barrier()
@@ -128,14 +141,19 @@ def save_checkpoint(base_dir: str, name: str, payload: Dict[str, Any],
     return stem + _DATA
 
 
+def _sidecar(stem: str) -> Dict[str, Any]:
+    with open(stem + _META, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
 def load_checkpoint(base_dir: str, name: str, map_location="cpu"
                     ) -> Tuple[Dict[str, Any], ModelConfig, Dict[str, Any]]:
-    """(payload, model_config, meta); tensors land on ``map_location``."""
+    """(payload, model_config, meta) of the port's ``<name>.pt``; tensors
+    land on ``map_location``."""
     stem = _stem(base_dir, name)
     _recover(stem)
     payload = torch.load(stem + _DATA, map_location=map_location, weights_only=True)
-    with open(stem + _META, "r", encoding="utf-8") as f:
-        sidecar = json.load(f)
+    sidecar = _sidecar(stem)
     return payload, model_config_from_dict(sidecar["config"]), sidecar["meta"]
 
 
@@ -149,11 +167,52 @@ def load_orbax_checkpoint(base_dir: str, name: str
     from vqa_tpu_torch.compat import orbax
 
     stem = _stem(base_dir, name)
-    _recover(stem, _ORBAX)
-    tree = orbax.read_checkpoint(stem)
-    with open(stem + _META, "r", encoding="utf-8") as f:
-        sidecar = json.load(f)
+    _recover(stem)
+    tree = orbax.read_checkpoint(stem + _ORBAX)
+    sidecar = _sidecar(stem)
     return tree, model_config_from_dict(sidecar["config"]), sidecar["meta"]
+
+
+def load_training_checkpoint(base_dir: str, name: str, param_names: Sequence[str],
+                             param_groups: List[Dict[str, Any]], map_location="cpu"
+                             ) -> Tuple[Dict[str, Any], ModelConfig, Dict[str, Any]]:
+    """(payload, model_config, meta) of a checkpoint to resume training
+    from, in the port's payload form (``model_state_dict``,
+    ``optimizer_state_dict``, ``scheduler_step``, ``step``), tensors on
+    ``map_location``: the port's ``<name>.pt`` as it was saved, else the
+    JAX trainer's tree ``<name>/``.
+
+    From the tree: the weights and BN statistics through
+    ``compat/jax_weights.py:state_dict_from_jax``; optax's AdamW moments
+    and count (``compat/orbax.py:training_state`` checks the chain) as
+    torch AdamW's state, keyed by each parameter's position in
+    ``param_names`` (the model's ``named_parameters()`` order); the
+    schedule's count as ``scheduler_step``. A tree holds no
+    hyperparameters, so ``param_groups`` (the caller's optimizer's) go
+    with it, as the JAX trainer's restore keeps its own optimizer's. A
+    sidecar flagged ``model_only`` gives ``model_state_dict`` alone."""
+    stem = _stem(base_dir, name)
+    if _is_port_checkpoint(stem):
+        return load_checkpoint(base_dir, name, map_location=map_location)
+    from vqa_tpu_torch.compat.jax_weights import adamw_state_from_jax, state_dict_from_jax
+    from vqa_tpu_torch.compat.orbax import training_state
+
+    tree, cfg, meta = load_orbax_checkpoint(base_dir, name)
+    state = training_state(tree, model_only=bool(meta.get("model_only", False)))
+    weights = state_dict_from_jax(
+        {"params": state["params"], "batch_stats": state["batch_stats"]}, cfg)
+    payload: Dict[str, Any] = {
+        "model_state_dict": {k: v.to(map_location) for k, v in weights.items()}}
+    if state["mu"] is not None:
+        moments = adamw_state_from_jax(state["mu"], state["nu"], state["adam_count"],
+                                       param_names)
+        payload.update(
+            optimizer_state_dict={
+                "state": {i: {k: v if k == "step" else v.to(map_location)
+                              for k, v in st.items()} for i, st in moments.items()},
+                "param_groups": param_groups},
+            scheduler_step=state["schedule_count"], step=state["step"])
+    return payload, cfg, meta
 
 
 def load_checkpoint_meta(base_dir: str, name: str) -> Dict[str, Any]:
@@ -162,17 +221,15 @@ def load_checkpoint_meta(base_dir: str, name: str) -> Dict[str, Any]:
     layout."""
     stem = _stem(base_dir, name)
     _recover(stem)
-    if not os.path.exists(stem + _DATA):
-        _recover(stem, _ORBAX)
-    with open(stem + _META, "r", encoding="utf-8") as f:
-        return json.load(f)["meta"]
+    return _sidecar(stem)["meta"]
 
 
 def save_best_copy(base_dir: str, src_name: str = "latest",
                    best_name: str = "best_model") -> None:
-    """Copy a checkpoint as best, crash-safely: copy to ``.tmp`` files,
-    then swap them in, so the previous best stays readable throughout (the
-    primary, then a barrier)."""
+    """Copy the port's checkpoint ``src_name`` as ``best_name``,
+    crash-safely: copy to ``.tmp`` files, then swap them in, so the
+    previous best (the port's or a JAX tree) stays readable throughout
+    (the primary, then a barrier)."""
     if not distributed.is_primary():
         distributed.barrier()
         return
@@ -199,10 +256,8 @@ def checkpoint_exists(base_dir: str, name: str) -> bool:
     """Whether ``<name>`` is there: the port's ``<name>.pt`` or the JAX
     trainer's ``<name>/`` directory, each with its sidecar."""
     stem = _stem(base_dir, name)
-    if _is_port_checkpoint(stem):
-        return True
-    _recover(stem, _ORBAX)
-    return os.path.isdir(stem) and os.path.exists(stem + _META)
+    _recover(stem)
+    return _has_data(stem) and os.path.exists(stem + _META)
 
 
 def load_model_for_inference(base_dir: str, name: str = "best_model", device="cuda",

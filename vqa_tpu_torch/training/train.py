@@ -748,18 +748,34 @@ class Trainer:
 
     def resume(self, name: str = "latest") -> None:
         """Restore weights, BN statistics, optimizer state, step, epoch and
-        history. A sidecar flagged ``model_only`` (weights without optimizer
-        state) restores the weights and BN statistics and keeps the fresh
+        history from the port's checkpoint ``name`` or, where there is none,
+        the JAX trainer's Orbax tree ``name/`` (optax's AdamW moments and
+        counts as torch AdamW's state, ``checkpoint.load_training_checkpoint``),
+        each rank taking its slices on a grid. Adam's count, the schedule's
+        count and the step must agree; the learning rate is then
+        ``schedule(step)``, written where a captured step reads it. A
+        sidecar flagged ``model_only`` (weights without optimizer state)
+        restores the weights and BN statistics and keeps the fresh
         optimizer."""
-        payload, _, meta = ckpt_lib.load_checkpoint(self.checkpoint_dir, name,
-                                                    map_location=self.device)
+        names = [n for n, _ in self.model.named_parameters()]
+        payload, _, meta = ckpt_lib.load_training_checkpoint(
+            self.checkpoint_dir, name, names,
+            self.state.optimizer.state_dict()["param_groups"], map_location=self.device)
         self.model.load_full_state_dict(payload["model_state_dict"])
         if meta.get("model_only", False):
             print("[Trainer] model-only checkpoint: optimizer starts fresh")
         else:
-            load_optimizer_state(self.state.optimizer, self._optimizer_state(
-                full=False, state=payload["optimizer_state_dict"]))
-            self.state.step = int(payload["step"])
+            state = payload["optimizer_state_dict"]
+            step = int(payload["step"])
+            adam = sorted({int(st["step"]) for st in state["state"].values()})
+            schedule = int(payload.get("scheduler_step", step))
+            if adam not in ([], [step]) or schedule != step:
+                raise ValueError(f"checkpoint {name!r}: Adam's count {adam}, the schedule's "
+                                 f"count {schedule} and step {step} disagree")
+            load_optimizer_state(self.state.optimizer,
+                                 self._optimizer_state(full=False, state=state))
+            self.state.step = step
+            self.state.set_lr()
         self.start_epoch = int(meta["epoch"]) + 1
         self.best_val_accuracy = float(meta["best_val_accuracy"])
         self.logger = MetricsLogger.from_dict(meta["metrics_history"])
@@ -887,7 +903,10 @@ def parse_args(argv=None):
                    help="activation recomputation in the backward: 'stages' keeps only "
                         "the stem's and the CNN stages' outputs, 'full' recomputes the "
                         "whole forward")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None, metavar="NAME",
+                   help="resume from NAME in --checkpoint-dir: the port's NAME.pt, else the "
+                        "JAX trainer's Orbax tree NAME/ (weights, AdamW's moments, step and "
+                        "schedule); the next save of NAME replaces that tree by NAME.pt")
     p.add_argument("--demo", action="store_true", help="random demo data")
     p.add_argument("--synthetic", action="store_true",
                    help="learnable colored-shapes data (data/synthetic.py)")
