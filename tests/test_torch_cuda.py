@@ -863,6 +863,27 @@ def test_engine_graphs_replay_the_eager_forward(cuda, dtype):
     assert sorted(errs) == engine._effective_buckets()
 
 
+def test_engine_dispatch_records_whether_the_card_had_drained(cuda):
+    """``engine.dispatch``'s value: 1 where the card had finished every
+    earlier dispatch when it began (after a synchronize), 0 where one was
+    still queued (behind ~30 ms of spinning on the stream)."""
+    from vqa_tpu_torch.utils.profiling import spans
+
+    engine = _graphed_engine(cuda, torch.bfloat16)
+    size = engine.model.config.image_size
+    pixels, qs = np.zeros((4, size, size, 3), np.uint8), ["what is this"] * 4
+    engine.dispatch_probs_from_pixels(pixels, qs)
+    torch.cuda.synchronize()
+    total = spans("engine.dispatch")[1]
+    torch.cuda._sleep(50_000_000)
+    engine.dispatch_probs_from_pixels(pixels, qs)  # the previous one is done
+    engine.dispatch_probs_from_pixels(pixels, qs)  # the previous one waits behind the sleep
+    torch.cuda.synchronize()
+    engine.dispatch_probs_from_pixels(pixels, qs)
+    torch.cuda.synchronize()
+    assert [r.value for r in spans("engine.dispatch")[0] if r.seq >= total] == [1, 0, 1]
+
+
 def test_engine_graph_chunks_do_not_alias(cuda):
     """Phase 15 (b): 70 requests in one call (three chunks, all dispatched
     before any is fetched) equal each chunk dispatched alone."""

@@ -1,8 +1,9 @@
 """The port's profiling helpers (``vqa_tpu_torch/utils/profiling.py``): the
-cases of ``tests/test_profiling.py`` on the CPU — annotations outside a
-trace, the fenced step timer, the trace writers, ``time_chained`` with
-scalar and tuple outputs, and ``device_synthetic_inputs``'s shapes, dtypes
-and ranges (its values are torch's draws, not JAX's PRNG bits).
+cases of ``tests/test_profiling.py`` on the CPU that the port keeps —
+annotations outside a trace, the fenced step timer, the trace writers, and
+``device_synthetic_inputs``'s shapes, dtypes and ranges (its values are
+torch's draws, not JAX's PRNG bits). The span recorder is
+``tests/test_torch_spans.py``'s.
 """
 
 import glob
@@ -20,18 +21,18 @@ from vqa_tpu_torch.utils.profiling import (
     device_synthetic_inputs,
     maybe_trace,
     percentile_summary,
-    start_trace,
     step_annotation,
-    stop_trace,
-    time_chained,
 )
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_all_is_the_jax_list():
+    """The port's own list: the JAX package's, less ``start_trace``,
+    ``stop_trace`` and ``time_chained`` (no caller in the port), with the
+    span recorder's ``spans`` and ``watch_gc``."""
     assert profiling.__all__ == [
-        "annotate", "step_annotation", "start_trace", "stop_trace", "Profiler", "StepTimer",
-        "percentile_summary", "time_chained", "device_synthetic_inputs"]
+        "annotate", "spans", "watch_gc", "step_annotation", "Profiler", "StepTimer",
+        "percentile_summary", "device_synthetic_inputs"]
 
 
 def test_annotations_are_safe_outside_a_trace():
@@ -68,21 +69,6 @@ def test_profiler_writes_a_trace(tmp_path):
     dumped = glob.glob(os.path.join(logdir, "**", "*"), recursive=True)
     assert dumped, "the profiler wrote no trace"
     assert "doubled" in _trace_names(os.path.join(logdir, "trace.json"))
-
-
-def test_start_and_stop_trace_write_a_trace_one_at_a_time(tmp_path):
-    logdir = str(tmp_path / "window")
-    start_trace(logdir)
-    try:
-        with pytest.raises(RuntimeError, match="already running"):
-            start_trace(str(tmp_path / "second"))
-        with annotate("tripled"):
-            (torch.ones(8) * 3).sum()
-    finally:
-        stop_trace()
-    assert "tripled" in _trace_names(os.path.join(logdir, "trace.json"))
-    with pytest.raises(RuntimeError, match="no trace is running"):
-        stop_trace()
 
 
 def test_maybe_trace_none_is_a_noop(tmp_path):
@@ -124,18 +110,3 @@ def test_device_synthetic_inputs_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             device_synthetic_inputs(1, image_size=8)
 
-
-def test_time_chained_scalar_and_tuple_outputs():
-    x = torch.ones(16, 16)
-    t1 = time_chained(lambda v: v.sum(), x, reps=2, chain=3)
-    t2 = time_chained(lambda v: (v.sum(), v * 2), x, reps=2, chain=3)
-    assert 0 < t1 < 10.0 and 0 < t2 < 10.0
-    fetched = []
-
-    class Scalar:
-        def __float__(self):
-            fetched.append(1)
-            return 0.0
-
-    time_chained(lambda: Scalar(), reps=2, chain=5)
-    assert fetched == [1, 1]  # one fetch per rep, after the whole chain

@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from vqa_tpu_torch.utils.profiling import annotate
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -92,7 +94,13 @@ def build(verbose: bool = False) -> str:
     """Compile every source in parallel and link the shared library.
 
     Returns its path. ``verbose`` adds ``-Xptxas -v`` and prints nvcc's
-    report (registers, shared memory and spills of each kernel)."""
+    report (registers, shared memory and spills of each kernel). Recorded
+    as the span ``ops.build``."""
+    with annotate("ops.build"):
+        return _build(verbose)
+
+
+def _build(verbose: bool) -> str:
     out = library_path()
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)

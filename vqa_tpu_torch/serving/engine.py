@@ -82,6 +82,7 @@ from vqa_tpu_torch.models.vqa_model import (
 from vqa_tpu_torch.serving import graphs
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
 from vqa_tpu_torch.utils.config import InferenceConfig, ModelConfig
+from vqa_tpu_torch.utils.profiling import annotate, watch_gc
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
 
 _DEFAULT_QUESTION_WORDS = [
@@ -99,6 +100,14 @@ def forward_probs(model: VQAModel, pixels: torch.Tensor, ids: torch.Tensor,
     return torch.softmax(logits, dim=-1)
 
 
+def _marked(probs: torch.Tensor, done: Optional[torch.cuda.Event]) -> torch.Tensor:
+    """``probs``, with ``done`` recorded on the current stream after the
+    work that made them (where given)."""
+    if done is not None:
+        done.record()
+    return probs
+
+
 def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAModel:
     """A reference-schema ``.pth`` → a model on ``device``, loaded strictly,
     computing in ``dtype``."""
@@ -106,7 +115,8 @@ def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAMode
     state_dict = ckpt.get("model_state_dict", ckpt)
     ref_cfg = ckpt.get("config", {}) if isinstance(ckpt, dict) else {}
     cfg = model_config_from_reference(ref_cfg, state_dict)
-    model = create_vqa_model(config=cfg, device="cpu")
+    with annotate("model.init"):
+        model = create_vqa_model(config=cfg, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).set_compute_dtype(dtype)
 
@@ -151,17 +161,52 @@ class VQAInference:
         self._graphed = self.device.type == "cuda"
         self._graphs: Optional[Dict[int, List[graphs.BucketGraph]]] = None
         self._replay_lock = threading.Lock()
+        # recorded on the card after each dispatch's forward on the first
+        # replica (by the graph itself, a node at the end of each capture),
+        # queried when the next dispatch begins: engine.dispatch's value
+        self._done: Optional[torch.cuda.Event] = None
 
     # ------------------------------------------------------------------
     def load(self) -> "VQAInference":
         """Build or read the model, tokenizer and answer vocab, then, on
         the card, capture the forward of every effective bucket on every
-        replica (raises if a capture fails)."""
+        replica (raises if a capture fails). Set-up is recorded as the
+        spans ``engine.load.weights`` and ``engine.load.graphs``, and from
+        here on the process's garbage collections as ``python.gc``."""
+        watch_gc()
         self._graphs = None
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        with annotate("engine.load.weights"):
+            self.model_loaded_from_checkpoint = self._load_weights()
+        mcfg = self.model.config
 
+        tok_path = (os.path.join(self.checkpoint_dir, "tokenizer.json")
+                    if self.checkpoint_dir else None)
+        self.tokenizer = Tokenizer(max_length=mcfg.max_question_length)
+        if tok_path and os.path.exists(tok_path):
+            self.tokenizer.load(tok_path)
+        else:
+            self.tokenizer.build_vocab([" ".join(_DEFAULT_QUESTION_WORDS)], min_freq=1)
+
+        vocab_path = (os.path.join(self.checkpoint_dir, "answer_vocab.json")
+                      if self.checkpoint_dir else None)
+        self.answer_vocab = AnswerVocabulary(num_answers=mcfg.num_answers)
+        if vocab_path and os.path.exists(vocab_path):
+            self.answer_vocab.load(vocab_path)
+        else:
+            self.answer_vocab.answer2idx = {f"answer_{i}": i for i in range(mcfg.num_answers)}
+            self.answer_vocab.idx2answer = {i: f"answer_{i}" for i in range(mcfg.num_answers)}
+            self.answer_vocab._is_built = True
+        if self._graphed:
+            with annotate("engine.load.graphs"):
+                self._capture_graphs()
+        return self
+
+    def _load_weights(self) -> bool:
+        """``self.model`` and its replicas from the checkpoint, else a seeded
+        random model; whether a checkpoint was read."""
         loaded = False
         if self.checkpoint_dir:
             path = os.path.join(self.checkpoint_dir, self.checkpoint_name)
@@ -186,31 +231,9 @@ class VQAInference:
             self.model = create_vqa_model(
                 config=self._model_config or ModelConfig(), device=self.device,
                 seed=self.seed, dtype=self.dtype)
-        self.model_loaded_from_checkpoint = loaded
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
                                         for d in self.devices[1:]]
-        mcfg = self.model.config
-
-        tok_path = (os.path.join(self.checkpoint_dir, "tokenizer.json")
-                    if self.checkpoint_dir else None)
-        self.tokenizer = Tokenizer(max_length=mcfg.max_question_length)
-        if tok_path and os.path.exists(tok_path):
-            self.tokenizer.load(tok_path)
-        else:
-            self.tokenizer.build_vocab([" ".join(_DEFAULT_QUESTION_WORDS)], min_freq=1)
-
-        vocab_path = (os.path.join(self.checkpoint_dir, "answer_vocab.json")
-                      if self.checkpoint_dir else None)
-        self.answer_vocab = AnswerVocabulary(num_answers=mcfg.num_answers)
-        if vocab_path and os.path.exists(vocab_path):
-            self.answer_vocab.load(vocab_path)
-        else:
-            self.answer_vocab.answer2idx = {f"answer_{i}": i for i in range(mcfg.num_answers)}
-            self.answer_vocab.idx2answer = {i: f"answer_{i}" for i in range(mcfg.num_answers)}
-            self.answer_vocab._is_built = True
-        if self._graphed:
-            self._capture_graphs()
-        return self
+        return loaded
 
     def _ensure_loaded(self):
         if self.model is None:
@@ -224,7 +247,11 @@ class VQAInference:
         size = self.model.config.image_size
         captured: Dict[int, List[graphs.BucketGraph]] = {}
         buckets = self._effective_buckets()
+        # an external event: recorded inside a capture, it is a node of the
+        # graph that every replay records again, at no cost to the host
+        self._done = torch.cuda.Event(external=True) if self.device.type == "cuda" else None
         for model, device in zip(self.replicas, self.devices):
+            done = self._done if model is self.model else None
             inputs = {}
             for b in buckets:
                 rows = b // len(self.replicas)
@@ -233,7 +260,8 @@ class VQAInference:
                              torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)]
             with torch.inference_mode():
                 graphed = graphs.capture_replica(
-                    lambda *t, model=model: forward_probs(model, *t), inputs)
+                    lambda *t, model=model, done=done: _marked(forward_probs(model, *t), done),
+                    inputs)
             for b in buckets:
                 captured.setdefault(b, []).append(graphed[b])
         self._graphs = captured
@@ -327,7 +355,6 @@ class VQAInference:
             return probs[0]
         return torch.cat([p.to(self.device, non_blocking=True) for p in probs])
 
-    @torch.inference_mode()
     def dispatch_probs_from_pixels(self, pixels: np.ndarray, questions):
         """Pad to a bucket and launch the forward: returns the padded
         probabilities on the device (not yet fetched) and n, without
@@ -337,36 +364,57 @@ class VQAInference:
         On the card each replica stages its rows in pinned memory, copies
         them into its bucket graph's static inputs, replays the graph and
         copies the static output out, so every dispatch returns a tensor of
-        its own, however many are in flight."""
-        self._ensure_loaded()
-        if not self._graphed:
-            return self._dispatch_eager(pixels, questions)
-        arrays, n, bucket = self._padded(pixels, questions)
-        bucket_graphs = (self._graphs or {}).get(bucket)
-        if bucket_graphs is None:
-            raise RuntimeError(
-                f"no CUDA graph for bucket {bucket} (captured: {sorted(self._graphs or {})}); "
-                "load captures every effective bucket")
-        per = bucket // len(bucket_graphs)
-        staged = [self._stage(d, *(a[i * per:(i + 1) * per] for a in arrays))
-                  for i, d in enumerate(self.devices)]
-        with self._replay_lock:
-            probs = [g.run(s) for g, s in zip(bucket_graphs, staged)]
-        return self._gather(probs), n
+        its own, however many are in flight.
+
+        Recorded as the span ``engine.dispatch``, whose value is 1 where the
+        card had finished every earlier dispatch's forward when this one
+        began (the host kept it waiting) and 0 where work was still queued,
+        with three phases: ``engine.tokenize`` (``_padded``),
+        ``engine.stage`` (every replica's staging) and ``engine.replay``
+        (copy in, replay and copy out of every replica, the replay lock's
+        wait included; the eager path's forward)."""
+        with annotate("engine.dispatch") as span, torch.inference_mode():
+            self._ensure_loaded()
+            span.value = int(self._done is None or self._done.query())
+            if not self._graphed:
+                return self._dispatch_eager(pixels, questions, span)
+            span.phase("engine.tokenize")
+            arrays, n, bucket = self._padded(pixels, questions)
+            bucket_graphs = (self._graphs or {}).get(bucket)
+            if bucket_graphs is None:
+                raise RuntimeError(
+                    f"no CUDA graph for bucket {bucket} (captured: "
+                    f"{sorted(self._graphs or {})}); load captures every effective bucket")
+            per = bucket // len(bucket_graphs)
+            span.phase("engine.stage")
+            staged = [self._stage(d, *(a[i * per:(i + 1) * per] for a in arrays))
+                      for i, d in enumerate(self.devices)]
+            span.phase("engine.replay")
+            with self._replay_lock:
+                probs = [g.run(s) for g, s in zip(bucket_graphs, staged)]
+            return self._gather(probs), n
 
     @torch.inference_mode()
-    def _dispatch_eager(self, pixels: np.ndarray, questions):
+    def _dispatch_eager(self, pixels: np.ndarray, questions, span=None):
         """``dispatch_probs_from_pixels`` through the eager forward: the
         CPU's path, and on the card the yardstick the graphs are timed and
-        checked against (no request takes it there)."""
+        checked against (no request takes it there). ``span``: the
+        dispatch's, whose phases it records."""
         self._ensure_loaded()
+        phase = span.phase if span is not None else (lambda name: None)
+        phase("engine.tokenize")
         arrays, n, bucket = self._padded(pixels, questions)
         per = bucket // len(self.replicas)
-        probs = []
-        for i, (model, device) in enumerate(zip(self.replicas, self.devices)):
-            tensors = self._to_device(*(a[i * per:(i + 1) * per] for a in arrays),
-                                      device=device)
-            probs.append(forward_probs(model, *tensors))
+        phase("engine.stage")
+        staged = [self._stage(d, *(a[i * per:(i + 1) * per] for a in arrays))
+                  for i, d in enumerate(self.devices)]
+        phase("engine.replay")
+        probs = [forward_probs(model, *(t.to(d, non_blocking=True) for t in s))
+                 for model, d, s in zip(self.replicas, self.devices, staged)]
+        if self.device.type == "cuda":  # (the CPU has no queue to wait on)
+            self._done = self._done or torch.cuda.Event()
+            with torch.cuda.device(self.device):
+                self._done.record()
         return self._gather(probs), n
 
     def predict_probs_from_pixels(self, pixels: np.ndarray,
@@ -383,7 +431,8 @@ class VQAInference:
                                             questions[i:i + max_bucket])
             for i in range(0, n, max_bucket)
         ]
-        return np.concatenate([p.cpu().numpy()[:k] for p, k in dispatched])
+        with annotate("engine.fetch"):  # the host waits here for the card
+            return np.concatenate([p.cpu().numpy()[:k] for p, k in dispatched])
 
     def predict_batch_raw(self, images: Sequence[ImageInput],
                           questions: Sequence[str]) -> np.ndarray:

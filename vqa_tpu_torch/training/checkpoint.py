@@ -47,6 +47,7 @@ import torch
 
 from vqa_tpu_torch.parallel import distributed
 from vqa_tpu_torch.utils.config import ModelConfig, model_config_dict, model_config_from_dict
+from vqa_tpu_torch.utils.profiling import annotate
 
 _DATA, _META = ".pt", ".meta.json"
 _ORBAX = ""  # an Orbax checkpoint is the directory <base>/<name> itself
@@ -279,6 +280,8 @@ def load_model_for_inference(base_dir: str, name: str = "best_model", device="cu
 
         tree, cfg, _ = load_orbax_checkpoint(base_dir, name)
         state_dict = state_dict_from_jax(inference_variables(tree), cfg)
-    model = create_vqa_model(config=cfg, device="cpu")
+    # the random initialisation the loaded state then overwrites
+    with annotate("model.init"):
+        model = create_vqa_model(config=cfg, device="cpu")
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval().set_compute_dtype(dtype or torch.float32)

@@ -1,18 +1,20 @@
-"""Tracing, step timing and benchmark inputs.
+"""Spans and counters, tracing, step timing and benchmark inputs.
 
 Counterpart of ``vqa_tpu/utils/profiling.py``:
 
-- :func:`annotate` / :func:`step_annotation`: named ranges
-  (``torch.profiler.record_function``) that show on a profiler timeline;
-- :func:`start_trace` / :func:`stop_trace` / :class:`Profiler` /
-  :func:`maybe_trace`: a ``torch.profiler`` trace of a window of work,
-  written to a directory as a Chrome trace (TensorBoard's profile plugin
-  and Perfetto read it);
+- :func:`annotate`: a span, kept in memory in a fixed ring per name
+  (start and end on ``time.perf_counter_ns``, the span open around it on
+  its thread, one small integer ``value``), read back with :func:`spans`;
+  while a profiler runs, also a ``torch.profiler.record_function`` range,
+  so that the span sits on the profiler's own timeline;
+  :func:`watch_gc` records the interpreter's collections the same way;
+- :func:`step_annotation`: a step-scoped range on a profiler's timeline;
+- :class:`Profiler` / :func:`maybe_trace`: a ``torch.profiler`` trace of
+  a window of work, written to a directory as a Chrome trace
+  (TensorBoard's profile plugin and Perfetto read it), spans included;
 - :class:`StepTimer`: per-step wall time fenced on the device
   (``torch.cuda.synchronize`` for results on the card), with p50/p99 and
   items/s; :func:`percentile_summary`;
-- :func:`time_chained`: best-of-reps seconds per call over a chain of
-  dispatches, fenced by one scalar device-to-host fetch;
 - :func:`device_synthetic_inputs`: random model inputs generated on the
   device, never staged through the host.
 """
@@ -20,36 +22,190 @@ Counterpart of ``vqa_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 
 __all__ = [
     "annotate",
+    "spans",
+    "watch_gc",
     "step_annotation",
-    "start_trace",
-    "stop_trace",
     "Profiler",
     "StepTimer",
     "percentile_summary",
-    "time_chained",
     "device_synthetic_inputs",
 ]
 
+# records kept per name: three times the bucket dispatches of a 20 s window
+# of batch scoring (~580 a second on the H100)
+RING_SIZE = 1 << 16
 
-def annotate(name: str):
-    """Named range on the profiler timeline; outside a trace it costs a
-    few microseconds."""
-    return torch.profiler.record_function(name)
+
+class Span(NamedTuple):
+    """One finished span. ``seq`` counts the name's spans from 0 in the
+    order they ended; ``id`` is unique in the process, and ``parent`` is the
+    ``id`` of the span open around it on its thread (0 where none was)."""
+
+    seq: int
+    id: int
+    parent: int
+    start_ns: int
+    end_ns: int
+    value: int
+
+
+class _Ring:
+    __slots__ = ("name", "slots", "records")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.slots = itertools.count()   # next() is atomic: no lock on the hot path
+        self.records: List[Optional[tuple]] = [None] * RING_SIZE
+
+
+_rings: Dict[str, _Ring] = {}
+_rings_lock = threading.Lock()
+_ids = itertools.count(1)
+
+
+class _Open(threading.local):
+    span = 0   # the id of the innermost span open on this thread
+
+
+_open = _Open()
+_now = time.perf_counter_ns
+
+
+def _ring(name: str) -> _Ring:
+    """The ring of ``name``, made on its first span."""
+    with _rings_lock:
+        if name not in _rings:
+            _rings[name] = _Ring(name)
+        return _rings[name]
+
+
+class annotate:
+    """A span named ``name``, as a context manager; set ``.value`` inside it
+    to record a small integer with it. Inside it, ``.id`` is the id its
+    record and its children's ``parent`` will hold, and ``phase`` begins
+    child spans one after another.
+
+    On exit it writes one record into the name's ring of ``RING_SIZE``
+    (the oldest is overwritten), from any thread without a lock. While a
+    profiler runs it is also a ``record_function`` range, whose interval
+    is the profiler's own. Host time (PERF.md §3 has the card's host's
+    figures): ~1.3 us a span with no profiler in a tight loop, several
+    times that in a hot path whose work has left the host's caches cold;
+    under a profiler, the range's ~12 us besides."""
+
+    __slots__ = ("_ring", "value", "id", "_parent", "_start", "_range", "_phase")
+
+    def __init__(self, name: str, value: int = 0):
+        self._ring = _rings.get(name) or _ring(name)
+        self.value = value
+        self._phase = None
+
+    def __enter__(self) -> "annotate":
+        self.id = next(_ids)
+        self._parent = _open.span
+        _open.span = self.id
+        self._range = None
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self._ring.name)
+            self._range.__enter__()
+        self._start = _now()
+        return self
+
+    def phase(self, name: str) -> None:
+        """End the current phase, if one is open, and begin a child span
+        ``name`` that lasts until the next ``phase`` or this span's end.
+
+        One call where a nested ``annotate`` takes three (a hot path's
+        consecutive steps). A phase is a range on a profiler's timeline
+        where this span is one; spans opened during a phase take this
+        span, not the phase, as their parent."""
+        now = _now()
+        if self._phase is not None:
+            self._end_phase(now)
+        ring = _rings.get(name) or _ring(name)
+        if self._range is None:
+            self._phase = (ring, next(_ids), now, None)
+        else:
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            self._phase = (ring, next(_ids), now, rf)
+
+    def _end_phase(self, end: int) -> None:
+        ring, id_, start, rf = self._phase
+        self._phase = None
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        seq = next(ring.slots)
+        ring.records[seq % RING_SIZE] = (seq, id_, self.id, start, end, 0)
+
+    def __exit__(self, *exc) -> bool:
+        end = _now()
+        if self._phase is not None:
+            self._end_phase(end)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        _open.span = self._parent
+        ring = self._ring
+        seq = next(ring.slots)
+        ring.records[seq % RING_SIZE] = (seq, self.id, self._parent, self._start, end,
+                                         self.value)
+        return False
+
+
+def spans(name: str) -> Tuple[List[Span], int]:
+    """The records of ``name`` still in its ring, in the order their spans
+    ended, and how many it ever recorded (more than the records where the
+    ring has wrapped)."""
+    ring = _rings.get(name)
+    if ring is None:
+        return [], 0
+    records = sorted(r for r in list(ring.records) if r is not None)
+    return [Span(*r) for r in records], (records[-1][0] + 1 if records else 0)
+
+
+_gc_span: Optional[annotate] = None
+
+
+def _on_gc(phase: str, info: Dict[str, int]) -> None:
+    global _gc_span
+    if phase == "start":
+        _gc_span = annotate("python.gc", info["generation"]).__enter__()
+    elif _gc_span is not None:
+        span, _gc_span = _gc_span, None
+        span.__exit__(None, None, None)
+
+
+def watch_gc() -> None:
+    """Record each collection of the interpreter's cyclic garbage collector
+    as a ``python.gc`` span whose value is the generation collected. Once
+    per process; later calls do nothing. (One collection runs at a time, in
+    the thread that set it off.)"""
+    if _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
+
+
+_NO_RANGE = contextlib.nullcontext()
 
 
 def step_annotation(name: str, step: int):
-    """Step-scoped range (``train#12``)."""
-    return torch.profiler.record_function(f"{name}#{step}")
+    """Step-scoped range (``train#12``) on a running profiler's timeline;
+    nothing is recorded, or paid, with no profiler on."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(f"{name}#{step}")
+    return _NO_RANGE
 
 
 def percentile_summary(values_ms: List[float]) -> Dict[str, float]:
@@ -160,31 +316,6 @@ class Profiler:
         return False
 
 
-_active: Optional[Profiler] = None
-_active_lock = threading.Lock()
-
-
-def start_trace(logdir: str) -> None:
-    """Begin a trace into ``logdir``; one at a time per process."""
-    global _active
-    with _active_lock:
-        if _active is not None:
-            raise RuntimeError(f"a trace into {_active.logdir} is already running")
-        prof = Profiler(logdir)
-        prof.start()
-        _active = prof
-
-
-def stop_trace() -> None:
-    """End the trace ``start_trace`` began and write it."""
-    global _active
-    with _active_lock:
-        if _active is None:
-            raise RuntimeError("no trace is running")
-        prof, _active = _active, None
-    prof.stop()
-
-
 @contextlib.contextmanager
 def maybe_trace(logdir: Optional[str]):
     """Trace the enclosed work into ``logdir/trace.json`` when ``logdir`` is
@@ -194,25 +325,6 @@ def maybe_trace(logdir: Optional[str]):
         return
     with Profiler(logdir):
         yield
-
-
-def time_chained(fn, *args, reps: int = 3, chain: int = 10) -> float:
-    """Best-of-``reps`` seconds per call over ``chain`` back-to-back calls,
-    fenced by one device-to-host fetch of a scalar output.
-
-    Launches return before the card finishes; the fetch of the last call's
-    scalar (``float()``) waits for every call queued before it. ``fn`` must
-    return a scalar tensor, or a tuple whose first element is one.
-    Best-of-``reps`` filters host noise: the number is a best case."""
-    best = float("inf")
-    for _ in range(reps):
-        r = None
-        t0 = time.perf_counter()
-        for _ in range(chain):
-            r = fn(*args)
-        float(r[0] if isinstance(r, tuple) else r)
-        best = min(best, (time.perf_counter() - t0) / chain)
-    return best
 
 
 def device_synthetic_inputs(
