@@ -2744,9 +2744,11 @@ def replicas_on_one_card(torch, cfg) -> dict:
                        mesh=mesh).load()
     require(two._effective_buckets() == [2, 4, 16, 32], f"buckets {two._effective_buckets()}")
     # each replica replays graphs of its own, on static buffers of its own
-    outputs = {g.output.data_ptr() for gs in two._graphs.values() for g in gs}
+    outputs = {s.output.data_ptr() for gs in two._graphs.values() for g in gs
+               for s in g.graphs}
     require(sorted(two._graphs) == [2, 4, 16, 32]
-            and all(len(gs) == 2 for gs in two._graphs.values()) and len(outputs) == 8,
+            and all(len(gs) == 2 for gs in two._graphs.values())
+            and len(outputs) == 8 * len(two._graphs[2][0].graphs),
             f"two replicas' graphs: {({b: len(gs) for b, gs in two._graphs.items()})}")
     rng = np.random.default_rng(8)
     out = {}

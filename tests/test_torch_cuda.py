@@ -918,13 +918,15 @@ def test_two_graphed_replicas_on_one_card_match_one(cuda):
     graphs of its own, within 1e-4 of one replica at n = 1 (bucket 2) and
     32, each dispatch replaying both replicas' graphs."""
     from vqa_tpu_torch.parallel import mesh_from_config
+    from vqa_tpu_torch.serving import graphs
     from vqa_tpu_torch.utils.config import MeshConfig
 
     mesh = mesh_from_config(MeshConfig(data_parallel=2), devices=[cuda, cuda])
     one = _graphed_engine(cuda, torch.float32)
     two = _graphed_engine(cuda, torch.float32, mesh=mesh)
     assert all(len(gs) == 2 for gs in two._graphs.values())
-    assert len({g.output.data_ptr() for gs in two._graphs.values() for g in gs}) == 8
+    assert len({s.output.data_ptr() for gs in two._graphs.values() for g in gs
+                for s in g.graphs}) == 8 * graphs.SLOTS
     rng = np.random.default_rng(8)
     for n in (1, 32):
         pixels = rng.integers(0, 256, (n, 64, 64, 3), np.uint8)
@@ -936,6 +938,67 @@ def test_two_graphed_replicas_on_one_card_match_one(cuda):
         assert np.abs(got - want).max() <= 1e-4
         assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "stem": 2, "se": 8,
                                        "cross_attention": 4}
+
+
+def _slot_rows(engine, bucket, count, seed):
+    """``count`` dispatches' worth of distinct rows at ``bucket``."""
+    rng = np.random.default_rng(seed)
+    size = engine.model.config.image_size
+    words = ["what", "color", "is", "the", "cat", "how", "many", "dogs", "man", "this"]
+    return [(rng.integers(0, 256, (bucket, size, size, 3), np.uint8),
+             [" ".join(rng.choice(words, size=int(rng.integers(1, 9)))) for _ in range(bucket)])
+            for _ in range(count)]
+
+
+def _one_at_a_time(engine, rows):
+    """Each dispatch fetched before the next is queued."""
+    return [engine.dispatch_probs_from_pixels(p, q)[0].cpu() for p, q in rows]
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_engine_calls_in_flight_through_the_landing_slots_are_bit_equal(cuda, replicas):
+    """At every effective bucket (1/4/16/32; 2/4/16/32 with two replicas on
+    one card), three calls of 8 dispatches of distinct rows, all queued
+    before any fetch, so that every copy lands under an earlier forward,
+    give probabilities bit-equal to the same rows dispatched one at a time
+    with a fetch after each (24 dispatches: each row through the same
+    slot's graph in both runs)."""
+    from vqa_tpu_torch.parallel import mesh_from_config
+    from vqa_tpu_torch.utils.config import MeshConfig
+
+    mesh = (mesh_from_config(MeshConfig(data_parallel=2), devices=[cuda, cuda])
+            if replicas == 2 else None)
+    engine = _graphed_engine(cuda, torch.bfloat16, mesh=mesh)
+    for b in engine._effective_buckets():
+        rows = _slot_rows(engine, b, 3 * 8, seed=b)
+        queued = [engine.dispatch_probs_from_pixels(p, q)[0] for p, q in rows]
+        in_flight = [t.cpu() for t in queued]
+        alone = _one_at_a_time(engine, rows)
+        for got, want in zip(in_flight, alone):
+            assert torch.equal(got, want)
+        assert len({tuple(t[0].tolist()) for t in alone}) > 1
+
+
+def test_engine_copy_waits_for_the_forward_that_holds_its_slot(cuda):
+    """With the compute stream held ~30 ms behind a spin, two dispatches
+    queue their forwards into slots 0 and 1; a third, into slot 0 again,
+    finds the slot held: its ``engine.stage`` value is 1 (the first two
+    0), and its copy waits on the copy stream for the first forward, so
+    all three stay bit-equal to the same rows dispatched one at a time."""
+    from vqa_tpu_torch.utils.profiling import spans
+
+    engine = _graphed_engine(cuda, torch.bfloat16)
+    rows = _slot_rows(engine, 4, 4, seed=7)
+    want = _one_at_a_time(engine, rows)  # 4 dispatches: the next one fills slot 0
+    torch.cuda.synchronize()
+    stage = spans("engine.stage")[1]
+    torch.cuda._sleep(50_000_000)
+    queued = [engine.dispatch_probs_from_pixels(p, q)[0] for p, q in rows[:3]]
+    values = [r.value for r in spans("engine.stage")[0] if r.seq >= stage]
+    got = [t.cpu() for t in queued]
+    assert values == [0, 0, 1]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ---- the trainer's CUDA graphs -------------------------------------------------

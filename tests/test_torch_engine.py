@@ -125,6 +125,65 @@ def test_tokenizer_ids_and_saved_json_are_identical(tmp_path):
                                   jtok.encode_batch_np(queries)[0])
 
 
+# texts the batch tokenizer must normalize as the JAX tokenizer's regular
+# expressions do; each case is one batch
+ENCODE_CASES = {
+    "unicode_spaces": ["what\u00a0color is\u2003the\u3000cat", "is\x1cthis\x1d a\x1f dog",
+                       "how\t\tmany\n\n dogs\r\n\x0b\x0care there", "a\u2028b\u2029c\x85d"],
+    "separator_in_a_text": ["what\x1ecolor is the cat", "is this\x1e\x1e a dog", "what"],
+    "leading_trailing": ["   what is this?  \t\n", "\n\nhow many dogs", "is this a man   "],
+    "punctuation_apostrophes": ["what's... the man's!!! hat?!?", "'quoted' words ''",
+                                "rock'n'roll -- yes/no", "(what) [color] {is} <the> cat;:",
+                                "it\u2019s the dog\u2014or the cat\u2026"],
+    "digits_underscore": ["are there 2 dogs or 3_cats in 1990s", "what_is __this__ 42?",
+                          "\u0663 or \u00b2 or \u2167 of 10,000.5"],
+    "non_ascii_letters": ["Où est le café?", "ΟΔΟΣ ΣΑ", "ΑΣ", "straße İstanbul ǅemal",
+                          "日本語 の テキスト", "naïve Ωmega ﬁsh"],
+    "empty_and_punctuation_only": ["", "?!...", "   ", "what", "--", "'"],
+    "long": [" ".join(["what color is the cat"] * 5), " ".join(f"w{i}" for i in range(19)),
+             " ".join(f"w{i}" for i in range(18)), "what is this"],
+}
+
+
+def _bench_questions():
+    from benchmark.harness import weights
+
+    seed = 4000000001
+    vocab = weights.words(10000 - len(weights.SPECIALS), seed)
+    return weights.word_table(vocab), weights.questions(vocab, 2048, 3, 14, seed)
+
+
+@pytest.mark.parametrize("add_special_tokens", [True, False], ids=["special", "plain"])
+@pytest.mark.parametrize("case", [*ENCODE_CASES, "benchmark_questions"])
+def test_batch_encoding_matches_encode_and_the_jax_tokenizer(case, add_special_tokens):
+    """``encode_batch_np``'s ids and masks, row for row, against the port's
+    own ``encode`` and the JAX tokenizer's ``encode_batch_np`` (its two
+    regular expressions), at 20 tokens: Unicode whitespace and control
+    separators, a text holding the batch separator, punctuation and
+    apostrophes, digits and ``_``, non-ASCII letters (the final-sigma rule
+    across texts), empty and punctuation-only texts, 19+ words (END kept),
+    and the benchmark's 2,048 seeded questions."""
+    if case == "benchmark_questions":
+        table, texts = _bench_questions()
+    else:
+        texts = ENCODE_CASES[case]
+        table = Tokenizer()
+        table.build_vocab(texts[::2], min_freq=1)  # the other texts' words are unknown
+        table = table.word2idx
+    tok, jtok = Tokenizer(max_length=20), JaxTokenizer(max_length=20)
+    tok.word2idx, jtok.word2idx = dict(table), dict(table)
+    ids, mask = tok.encode_batch_np(texts, add_special_tokens=add_special_tokens)
+    assert ids.dtype == mask.dtype == np.int32 and ids.shape == mask.shape == (len(texts), 20)
+    rows = [tok.encode(t, add_special_tokens=add_special_tokens) for t in texts]
+    np.testing.assert_array_equal(ids, np.array([r[0] for r in rows], np.int32))
+    np.testing.assert_array_equal(mask, np.array([r[1] for r in rows], np.int32))
+    want_ids, want_mask = jtok.encode_batch_np(texts, add_special_tokens=add_special_tokens)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(mask, want_mask)
+    assert [tok.tokenize(t) for t in texts] == [jtok.tokenize(t) for t in texts]
+    assert [tok.preprocess(t) for t in texts] == [jtok.preprocess(t) for t in texts]
+
+
 def test_answer_vocabulary_round_trips_identically(tmp_path):
     pairs = [{"answer": a} for a in ["Yes", "no", "yes", "the red one", "2", "two", "no"]]
     vocab, jvocab = AnswerVocabulary(num_answers=4), JaxVocab(num_answers=4)

@@ -3,11 +3,15 @@
 CUDA graphs exist only on the card, so here a stand-in graph takes the
 place of each captured one: its replay runs the captured function again
 from the static inputs into the static output, which is what a graph's
-replay computes. Through it the engine's graphed dispatch runs as it does
-on the card: the launches recorded at capture are added on every replay,
+replay computes; stand-in streams and events log what the engine queues
+on them. Through them the engine's graphed dispatch runs as it does on
+the card: each dispatch fills the next landing slot and replays that
+slot's graph, the launches recorded at capture are added on every replay,
 each dispatch returns a copy of the static output (so chunked and
-pipelined dispatches do not alias), a bucket without a graph and a failed
-capture raise, and nothing falls back to the eager forward.
+pipelined dispatches do not alias), a slot still held by an unfinished
+forward makes the copy stream wait and is recorded as ``engine.stage``'s
+value, a bucket without a graph and a failed capture raise, and nothing
+falls back to the eager forward.
 ``capture_bucket``'s own accounting runs with ``torch.cuda``'s stream and
 graph calls replaced: the warm forwards count, the capture does not.
 The CPU engine itself builds no graph; its probabilities against the
@@ -30,6 +34,7 @@ from vqa_tpu_torch.serving import graphs
 from vqa_tpu_torch.serving.batcher import MicroBatcher
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.utils.config import InferenceConfig, MeshConfig, tiny_model_config
+from vqa_tpu_torch.utils.profiling import spans
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # what one eval forward launches on the card (phase 3 of chip_smoke.py)
@@ -50,12 +55,50 @@ class StandInGraph:
         self.replays += 1
 
 
-def stand_in_capture(forward, inputs):
+class StandInEvent:
+    """An event whose forward has finished unless ``held``; logs the
+    streams made to wait for it."""
+
+    def __init__(self, log):
+        self.log, self.held = log, False
+
+    def query(self):
+        return not self.held
+
+    def record(self, stream):
+        self.log.append(("record", self, stream))
+
+    def wait(self, stream):
+        self.log.append(("wait", self, stream))
+
+
+class StandInStreams:
+    def __init__(self, log):
+        self.log, self.copy, self.compute = log, "copy", "compute"
+
+    def to_copy(self):
+        self.log.append(("current", "copy"))
+
+    def to_compute(self):
+        self.log.append(("current", "compute"))
+
+
+def stand_in_capture(forward, inputs, done=None):
+    """``graphs.capture_replica`` with stand-in graphs, streams and events:
+    one graph per slot, each on static inputs of its own."""
+    log = []
+    streams = StandInStreams(log)
     out = {}
     for b in sorted(inputs, reverse=True):
-        output = forward(*inputs[b])
-        out[b] = graphs.BucketGraph(StandInGraph(forward, inputs[b], output), inputs[b],
-                                    output, PER_FORWARD)
+        captured = []
+        for slot in [inputs[b]] + [[t.clone() for t in inputs[b]]
+                                   for _ in range(graphs.SLOTS - 1)]:
+            output = forward(*slot)
+            captured.append(graphs.BucketGraph(StandInGraph(forward, slot, output), slot,
+                                               output, PER_FORWARD))
+        out[b] = graphs.SlottedGraph(captured, streams,
+                                     [StandInEvent(log) for _ in captured],
+                                     [StandInEvent(log) for _ in captured])
     return out
 
 
@@ -99,7 +142,8 @@ def test_every_replay_adds_the_launches_recorded_at_capture(monkeypatch, replica
     assert {k: after[k] - before[k] for k in after} == {
         **dict.fromkeys(ops.KERNELS, 0),
         **{k: 4 * replicas * v for k, v in PER_FORWARD.items()}}
-    replays = sum(g.graph.replays for gs in engine._graphs.values() for g in gs)
+    replays = sum(s.graph.replays for gs in engine._graphs.values() for g in gs
+                  for s in g.graphs)
     assert replays == 4 * replicas
 
 
@@ -116,13 +160,43 @@ def test_graphed_dispatch_matches_the_eager_forward(monkeypatch, replicas):
 
 def test_a_dispatch_returns_a_copy_of_the_static_output(monkeypatch):
     engine = _engine(monkeypatch)
-    (graph,) = engine._graphs[4]
+    (slotted,) = engine._graphs[4]
     first, _ = engine.dispatch_probs_from_pixels(_pixels(4, 1), _questions(4))
     kept = first.clone()
-    assert first.data_ptr() != graph.output.data_ptr()
-    second, _ = engine.dispatch_probs_from_pixels(_pixels(4, 2), _questions(4))
-    assert not torch.equal(second, kept)  # the replay rewrote the static output
-    assert torch.equal(first, kept)       # and not the first dispatch's result
+    assert first.data_ptr() not in {g.output.data_ptr() for g in slotted.graphs}
+    for seed in range(2, 2 + graphs.SLOTS):  # the last one replays the first's slot again
+        last, _ = engine.dispatch_probs_from_pixels(_pixels(4, seed), _questions(4))
+    assert torch.equal(slotted.graphs[0].output, last)
+    assert not torch.equal(last, kept)  # the replay rewrote the static output
+    assert torch.equal(first, kept)     # and not the first dispatch's result
+
+
+@pytest.mark.parametrize("held", [False, True], ids=["slot_free", "slot_held"])
+def test_a_dispatch_lands_in_the_next_slot_after_that_slots_forward(monkeypatch, held):
+    """Three bucket-4 dispatches land in slots 0, 1, 0: each copy queued on
+    the copy stream and its event recorded there, each replay on the
+    compute stream after that event. Where the first forward still holds
+    slot 0 at the third dispatch, the copy stream waits for the slot's
+    event and ``engine.stage`` records 1; otherwise nothing waits and it
+    records 0. Each result equals the eager forward's, and each slot holds
+    the rows last copied into it."""
+    engine = _engine(monkeypatch)
+    (slotted,) = engine._graphs[4]
+    log = slotted.streams.log
+    stage = spans("engine.stage")[1]
+    for i, k in enumerate((0, 1, 0)):
+        slotted.free[k].held = held and i == 2
+        del log[:]
+        pixels, qs = _pixels(4, 20 + i), _questions(4)
+        got, _ = engine.dispatch_probs_from_pixels(pixels, qs)
+        want, _ = engine._dispatch_eager(pixels, qs)
+        assert torch.equal(got, want)
+        assert torch.equal(slotted.graphs[k].inputs[0], torch.from_numpy(pixels))
+        waits = [("wait", slotted.free[k], "copy")] if held and i == 2 else []
+        assert log == [("current", "copy"), *waits, ("record", slotted.copied[k], "copy"),
+                       ("current", "compute"), ("wait", slotted.copied[k], "compute")]
+    values = [r.value for r in spans("engine.stage")[0] if r.seq >= stage]
+    assert values == [0, 0, int(held)]
 
 
 def test_chunks_dispatched_before_any_fetch_do_not_alias(monkeypatch):
@@ -177,7 +251,7 @@ def test_a_bucket_without_a_graph_raises(monkeypatch):
 
 
 def test_a_failed_capture_raises_and_nothing_runs_eagerly(monkeypatch):
-    def failing_capture(forward, inputs):
+    def failing_capture(forward, inputs, done=None):
         raise RuntimeError("operation not permitted when stream is capturing")
 
     monkeypatch.setattr(graphs, "capture_replica", failing_capture)

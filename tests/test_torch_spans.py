@@ -65,6 +65,17 @@ def test_nested_spans_record_their_parents_and_values():
     assert since("t.outer", start["t.outer"] + 1)[0].parent == 0
 
 
+def test_a_phase_records_the_value_set_during_it():
+    start = totals("t.valued", "t.v1", "t.v2")
+    with annotate("t.valued", 5) as span:
+        span.phase("t.v1")
+        span.phase_value = 1
+        span.phase("t.v2")  # a new phase starts from 0
+    (outer,) = since("t.valued", start["t.valued"])
+    (v1,), (v2,) = since("t.v1", start["t.v1"]), since("t.v2", start["t.v2"])
+    assert (outer.value, v1.value, v2.value) == (5, 1, 0)
+
+
 def test_phases_follow_one_another_inside_their_span():
     start = totals("t.phased", "t.p1", "t.p2", "t.inside")
     with annotate("t.phased") as span:

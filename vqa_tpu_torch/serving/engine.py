@@ -13,13 +13,16 @@ placeholders — and the same request mechanics:
   ``dispatch_probs_from_pixels`` returns before the card finishes; /255
   and ImageNet normalize run on the card.
 
-On the card the forward is one CUDA graph per batch bucket and replica,
-the counterpart of the JAX engine's one compiled program per bucket
-(``serving/graphs.py``): ``load`` captures them, after eager warm
-forwards of each bucket, so ``warmup`` (and the server's preload) ends
-with every bucket captured and replayed once. Every dispatch then copies
-its padded inputs into the bucket's static buffers, replays, and returns
-a copy of the static probabilities. A failed capture raises, and so does
+On the card the forward is a CUDA graph per landing slot of each batch
+bucket and replica, the counterpart of the JAX engine's one compiled
+program per bucket (``serving/graphs.py``): ``load`` captures them, after
+eager warm forwards of each bucket, so ``warmup`` (and the server's
+preload) ends with every bucket captured and replayed once. Every
+dispatch then copies its padded inputs, on a copy stream of the engine's
+own, into the next of the bucket's two landing slots (the static inputs
+of one graph each), so that the copy runs under the forward queued before
+it; it replays that slot's graph on the compute stream once the copy has
+landed, and returns a copy of the static probabilities. A failed capture raises, and so does
 a dispatch for a bucket without a graph: nothing falls back to the eager
 forward. On the CPU the engine runs eagerly. ``attention_map`` is eager
 everywhere, as the JAX one is.
@@ -100,14 +103,6 @@ def forward_probs(model: VQAModel, pixels: torch.Tensor, ids: torch.Tensor,
     return torch.softmax(logits, dim=-1)
 
 
-def _marked(probs: torch.Tensor, done: Optional[torch.cuda.Event]) -> torch.Tensor:
-    """``probs``, with ``done`` recorded on the current stream after the
-    work that made them (where given)."""
-    if done is not None:
-        done.record()
-    return probs
-
-
 def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAModel:
     """A reference-schema ``.pth`` → a model on ``device``, loaded strictly,
     computing in ``dtype``."""
@@ -156,10 +151,10 @@ class VQAInference:
         self.answer_vocab: Optional[AnswerVocabulary] = None
         self.model_loaded_from_checkpoint = False
         self._lock = threading.Lock()
-        # on the card: {bucket: one graph per replica}, captured by load;
-        # one lock over every replay (graphs.BucketGraph.run)
+        # on the card: {bucket: one slotted graph per replica}, captured by
+        # load; one lock over every feed and replay (graphs.SlottedGraph)
         self._graphed = self.device.type == "cuda"
-        self._graphs: Optional[Dict[int, List[graphs.BucketGraph]]] = None
+        self._graphs: Optional[Dict[int, List[graphs.SlottedGraph]]] = None
         self._replay_lock = threading.Lock()
         # recorded on the card after each dispatch's forward on the first
         # replica (by the graph itself, a node at the end of each capture),
@@ -242,10 +237,11 @@ class VQAInference:
                     self.load()
 
     def _capture_graphs(self) -> None:
-        """One graph per effective bucket on each replica, each replica's
-        graphs in one memory pool (``graphs.capture_replica``)."""
+        """A graph per landing slot of each effective bucket on each
+        replica, each replica's graphs in one memory pool, with the
+        replica's copy stream (``graphs.capture_replica``)."""
         size = self.model.config.image_size
-        captured: Dict[int, List[graphs.BucketGraph]] = {}
+        captured: Dict[int, List[graphs.SlottedGraph]] = {}
         buckets = self._effective_buckets()
         # an external event: recorded inside a capture, it is a node of the
         # graph that every replay records again, at no cost to the host
@@ -260,8 +256,7 @@ class VQAInference:
                              torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)]
             with torch.inference_mode():
                 graphed = graphs.capture_replica(
-                    lambda *t, model=model, done=done: _marked(forward_probs(model, *t), done),
-                    inputs)
+                    lambda *t, model=model: forward_probs(model, *t), inputs, done)
             for b in buckets:
                 captured.setdefault(b, []).append(graphed[b])
         self._graphs = captured
@@ -361,18 +356,23 @@ class VQAInference:
         waiting on the card, so the caller can prepare the next batch while
         this one runs. n must fit the largest bucket.
 
-        On the card each replica stages its rows in pinned memory, copies
-        them into its bucket graph's static inputs, replays the graph and
-        copies the static output out, so every dispatch returns a tensor of
-        its own, however many are in flight.
+        On the card each replica stages its rows in pinned memory, queues
+        their copy into the bucket's next landing slot on its copy stream,
+        replays that slot's graph on the compute stream once the copy has
+        landed and copies the static output out, so every dispatch returns
+        a tensor of its own, however many are in flight.
 
         Recorded as the span ``engine.dispatch``, whose value is 1 where the
         card had finished every earlier dispatch's forward when this one
         began (the host kept it waiting) and 0 where work was still queued,
         with three phases: ``engine.tokenize`` (``_padded``),
-        ``engine.stage`` (every replica's staging) and ``engine.replay``
-        (copy in, replay and copy out of every replica, the replay lock's
-        wait included; the eager path's forward)."""
+        ``engine.stage`` (every replica's staging and the copies queued, the
+        replay lock's wait included) and ``engine.replay`` (replay and copy
+        out of every replica; the eager path's copies and forward).
+        ``engine.stage``'s value is 1 where a replica's landing slot was
+        still held by a forward the card had not finished, so its copy
+        waits on the copy stream, and 0 where every slot was free (always
+        0 on the eager path)."""
         with annotate("engine.dispatch") as span, torch.inference_mode():
             self._ensure_loaded()
             span.value = int(self._done is None or self._done.query())
@@ -389,9 +389,13 @@ class VQAInference:
             span.phase("engine.stage")
             staged = [self._stage(d, *(a[i * per:(i + 1) * per] for a in arrays))
                       for i, d in enumerate(self.devices)]
-            span.phase("engine.replay")
-            with self._replay_lock:
-                probs = [g.run(s) for g, s in zip(bucket_graphs, staged)]
+            # switching streams switches the current device: the caller's
+            # is put back at the end
+            with self._replay_lock, graphs.on_device(self.device):
+                held = [g.feed(s) for g, s in zip(bucket_graphs, staged)]
+                span.phase_value = max(held)
+                span.phase("engine.replay")
+                probs = [g.replay() for g in bucket_graphs]
             return self._gather(probs), n
 
     @torch.inference_mode()

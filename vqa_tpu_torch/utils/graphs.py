@@ -5,11 +5,11 @@ compiled XLA program per input shape (``jax.jit``), the port replays one
 ``torch.cuda.CUDAGraph``. A graph reads static input buffers and writes
 static outputs, so a replay costs the host a few copies and one graph
 launch where the eager call issues tens to hundreds of kernel launches.
-Three users share this module: the serving engine (one graph per batch
-bucket and replica, ``serving/graphs.py``), the trainer (one graph per
-train-step shape, per augmentation shape and per validation shape,
-``training/step_graph.py``) and the evaluator (one per evaluation
-shape).
+Three users share this module: the serving engine (a graph per landing
+slot of each batch bucket and replica, ``serving/graphs.py``, which feeds
+its graphs itself), the trainer (one graph per train-step shape, per
+augmentation shape and per validation shape, ``training/step_graph.py``)
+and the evaluator (one per evaluation shape).
 
 Before a capture the function runs eagerly on a side stream
 (``on_side_stream``), so that every one-time step happens outside it: the
@@ -57,7 +57,9 @@ def _map(fn, out):
     return out
 
 
-def _on_device(device: torch.device):
+def on_device(device: torch.device):
+    """``device`` current inside the block, the caller's again after it (on
+    the CPU, nothing)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
@@ -85,7 +87,7 @@ class BucketGraph:
         under its replica's lock, the trainer in its one thread): a replay
         of this graph or of another graph of its pool between the replay
         and the copy out could overwrite the output."""
-        with _on_device(self.device):
+        with on_device(self.device):
             for static, t in zip(self.inputs, host_inputs):
                 if static is not None:
                     static.copy_(t, non_blocking=True)
@@ -144,18 +146,6 @@ def capture_bucket(forward: Callable, inputs: Sequence[torch.Tensor], pool) -> B
     for _ in range(WARM_FORWARDS):
         on_side_stream(forward, inputs)
     return capture(forward, inputs, pool)
-
-
-def capture_replica(forward: Callable, inputs: Dict[int, Sequence[torch.Tensor]]
-                    ) -> Dict[int, BucketGraph]:
-    """One graph per bucket of ``inputs`` ({bucket: static inputs}, all on
-    one device), sharing one memory pool, the largest bucket first so that
-    the others fit in the blocks it frees."""
-    device = next(iter(inputs.values()))[0].device
-    with torch.cuda.device(device):
-        pool = torch.cuda.graph_pool_handle()
-    return {b: capture_bucket(forward, inputs[b], pool)
-            for b in sorted(inputs, reverse=True)}
 
 
 def signature(args: Sequence[Optional[torch.Tensor]]) -> tuple:

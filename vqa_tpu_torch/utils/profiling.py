@@ -96,7 +96,8 @@ class annotate:
     """A span named ``name``, as a context manager; set ``.value`` inside it
     to record a small integer with it. Inside it, ``.id`` is the id its
     record and its children's ``parent`` will hold, and ``phase`` begins
-    child spans one after another.
+    child spans one after another; set ``.phase_value`` during a phase to
+    record a small integer with the phase (0 where it is not set).
 
     On exit it writes one record into the name's ring of ``RING_SIZE``
     (the oldest is overwritten), from any thread without a lock. While a
@@ -106,12 +107,14 @@ class annotate:
     times that in a hot path whose work has left the host's caches cold;
     under a profiler, the range's ~12 us besides."""
 
-    __slots__ = ("_ring", "value", "id", "_parent", "_start", "_range", "_phase")
+    __slots__ = ("_ring", "value", "id", "_parent", "_start", "_range", "_phase",
+                 "phase_value")
 
     def __init__(self, name: str, value: int = 0):
         self._ring = _rings.get(name) or _ring(name)
         self.value = value
         self._phase = None
+        self.phase_value = 0
 
     def __enter__(self) -> "annotate":
         self.id = next(_ids)
@@ -136,6 +139,7 @@ class annotate:
         if self._phase is not None:
             self._end_phase(now)
         ring = _rings.get(name) or _ring(name)
+        self.phase_value = 0
         if self._range is None:
             self._phase = (ring, next(_ids), now, None)
         else:
@@ -149,7 +153,7 @@ class annotate:
         if rf is not None:
             rf.__exit__(None, None, None)
         seq = next(ring.slots)
-        ring.records[seq % RING_SIZE] = (seq, id_, self.id, start, end, 0)
+        ring.records[seq % RING_SIZE] = (seq, id_, self.id, start, end, self.phase_value)
 
     def __exit__(self, *exc) -> bool:
         end = _now()

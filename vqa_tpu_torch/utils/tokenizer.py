@@ -8,15 +8,25 @@ pad/truncate semantics (END survives truncation) and the same JSON schema
 artifacts are identical between the two packages.
 
 ``encode_batch_np`` produces padded ``int32`` numpy arrays: fixed shapes
-let the engine pad requests to its batch buckets.
+let the engine pad requests to its batch buckets. It is the engine's
+per-dispatch tokenizer, so it does the normalization of a whole batch in
+one pass over the joined text and builds the ids as one flat buffer; its
+ids and masks are ``encode``'s, row for row.
+
+The normalization is the JAX tokenizer's two regular expressions
+(``[^\\w\\s']`` → space, then ``\\s+`` → one space, stripped) done as one
+``str.translate`` and ``str.split``: ``\\w`` and ``\\s`` are
+``str.isalnum()``/``_`` and ``str.isspace()``, the classes ``split``
+breaks on, so the collapse was already ``split``'s.
 """
 
 from __future__ import annotations
 
+import array
 import json
 import os
-import re
 from collections import Counter
+from itertools import repeat
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,8 +41,24 @@ UNK_IDX = 1
 START_IDX = 2
 END_IDX = 3
 
-_PUNCT_RE = re.compile(r"[^\w\s']")
-_SPACE_RE = re.compile(r"\s+")
+
+class _PunctTable(dict):
+    """``str.translate`` table of the JAX tokenizer's ``[^\\w\\s']`` → space:
+    a code point maps to itself where it is a word character (alphanumeric
+    or ``_``), whitespace or an apostrophe, else to a space. Filled on
+    first sight of each code point."""
+
+    def __missing__(self, point: int) -> int:
+        c = chr(point)
+        self[point] = point if c.isalnum() or c.isspace() or c in "_'" else 32
+        return self[point]
+
+
+_PUNCT_TABLE = _PunctTable()
+# joins a batch for one normalization pass: whitespace (so the table keeps
+# it), neither cased nor case-ignorable (so ``lower`` treats it as the end
+# of a string: the final-sigma rule sees each question alone)
+_SEP = "\x1e"
 
 
 class Tokenizer:
@@ -53,11 +79,10 @@ class Tokenizer:
     def preprocess(text: str) -> str:
         """Lowercase, replace punctuation (except apostrophes) with spaces,
         collapse whitespace (reference: utils/tokenizer.py:94-124)."""
-        text = _PUNCT_RE.sub(" ", text.lower())
-        return _SPACE_RE.sub(" ", text).strip()
+        return " ".join(text.lower().translate(_PUNCT_TABLE).split())
 
     def tokenize(self, text: str) -> List[str]:
-        return self.preprocess(text).split()
+        return text.lower().translate(_PUNCT_TABLE).split()
 
     def build_vocab(self, questions: Sequence[str], min_freq: int = 2) -> None:
         """Frequency-sorted vocab; words below min_freq map to UNK
@@ -126,12 +151,36 @@ class Tokenizer:
     def encode_batch_np(
         self, texts: Sequence[str], add_special_tokens: bool = True
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Batch-encode to fixed-shape int32 arrays for the device pipeline."""
-        ids, masks = self.batch_encode(texts, add_special_tokens)
-        return (
-            np.asarray(ids, dtype=np.int32),
-            np.asarray(masks, dtype=np.int32),
-        )
+        """Batch-encode to fixed-shape int32 arrays [N, max_length] for the
+        device pipeline: ``encode``'s ids and masks (padded and truncated,
+        END kept), the texts normalized in one pass and the ids written
+        into one flat buffer, the masks made from the lengths."""
+        n, length = len(texts), self.max_length
+        if length < 2:  # truncation that keeps END needs room for two tokens
+            ids, masks = self.batch_encode(texts, add_special_tokens)
+            return np.asarray(ids, np.int32).reshape(n, length), np.asarray(
+                masks, np.int32).reshape(n, length)
+        parts = _SEP.join(texts).lower().translate(_PUNCT_TABLE).split(_SEP)
+        if len(parts) != n:  # a text holds the separator itself
+            parts = [t.lower().translate(_PUNCT_TABLE) for t in texts]
+        get, unk = self.word2idx.get, repeat(UNK_IDX)
+        start, end = get(START_TOKEN, UNK_IDX), get(END_TOKEN, UNK_IDX)
+        keep = length - 2 if add_special_tokens else length
+        flat, lengths = array.array("i"), []
+        for part in parts:
+            words = part.split()[:keep]
+            if add_special_tokens:
+                flat.append(start)
+                flat.extend(map(get, words, unk))
+                flat.append(end)
+            else:
+                flat.extend(map(get, words, unk))
+            k = length - keep + len(words)
+            flat.extend([PAD_IDX] * (length - k))
+            lengths.append(k)
+        ids = np.frombuffer(flat, np.int32).reshape(n, length)
+        mask = (np.arange(length) < np.array(lengths)[:, None]).astype(np.int32)
+        return ids, mask
 
     def save(self, filepath: str) -> None:
         """Reference-compatible JSON (reference: utils/tokenizer.py:276-290)."""
