@@ -252,7 +252,23 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     a validation pass of replays launching the bf16 forms 1, 4 and 2 times
     per forward. Where a JAX-written full-width tree was carried into the
     run at ``_checkout/fullwidth/trainer`` (``make_fixture.py --full-width
-    _checkout/fullwidth``), the resume from it is timed too.
+    _checkout/fullwidth``), the resume from it is timed too;
+19. the decoder deployment (``--decoder-only`` runs the build and this
+    phase alone): Kimi-VL-A3B's language model as the fusion tower at
+    full width, rank 0's 8 of 64 routed experts (the benchmark's
+    ``kimivl_a3b_ep8``), its weights drawn on the card and written in
+    bf16, loaded by ``VQAInference`` at bucket 256 (load, ``model.init``,
+    weights and graph seconds, peak memory); a call of 1,024 pairs as four
+    graph replays with the eager path refused: the stem and SE kernels
+    1 and 4 times per forward, ``moe_gather`` and ``moe_combine`` once per
+    MoE layer, the SwiGLU kernel twice per MoE layer and once per dense
+    layer, ``moe.route`` and ``moe.route_max`` once per dispatch; the
+    replayed probabilities within 1e-3 of the eager forward's; then, at
+    the first MoE layer's shapes of an eager bucket, each MoE kernel
+    against its plain version (the gather exactly, the SwiGLU within one
+    bf16 ulp, the combine within one bf16 ulp of the larger of its routed
+    sum, which it rounds to bf16 first, and the shared row), with device
+    ms, bound and the library's form of the same function per forward.
 
 All times are per forward at bucket 32 (the stem runs once, SE four
 times at the four stage shapes, cross-attention twice). ``ms`` is device
@@ -283,10 +299,12 @@ engine, and ``launches_orbax``, over phase 17 (b)'s engine answers, and
 bf16;
 ``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that,
 the graphed forward's device ms per bucket-32 call in f32 and bf16 (phase
-15 (d), each round's); and before that the ``resume``, ``orbax``, ``train_graphs``,
-``graphs``, ``tools``, ``multi_device``, ``bf16_training``, ``bf16``,
-``training``, ``serving`` (load bench, HTTP phase, supervisor) and
-``engine`` lines.
+15 (d), each round's); before that phase 19's ``kernels_decoder`` line
+(each MoE kernel's and each SwiGLU use's numbers per forward at bucket
+256) and ``decoder`` line; and before that the ``resume``, ``orbax``,
+``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
+``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
+phase, supervisor) and ``engine`` lines.
 """
 
 from __future__ import annotations
@@ -1903,13 +1921,17 @@ BF16_MAP_TOL = 3 * 2.0 ** -9
 STEM_BF16_ATOL = 1e-5
 
 
-def bf16_compare(torch, got, want, atol: float = 0.0) -> dict:
+def bf16_compare(torch, got, want, atol: float = 0.0, at=None) -> dict:
     """A bf16 output against its plain version, compared as f32, in units
-    of the bf16 spacing at the larger magnitude of the two: the largest
-    error, the elements beyond one ulp (and the largest |value| and error
-    among them), and whether every element is within one ulp + ``atol``."""
+    of the bf16 spacing at the larger magnitude of the two (and of ``at``,
+    where given: an intermediate the function rounds to bf16 before its
+    last step): the largest error, the elements beyond one ulp (and the
+    largest |value| and error among them), and whether every element is
+    within one ulp + ``atol``."""
     g, w = got.float(), want.float()
     mag = torch.maximum(g.abs(), w.abs())
+    if at is not None:
+        mag = torch.maximum(mag, at.float().abs())
     ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126))) - 7)
     d = (g - w).abs()
     beyond = d > ulp
@@ -3118,8 +3140,8 @@ def faithfulness_on_card(torch, tmp: str, rng, device="cuda", extra=()) -> tuple
     log(f"phase 14 (c): visualize_attention on '{q['question']}': {pngs}; launches {viz_delta}")
     require(pngs == ["cross_attention_layer0.png", "cross_attention_layer1.png",
                      "cross_attention_mean.png"], f"visualize_attention wrote {pngs}")
-    require(viz_delta == {"stem": 1, "se": 4, "cross_attention": 2, "stem_bf16": 0,
-                          "se_bf16": 0, "cross_attention_bf16": 0},
+    require(viz_delta == {**dict.fromkeys(ops.KERNELS, 0), "stem": 1, "se": 4,
+                          "cross_attention": 2},
             f"visualize_attention: launches {viz_delta}")
     return dict(corpora=corpora, corpus_s=corpus_s, train=cli, faithfulness=faith,
                 faithfulness_s=faith_s, forwards=forwards + 1, pngs=pngs), launches
@@ -4767,6 +4789,263 @@ def drive_resume(torch, tmp: str, device="cuda") -> tuple:
     return out, launches
 
 
+# ---- phase 19: the decoder deployment (Kimi-VL-A3B's language model) ------
+# the benchmark's kimivl_a3b_ep8 at full width: rank 0's 8 of 64 routed experts
+DECODER_FIELDS = dict(vocab_size=163_840, answer_hidden_dim=4096, experts_held=8,
+                      expert_offset=0)
+DECODER_BUCKET = 256
+DECODER_CALL = 4 * DECODER_BUCKET  # pairs a call: four dispatches, one fetch
+DECODER_GRAPH_TOL = 1e-3  # replayed probabilities against the eager forward's
+
+
+def decoder_deployment(torch, cfg, tmp: str, seed: int, device="cuda") -> dict:
+    """Write a bf16 deployment of ``cfg`` to ``tmp``: the model built on the
+    card without initialisation, each tensor drawn there from ``seed``
+    (products N(0, 1/fan_in), the word table N(0, 1), norm and BatchNorm
+    weights 1 + 0.1 z, biases and the router's correction bias 0.1 z),
+    saved in bf16 as Kimi-VL publishes its weights. Returns seconds."""
+    from vqa_tpu_torch.models.vqa_model import create_vqa_model
+    from vqa_tpu_torch.training import checkpoint as ckpt_lib
+
+    t0 = time.perf_counter()
+    model = create_vqa_model(config=cfg, device=device, init=False)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=g, device=p.device)
+            if name.endswith("embed_tokens.weight"):
+                p.copy_(z)
+            elif p.dim() >= 2:
+                p.copy_(z * (p[0].numel() ** -0.5))
+            elif name.endswith(("bias", "e_score_correction_bias")):
+                p.copy_(0.1 * z)
+            else:
+                p.copy_(1.0 + 0.1 * z)
+    state = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v).cpu()
+             for k, v in model.state_dict().items()}
+    drawn = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    ckpt_lib.save_checkpoint(tmp, "best_model", {"model_state_dict": state}, cfg,
+                             {"written_by": "chip_smoke"})
+    out = dict(drawn_s=drawn, written_s=time.perf_counter() - t0 - drawn,
+               bytes=sum(v.numel() * v.element_size() for v in state.values()))
+    log(f"decoder deployment: {out['bytes'] / 1e9:.2f} GB of bf16 drawn on the card in "
+        f"{drawn:.1f} s, written in {out['written_s']:.1f} s")
+    return out
+
+
+def moe_inputs(torch, engine, pixels, questions) -> dict:
+    """The inputs of the first MoE layer and of the dense layer 0's MLP
+    in an eager forward of one bucket, and the routed path's tensors at
+    those shapes (``models/moe.py``: the route plan, the grouped GEMMs'
+    outputs, the shared experts' product)."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.models.moe import MoE, grouped_mm, route_plan
+    from vqa_tpu_torch.ops import moe_kernel
+
+    layers = engine.model.language_model.model.layers
+    moe = next(layer.mlp for layer in layers if isinstance(layer.mlp, MoE))
+    seen = {}
+    hooks = [moe.register_forward_pre_hook(lambda _m, a: seen.setdefault("x", a[0])),
+             layers[0].mlp.register_forward_pre_hook(lambda _m, a: seen.setdefault("x0", a[0]))]
+    try:
+        engine._dispatch_eager(pixels, questions)
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.inference_mode():
+        x = seen["x"]
+        idx, w = moe.gate(x)
+        src, ends, slot = route_plan(idx, moe.offset, moe.held)
+        total = ends[-1:]
+        xs = moe_kernel.moe_gather(x, src, total)
+        h = grouped_mm(xs, moe.compute("w13"), ends)
+        y = grouped_mm(moe_kernel.fused_swiglu(h, total), moe.compute("w2"), ends)
+        shared_h = F.linear(x, moe.shared_experts.compute("w13"))
+        shared = moe.shared_experts(x)
+        x0 = seen["x0"].reshape(-1, x.shape[1])
+        dense_h = F.linear(x0, layers[0].mlp.compute("w13"))
+        n = int(total)
+        flat = slot.reshape(-1)
+        routed = flat >= 0
+        row_w = torch.zeros(src.shape[0], dtype=torch.float32, device=x.device)
+        row_w[flat[routed].long()] = w.reshape(-1)[routed]
+    return dict(x=x, src=src, total=total, n=n, slot=slot, w=w, h=h, y=y, shared=shared,
+                shared_h=shared_h, dense_h=dense_h, row_tok=src[:n].long(),
+                row_w=row_w[:n, None], moe_layers=sum(isinstance(lr.mlp, MoE) for lr in layers),
+                dense_layers=sum(not isinstance(lr.mlp, MoE) for lr in layers))
+
+
+def check_moe_kernels(torch, engine, pixels, questions) -> dict:
+    """Each MoE kernel against its plain version on the card at the
+    deployment's shapes (bucket 256: the first MoE layer's rows, the dense
+    layer's and the shared experts' SwiGLUs), within one bf16 ulp per
+    element (the gather exactly; the combine at the magnitude of its
+    rounded routed sum and of the shared row, the larger: the plain
+    version emulates the kernel's fused multiply-adds in f64, and where
+    that double rounding differs the first rounding moves by one ulp of
+    the routed sum, which the second keeps);
+    per forward: device ms, the bf16 bound
+    (bytes over 3.35 TB/s) and the library's form of the same function as
+    a yardstick (``index_select``; ``silu(gate) * up``; ``index_add`` over
+    the shared row in f32)."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.ops import moe_kernel as mk
+
+    t = moe_inputs(torch, engine, pixels, questions)
+    x, src, total, n, slot, w, shared = (t[k] for k in ("x", "src", "total", "n", "slot", "w",
+                                                         "shared"))
+    tokens, d = x.shape
+    k = slot.shape[1]
+    width = t["h"].shape[1] // 2
+    log(f"moe kernels at bucket {DECODER_BUCKET}: {tokens} tokens, {n} of {src.shape[0]} "
+        f"rows routed to the held experts in the first MoE layer; {t['moe_layers']} MoE "
+        f"layers, {t['dense_layers']} dense")
+    results = {}
+
+    def entry(name, got, want, fn, library, nbytes, per_forward, exact=False, at=None):
+        torch.cuda.synchronize()
+        c = bf16_compare(torch, got, want, at=at)
+        err = max_err(got.float(), want.float())
+        log(f"{name}: max abs err {err:.3e}, {c['ulps']:.3f} bf16 ulp, {c['beyond']} "
+            f"elements beyond 1 ulp")
+        require(got.dtype == torch.bfloat16 and (torch.equal(got, want) if exact else c["ok"]),
+                f"{name} disagrees with its plain version at the deployment's shapes")
+        k_ms, k_call = time_ms(torch, fn, 20)
+        lib_ms, _ = time_ms(torch, library, 20)
+        bnd, by = bound16_ms(nbytes, 0.0)
+        r = dict(route="cuda", source="vqa_tpu_torch/csrc/moe.cu", replaces=None,
+                 max_abs_err=err, ulps=c["ulps"], ms=per_forward * k_ms,
+                 call_ms=per_forward * k_call, bound_ms=per_forward * bnd, bound_by=by,
+                 library_ms=per_forward * lib_ms, per_forward=per_forward)
+        log(f"{name} per forward ({per_forward} calls): kernel {r['ms']:.4f} ms on the device "
+            f"({r['call_ms']:.4f} ms per call), library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({by})")
+        results[name] = r
+
+    layers = t["moe_layers"]
+    with torch.inference_mode():
+        entry("moe_gather", mk.moe_gather(x, src, total)[:n],
+              mk.plain_moe_gather(x, src, total)[:n],
+              lambda: mk.moe_gather(x, src, total),
+              lambda: torch.index_select(x, 0, t["row_tok"]),
+              2 * (2 * n * d) + 4 * n, layers, exact=True)
+        h = t["h"]
+        entry("swiglu.routed", mk.fused_swiglu(h, total)[:n], mk.plain_swiglu(h, total)[:n],
+              lambda: mk.fused_swiglu(h, total),
+              lambda: F.silu(h[:n, :width]) * h[:n, width:], 2 * 3 * n * width, layers)
+        sh = t["shared_h"]
+        entry("swiglu.shared", mk.fused_swiglu(sh), mk.plain_swiglu(sh),
+              lambda: mk.fused_swiglu(sh),
+              lambda: F.silu(sh[:, :sh.shape[1] // 2]) * sh[:, sh.shape[1] // 2:],
+              2 * 3 * sh.shape[0] * (sh.shape[1] // 2), layers)
+        dh = t["dense_h"]
+        entry("swiglu.dense", mk.fused_swiglu(dh), mk.plain_swiglu(dh),
+              lambda: mk.fused_swiglu(dh),
+              lambda: F.silu(dh[:, :dh.shape[1] // 2]) * dh[:, dh.shape[1] // 2:],
+              2 * 3 * dh.shape[0] * (dh.shape[1] // 2), t["dense_layers"])
+        y = t["y"]
+        entry("moe_combine", mk.moe_combine(y, slot, w, shared),
+              mk.plain_moe_combine(y, slot, w, shared),
+              lambda: mk.moe_combine(y, slot, w, shared),
+              lambda: shared.float().index_add_(0, t["row_tok"], y[:n].float() * t["row_w"]),
+              2 * (n * d + 2 * tokens * d) + 8 * tokens * k, layers,
+              # the routed sum is rounded to bf16 before the shared row is
+              # added: one ulp of it (or of the shared row) is the bound
+              at=torch.maximum(mk.plain_moe_combine(y, slot, w, torch.zeros_like(shared)).abs(),
+                               shared.abs()))
+    return results
+
+
+def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
+    """Phase 19; returns (summary, the MoE kernels' entries)."""
+    from vqa_tpu_torch import ops
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import DecoderConfig, InferenceConfig
+    from vqa_tpu_torch.utils.profiling import spans
+
+    t0 = time.perf_counter()
+    cfg = DecoderConfig(**DECODER_FIELDS)
+    out = {"deployment": decoder_deployment(torch, cfg, tmp, seed, device)}
+    torch.cuda.reset_peak_memory_stats()
+    marks = {n: spans(n)[1] for n in ("model.init", "engine.load.weights", "engine.load.graphs")}
+    t1 = time.perf_counter()
+    engine = VQAInference(checkpoint_dir=tmp, checkpoint_name="best_model",
+                          config=InferenceConfig(batch_buckets=(DECODER_BUCKET,),
+                                                 max_batch_size=DECODER_BUCKET),
+                          device=device, dtype=torch.bfloat16).load()
+    out["load_s"] = time.perf_counter() - t1
+    for name, before in marks.items():
+        new = [s for s in spans(name)[0] if s.seq >= before]
+        require(len(new) == 1, f"the load recorded {len(new)} {name} spans")
+        out[name + "_s"] = (new[0].end_ns - new[0].start_ns) / 1e9
+    require(engine.model_loaded_from_checkpoint and sorted(engine._graphs) == [DECODER_BUCKET],
+            f"the decoder engine has graphs for {sorted(engine._graphs or {})}")
+    log(f"decoder engine: loaded in {out['load_s']:.1f} s (model.init "
+        f"{out['model.init_s']:.2f} s, weights {out['engine.load.weights_s']:.1f} s, graphs "
+        f"{out['engine.load.graphs_s']:.1f} s), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB")
+
+    size = cfg.image_size
+    words = ["what", "color", "is", "the", "cat", "how", "many", "dogs", "are", "there", "on",
+             "table", "left", "of", "red", "car", "who", "holds", "a", "cup"]
+    pixels = rng.integers(0, 256, (DECODER_CALL, size, size, 3), dtype=np.uint8)
+    questions = [" ".join(rng.choice(words, int(rng.integers(3, 15)))) for _ in range(DECODER_CALL)]
+    engine.predict_probs_from_pixels(pixels, questions)  # warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = {n: spans(n)[1] for n in ("moe.route", "moe.route_max")}
+    with mock.patch.object(engine, "_dispatch_eager",
+                           side_effect=AssertionError("an eager dispatch on the graphed path")):
+        probs = engine.predict_probs_from_pixels(pixels, questions)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    forwards = DECODER_CALL // DECODER_BUCKET
+    dense_layers = cfg.decoder_dense_layers
+    moe_layers = cfg.decoder_layers - dense_layers
+    want = {"stem_bf16": forwards, "se_bf16": 4 * forwards, "moe_gather": moe_layers * forwards,
+            "swiglu": (2 * moe_layers + dense_layers) * forwards,
+            "moe_combine": moe_layers * forwards}
+    log(f"decoder path: {forwards} graphed forwards, kernel launches {launches}")
+    require(launches == want, f"the decoder path launched {launches}, expected {want}")
+    routes = {n: [s.value for s in spans(n)[0] if s.seq >= b] for n, b in before.items()}
+    require(len(routes["moe.route"]) == forwards and len(routes["moe.route_max"]) == forwards,
+            f"moe.route recorded {len(routes['moe.route'])} times for {forwards} dispatches")
+    require(probs.shape == (DECODER_CALL, cfg.num_answers) and np.isfinite(probs).all()
+            and np.allclose(probs.sum(1), 1.0, atol=1e-2), "the decoder's probabilities")
+    rows = np.mean(routes["moe.route"]) / (moe_layers * cfg.experts_held)
+    imbalance = np.mean(routes["moe.route_max"]) / rows
+    eager, _ = engine._dispatch_eager(pixels[:DECODER_BUCKET], questions[:DECODER_BUCKET])
+    graph_err = float(np.abs(probs[:DECODER_BUCKET] - eager.cpu().numpy()).max())
+    log(f"decoder routing: {rows:.1f} rows per held expert per MoE layer, the largest "
+        f"{imbalance:.2f}x that; replayed probabilities {graph_err:.3e} from the eager "
+        f"forward's (tolerance {DECODER_GRAPH_TOL})")
+    require(graph_err <= DECODER_GRAPH_TOL, "the replayed decoder forward left the eager one")
+    out.update(launches=launches, rows_per_expert=rows, imbalance=imbalance,
+               graph_vs_eager=graph_err, peak_bytes=torch.cuda.max_memory_allocated())
+    kernels = check_moe_kernels(torch, engine, pixels[:DECODER_BUCKET],
+                                questions[:DECODER_BUCKET])
+    for name, r in kernels.items():  # the SwiGLU's counter counts its three uses
+        r["launches"] = launches.get(name.split(".")[0], 0)
+    del engine
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19: {out['seconds']:.1f} s; {card_line()}")
+    return out, kernels
+
+
+def report_decoder(decoder: dict, kernels: dict) -> None:
+    """Phase 19's ``decoder`` line and its ``kernels_decoder`` line."""
+    log(json.dumps({"decoder": decoder}))
+    keys = ("name", "route", "source", "launches", "per_forward", "max_abs_err", "ulps", "ms",
+            "call_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels_decoder": [{k: {"name": name, **r}.get(k) for k in keys}
+                                        for name, r in kernels.items()]}))
+
+
 def _free_port() -> int:
     import socket
 
@@ -4800,6 +5079,8 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true",
                    help="add a torch.profiler breakdown of the bucket-32 forward")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--decoder-only", action="store_true",
+                   help="build the kernels, then run phase 19 (the decoder deployment) alone")
     # one rank of phase 13 or phase 15 (g)'s engine, started by the script itself
     p.add_argument("--worker", choices=sorted(WORKERS), help=argparse.SUPPRESS)
     for flag in ("--rank", "--world", "--port"):
@@ -4842,6 +5123,14 @@ def main(argv=None) -> int:
         f" bytes at the main path's shapes")
 
     rng = np.random.default_rng(args.seed)
+    if args.decoder_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_decoder.") as tmp:
+            report_decoder(*drive_decoder(torch, tmp, rng, args.seed))
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     # phases 2-8 hold the engine to f32 tolerances, so they build it in f32
     # (the default on the card is bf16, phase 11); loading it on the card
     # also turns TF32 off
@@ -4913,6 +5202,8 @@ def main(argv=None) -> int:
         resume, resume_launches = drive_resume(torch, tmp)
     for name in kernels:  # (a)'s f32 and (b)'s bf16 validation replays
         kernels[name]["launches_resume"] = resume_launches.get(name, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decoder.") as tmp:
+        decoder = drive_decoder(torch, tmp, rng, args.seed)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {
@@ -4932,6 +5223,7 @@ def main(argv=None) -> int:
     log(json.dumps({"train_graphs": train_graphs}))
     log(json.dumps({"orbax": orbax}))
     log(json.dumps({"resume": resume}))
+    report_decoder(*decoder)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools",

@@ -1,0 +1,149 @@
+"""The decoder model's routed experts on the card: the MoE kernels against
+their plain versions, the grouped routed path against the plain loop, the
+graphed bf16 forward against the eager one, and the routing counters.
+
+Marked ``cuda``: each test skips (from a fixture) where no CUDA device is
+present. On a machine with an NVIDIA GPU and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_decoder_cuda.py -q
+
+Tolerances: the kernels compute in f32 and round once, as their plain
+versions do, so the gather is exact and the SwiGLU and the combine are
+held within one bf16 ulp. The grouped path and the loop round the same
+products in bf16 but sum the GEMMs' products in other orders, so they are
+held to a few bf16 ulps of the output's scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vqa_tpu_torch import ops
+from vqa_tpu_torch.models.moe import MoE
+from vqa_tpu_torch.ops import moe_kernel
+from test_torch_decoder import TINY, tiny_deployment
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+pytestmark = pytest.mark.cuda
+
+BF16_ULP = 2.0 ** -7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _ulps(got, want):
+    """|got - want| in bf16 ulps of want's magnitude (at least that of 1e-3)."""
+    if not want.numel():
+        return 0.0
+    scale = want.float().abs().clamp(min=1e-3)
+    return float(((got.float() - want.float()).abs() / (scale * BF16_ULP)).max())
+
+
+@pytest.mark.parametrize("rows,total,width", [(96, 40, 2048), (96, 0, 64), (96, 96, 1408),
+                                              (7, 3, 8)])
+def test_moe_kernels_match_their_plain_versions(cuda, rows, total, width):
+    g = torch.Generator(device=cuda).manual_seed(rows + total)
+    tokens, k = 16, 6
+    x = torch.randn(tokens, width, generator=g, device=cuda).bfloat16()
+    src = torch.randint(0, tokens, (rows,), generator=g, device=cuda, dtype=torch.int32)
+    n = torch.tensor([total], dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()
+    got = moe_kernel.moe_gather(x, src, n)
+    assert torch.equal(got[:total], moe_kernel.plain_moe_gather(x, src, n)[:total])
+    h = torch.randn(rows, 2 * width, generator=g, device=cuda).bfloat16()
+    got = moe_kernel.fused_swiglu(h, n)
+    assert _ulps(got[:total], moe_kernel.plain_swiglu(h, n)[:total]) <= 1.0
+    assert _ulps(moe_kernel.fused_swiglu(h), moe_kernel.plain_swiglu(h)) <= 1.0
+    y = torch.randn(rows, width, generator=g, device=cuda).bfloat16()
+    slot = torch.randint(-1, rows, (tokens, k), generator=g, device=cuda, dtype=torch.int32)
+    w = torch.rand(tokens, k, generator=g, device=cuda)
+    shared = torch.randn(tokens, width, generator=g, device=cuda).bfloat16()
+    got = moe_kernel.moe_combine(y, slot, w, shared)
+    assert _ulps(got, moe_kernel.plain_moe_combine(y, slot, w, shared)) <= 1.0
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in ("moe_gather", "swiglu", "moe_combine")} == {
+        "moe_gather": 1, "swiglu": 2, "moe_combine": 1}
+
+
+@pytest.mark.parametrize("held,offset", [(8, 0), (8, 56), (64, 0)])
+def test_the_grouped_path_matches_the_loop_without_a_sync(cuda, held, offset):
+    """Kimi-VL's widths, 8 or all 64 experts held; the grouped path runs
+    with torch's sync debugging set to raise on any synchronising call."""
+    torch.manual_seed(0)
+    layer = MoE(2048, 1408, 64, 6, 2, 2.446, held, offset).to(cuda).eval()
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, p.shape[-1] ** -0.5 if p.dim() == 2 else 0.1)
+    for m in layer.modules():
+        if hasattr(m, "set_compute_dtype"):
+            m.set_compute_dtype(torch.bfloat16)
+    x = torch.randn(1024, 2048, device=cuda).bfloat16()
+    with torch.inference_mode():
+        idx, w = layer.gate(x)
+        shared = layer.shared_experts(x)
+        want, counts_loop = layer._loop(x, idx, w, shared)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, counts = layer._grouped(x, idx, w, shared)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(counts, counts_loop)
+    assert int(counts.sum()) == int(((idx >= offset) & (idx < offset + held)).sum())
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 8 * BF16_ULP * scale
+
+
+def test_the_graphed_bf16_forward_matches_the_eager_one_at_bucket_4(cuda, tmp_path):
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import InferenceConfig
+    from vqa_tpu_torch.utils.profiling import spans
+
+    pixels, questions = tiny_deployment(tmp_path, seed=11, pairs=4)
+    engine = VQAInference(checkpoint_dir=str(tmp_path), checkpoint_name="bench_model",
+                          config=InferenceConfig(batch_buckets=(4,), max_batch_size=4),
+                          device=cuda, dtype=torch.bfloat16).load()
+    assert sorted(engine._graphs) == [4]
+    before, launches = spans("moe.route")[1], ops.launch_counts()["moe_gather"]
+    got = engine.predict_probs_from_pixels(pixels, questions)
+    # one replay: the launches its capture recorded, one gather per MoE layer
+    moe_layers = TINY["decoder_layers"] - TINY["decoder_dense_layers"]
+    assert ops.launch_counts()["moe_gather"] - launches == moe_layers
+    want, _ = engine._dispatch_eager(pixels, questions)
+    assert np.abs(got - want.cpu().numpy()).max() <= 1e-6
+    assert len([r for r in spans("moe.route")[0] if r.seq >= before]) == 1
+
+
+def test_the_routing_counters_match_the_references_counts(cuda, tmp_path):
+    """The graph's counters against the rows the reference routes to the
+    held experts, in f32 from the same bf16 values: equal up to the
+    tokens whose choice flips between the two precisions."""
+    from benchmark.reference.decoder_vqa import held_experts, log_probs_in_blocks
+    from benchmark.reference.prep import Vocabulary
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import InferenceConfig
+    from vqa_tpu_torch.utils.profiling import spans
+
+    pixels, questions, state, word2idx = tiny_deployment(tmp_path, seed=12, pairs=4, full=True)
+    engine = VQAInference(checkpoint_dir=str(tmp_path), checkpoint_name="bench_model",
+                          config=InferenceConfig(batch_buckets=(4,), max_batch_size=4),
+                          device=cuda, dtype=torch.bfloat16).load()
+    before = spans("moe.route")[1]
+    engine.predict_probs_from_pixels(pixels, questions)
+    (route,) = [r.value for r in spans("moe.route")[0] if r.seq >= before]
+    ids, mask = Vocabulary(word2idx, TINY["max_question_length"]).encode_all(questions)
+    state = {k: v.to(cuda).float() if v.is_floating_point() else v.to(cuda)
+             for k, v in state.items()}
+    _, routes = log_probs_in_blocks(TINY, state, torch.from_numpy(pixels).to(cuda),
+                                    torch.from_numpy(ids).to(cuda),
+                                    torch.from_numpy(mask).to(cuda))
+    held = torch.tensor(list(held_experts(TINY)))
+    want = int((routes[..., None] == held).sum())
+    assert abs(route - want) <= 0.02 * want

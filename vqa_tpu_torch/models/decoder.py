@@ -1,0 +1,272 @@
+"""A VQA model whose fusion tower is Kimi-VL-A3B's language model: a
+DeepSeek-V3 decoder over the image tokens, then the question's.
+
+``DecoderVQAModel`` (``utils/config.py:DecoderConfig``; built by
+``create_vqa_model``) takes ``(images, token_ids, attention_mask)`` as
+``VQAModel`` does and returns ``(logits, {"route_counts": ...})``, f32
+logits over the answers:
+
+- the backbone of the reference model (``CustomResNet``) gives a
+  [B, S, S, C] map; the projector, LayerNorm(C) → Linear(C → D) → GELU →
+  Linear(D → D), turns it into S·S image tokens (Kimi-VL's projector
+  without its 2 × 2 pixel shuffle, which a 7 × 7 map cannot take);
+- the question's tokens are looked up in ``embed_tokens`` and follow the
+  image tokens; the joint sequence runs through the decoder under a causal
+  mask, with the question's padding masked as keys;
+- ``decoder_dense_layers`` layers with a dense SwiGLU MLP, then MoE layers
+  (``models/moe.py``), each pre-norm with residuals: RMSNorm → multi-head
+  latent attention → add, RMSNorm → MLP → add;
+- the answer head (``AnswerHead``) reads the last real question token
+  after the final RMSNorm.
+
+Multi-head latent attention (DeepSeek-V3's ``DeepseekV3Attention`` with
+``q_lora_rank`` null), in the expanded form of a forward with no cache:
+``q_proj`` gives each head ``qk_nope_head_dim`` + ``qk_rope_head_dim``
+query dims; ``kv_a_proj_with_mqa`` gives a latent of ``kv_lora_rank``
+(RMSNorm'd by ``kv_a_layernorm``) and one rotary key of
+``qk_rope_head_dim`` that every head shares; ``kv_b_proj`` expands the
+latent to each head's key (no rope part) and value. RoPE (theta
+``rope_theta``, no scaling) acts on the rotary dims only, in DeepSeek-V3's
+layout: the interleaved pairs (2i, 2i+1) are taken apart to
+[even, odd] halves and rotated as ``rotate_half`` does. Scores are scaled
+by (qk_nope + qk_rope)^-1/2, masked, and take their softmax in f32.
+
+The dtype policy is the port's (``models/layers.py``): weights f32,
+products (and RMSNorm's scaling) from bf16 compute copies; RMSNorm's
+statistics, RoPE and the softmax compute in f32; the router works in f32
+from its f32 weight. Where DeepSeek-V3's code rounds to bf16 between two
+steps of RoPE, the port rounds once.
+
+State_dict keys follow the published checkpoint's
+(``language_model.model.layers.{i}.self_attn.kv_a_proj_with_mqa.weight``,
+``language_model.model.layers.{i}.mlp.gate.e_score_correction_bias``,
+``multi_modal_projector.linear_1.weight``); the backbone and the answer
+head keep the reference model's (``image_encoder.*``, ``answer_head.*``).
+Eager forwards carry ``record_function`` ranges ``decoder.attention``,
+``moe.router``, ``moe.routed`` and ``moe.shared`` for a profiler.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from vqa_tpu_torch.models.cnn_backbone import CustomResNet
+from vqa_tpu_torch.models.layers import (ComputeCopies, ComputeDtypeRoot, Embedding, LayerNorm,
+                                          Linear)
+from vqa_tpu_torch.models.moe import MoE, SwiGLU
+from vqa_tpu_torch.utils.config import DecoderConfig
+
+NEG_INF = -1e9  # a masked score
+
+
+class RMSNorm(ComputeCopies, nn.Module):
+    """x / rms(x) · weight, the statistics in f32 (``F.rms_norm``), the
+    weight in the compute dtype, as DeepSeek-V3's RMSNorm multiplies by its
+    bf16 weight."""
+
+    copied = ("weight",)
+
+    def __init__(self, dim: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.init_copies()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.rms_norm(x, self.weight.shape, self.compute("weight"), self.eps)
+
+
+def rope_tables(length: int, dim: int, theta: float):
+    """(cos, sin) [length, dim / 2] f32 of DeepSeek-V3's rotary embedding:
+    position p, frequency theta^(-2i/dim); computed on the CPU, wherever
+    the model is built."""
+    inv_freq = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device="cpu") / dim)
+    freqs = torch.outer(torch.arange(length, dtype=torch.float32, device="cpu"), inv_freq)
+    return freqs.cos(), freqs.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, L, h, d] rotated at positions 0..L-1 as DeepSeek-V3 does: its
+    interleaved pairs (2i, 2i+1) taken apart to [even, odd] halves, then
+    x·cos + rotate_half(x)·sin, so pair i lands at (i, i + d/2); in f32,
+    rounded once."""
+    length = x.shape[1]
+    cos, sin = cos[:length, None], sin[:length, None]
+    even, odd = x[..., 0::2].float(), x[..., 1::2].float()
+    return torch.cat([even * cos - odd * sin, odd * cos + even * sin], -1).to(x.dtype)
+
+
+def padded(length: int) -> int:
+    """The attention's positions, ``length`` rounded up to a multiple of 8
+    so that the score and context products take aligned rows; the padding
+    is masked as keys and dropped as queries."""
+    return -(-length // 8) * 8
+
+
+def attention_bias(keys: torch.Tensor, heads: int, dtype) -> torch.Tensor:
+    """[B·heads, P, P] in ``dtype``: 0 where a query may see a key (causal,
+    the key not padding), NEG_INF elsewhere; P = ``padded(L)`` of keys
+    [B, L] (0 at padding)."""
+    b, length = keys.shape
+    p = padded(length)
+    pos = torch.arange(p, device=keys.device)
+    real = F.pad(keys, (0, p - length)) != 0
+    keep = (pos[None, :] <= pos[:, None])[None] & real[:, None, :]
+    bias = torch.where(keep, 0.0, NEG_INF).to(dtype)
+    return bias[:, None].expand(b, heads, p, p).reshape(b * heads, p, p)
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention (see the module docstring). Queries,
+    keys and values are assembled head-major in buffers of ``padded(L)``
+    rows, the score product adds the mask in its epilogue, and the softmax
+    takes its f32 statistics from the bf16 scores, as DeepSeek-V3's does."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        d, h = cfg.decoder_hidden, cfg.decoder_heads
+        self.heads, self.nope, self.rope, self.v = (h, cfg.qk_nope_head_dim,
+                                                    cfg.qk_rope_head_dim, cfg.v_head_dim)
+        self.rank = cfg.kv_lora_rank
+        self.scale = (self.nope + self.rope) ** -0.5
+        self.q_proj = Linear(d, h * (self.nope + self.rope), bias=False)
+        self.kv_a_proj_with_mqa = Linear(d, self.rank + self.rope, bias=False)
+        self.kv_a_layernorm = RMSNorm(self.rank, cfg.rms_norm_eps)
+        self.kv_b_proj = Linear(self.rank, h * (self.nope + self.v), bias=False)
+        self.o_proj = Linear(h * self.v, d, bias=False)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+        """x [B, L, D]; bias from ``attention_bias``."""
+        b, length, _ = x.shape
+        h, nope, rope, dv = self.heads, self.nope, self.rope, self.v
+        p = bias.shape[-1]
+        q_nope, q_pe = self.q_proj(x).view(b, length, h, nope + rope).split([nope, rope], -1)
+        latent, k_pe = self.kv_a_proj_with_mqa(x).split([self.rank, rope], -1)
+        kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, length, h, nope + dv)
+        k_nope, v = kv.split([nope, dv], -1)
+        q, k, vh = (x.new_empty(b, h, p, w) for w in (nope + rope, nope + rope, dv))
+        for t in (q, k, vh):
+            t[:, :, length:] = 0
+        q[:, :, :length, :nope] = q_nope.transpose(1, 2)
+        q[:, :, :length, nope:] = apply_rope(q_pe, cos, sin).transpose(1, 2)
+        k[:, :, :length, :nope] = k_nope.transpose(1, 2)
+        k[:, :, :length, nope:] = apply_rope(k_pe.view(b, length, 1, rope), cos,
+                                             sin).transpose(1, 2)  # every head's
+        vh[:, :, :length] = v.transpose(1, 2)
+        q, k, vh = (t.view(b * h, p, -1) for t in (q, k, vh))
+        scores = torch.baddbmm(bias, q, k.transpose(1, 2), alpha=self.scale)
+        probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(x.dtype)
+        ctx = torch.bmm(probs, vh).view(b, h, p, dv)[:, :, :length]
+        return self.o_proj(ctx.transpose(1, 2).reshape(b, length, h * dv))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: DecoderConfig, index: int):
+        super().__init__()
+        d = cfg.decoder_hidden
+        self.self_attn = MLA(cfg)
+        if index < cfg.decoder_dense_layers:
+            self.mlp = SwiGLU(d, cfg.decoder_ffn_dim)
+        else:
+            self.mlp = MoE(d, cfg.moe_intermediate_size, cfg.router_experts,
+                           cfg.num_experts_per_tok, cfg.n_shared_experts,
+                           cfg.routed_scaling_factor, cfg.experts_held, cfg.expert_offset)
+        self.input_layernorm = RMSNorm(d, cfg.rms_norm_eps)
+        self.post_attention_layernorm = RMSNorm(d, cfg.rms_norm_eps)
+
+    def forward(self, x, bias, cos, sin):
+        """(x after the layer, the rows routed to each held expert, or None
+        for a dense layer)."""
+        with record_function("decoder.attention"):
+            x = x + self.self_attn(self.input_layernorm(x), bias, cos, sin)
+        h = self.post_attention_layernorm(x)
+        if isinstance(self.mlp, MoE):
+            out, counts = self.mlp(h.reshape(-1, h.shape[-1]))
+            return x + out.view_as(x), counts
+        return x + self.mlp(h), None
+
+
+class DecoderStack(nn.Module):
+    """``embed_tokens``, ``layers`` and the final ``norm`` of the language
+    model (its ``model``)."""
+
+    def __init__(self, cfg: DecoderConfig, positions: int):
+        super().__init__()
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.decoder_hidden)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i) for i in range(cfg.decoder_layers))
+        self.norm = RMSNorm(cfg.decoder_hidden, cfg.rms_norm_eps)
+        cos, sin = rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, x: torch.Tensor, keys: torch.Tensor):
+        """x [B, L, D], keys [B, L] (0 at padding) → (x, the rows routed to
+        each held expert of each MoE layer [layers, held] int32, or None)."""
+        bias = attention_bias(keys, self.layers[0].self_attn.heads, x.dtype)
+        counts = []
+        for layer in self.layers:
+            x, c = layer(x, bias, self.rope_cos, self.rope_sin)
+            if c is not None:
+                counts.append(c)
+        return x, (torch.stack(counts) if counts else None)
+
+
+class LanguageModel(nn.Module):
+    def __init__(self, cfg: DecoderConfig, positions: int):
+        super().__init__()
+        self.model = DecoderStack(cfg, positions)
+
+
+class Projector(nn.Module):
+    """Kimi-VL's multi-modal projector without the pixel shuffle."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.pre_norm = LayerNorm(in_dim, eps=1e-5)
+        self.linear_1 = Linear(in_dim, hidden)
+        self.linear_2 = Linear(hidden, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.gelu(self.linear_1(self.pre_norm(x))))
+
+
+class DecoderVQAModel(ComputeDtypeRoot):
+    """See the module docstring."""
+
+    def __init__(self, config: DecoderConfig):
+        super().__init__()
+        from vqa_tpu_torch.models.vqa_model import AnswerHead
+
+        cfg = self.config = config
+        self.image_tokens = cfg.feature_spatial_size ** 2
+        self.image_encoder = CustomResNet(
+            in_channels=cfg.in_channels, base_channels=cfg.base_channels,
+            stage_channels=tuple(cfg.stage_channels),
+            num_blocks=tuple(cfg.blocks_per_stage), use_se=cfg.use_se_attention,
+            use_spatial=cfg.use_spatial_attention, se_reduction=cfg.se_reduction)
+        self.multi_modal_projector = Projector(cfg.stage_channels[-1], cfg.decoder_hidden)
+        self.language_model = LanguageModel(cfg, self.image_tokens + cfg.max_question_length)
+        self.answer_head = AnswerHead(cfg.decoder_hidden, cfg.answer_hidden_dim,
+                                      cfg.num_answers, cfg.answer_dropout)
+
+    def forward(self, images: torch.Tensor, token_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None):
+        feats = self.image_encoder(images.to(self.dtype))
+        b, s1, s2, c = feats.shape
+        lm = self.language_model.model
+        x = torch.cat([self.multi_modal_projector(feats.reshape(b, s1 * s2, c)),
+                       lm.embed_tokens(token_ids)], 1)
+        if attention_mask is None:
+            attention_mask = torch.ones_like(token_ids)
+        keys = torch.cat([attention_mask.new_ones((b, s1 * s2)), attention_mask], 1)
+        x, counts = lm(x, keys)
+        last = s1 * s2 + attention_mask.sum(1) - 1
+        read = lm.norm(x[torch.arange(b, device=x.device), last])
+        logits = self.answer_head(read).float()
+        return logits, (None if counts is None else {"route_counts": counts})

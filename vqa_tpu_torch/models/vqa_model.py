@@ -59,7 +59,7 @@ from vqa_tpu_torch.models.layers import (
 )
 from vqa_tpu_torch.models.text_encoder import MultiHeadSelfAttention, TransformerTextEncoder
 from vqa_tpu_torch.parallel import mesh as mesh_lib
-from vqa_tpu_torch.utils.config import ModelConfig
+from vqa_tpu_torch.utils.config import DecoderConfig, ModelConfig
 
 
 class AnswerHead(nn.Module):
@@ -171,6 +171,8 @@ def shard_model(model: VQAModel, mesh) -> VQAModel:
     group. Returns the model."""
     if model.mesh is not None:
         raise ValueError("the model is already placed on a mesh")
+    if not isinstance(model, VQAModel):
+        raise ValueError("only the cross-attention model is placed on a mesh")
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     splits = mesh_lib.variables_shardings(shapes, mesh, model.config.num_attention_heads)
     place = (mesh.model_index, mesh.model_parallel, mesh.model_group)
@@ -253,6 +255,7 @@ def create_vqa_model(
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
     stem_s2d: bool = False,
+    init: bool = True,
     **overrides,
 ) -> VQAModel:
     """Build a seeded model in eval mode on ``device``, computing in
@@ -261,7 +264,12 @@ def create_vqa_model(
     ``use_attention=False`` disables both SE and spatial attention (the
     ``--no-attention`` ablation); ``stem_s2d`` takes the space-to-depth
     stem conv (same parameters, same function); ``overrides`` replace
-    config fields.
+    config fields. A ``DecoderConfig`` builds the decoder tower's model
+    (``models/decoder.py``), which takes the same inputs. ``init=False``,
+    for a caller that loads a whole state over the model, skips the seeded
+    initialisation and builds the model on ``device`` directly (its
+    parameters hold torch's default initialisation, or nothing in
+    particular).
     """
     device = resolve_device(device)
     cfg = config or ModelConfig()
@@ -272,17 +280,26 @@ def create_vqa_model(
     if use_attention is not None:
         cfg = dataclasses.replace(
             cfg, use_se_attention=use_attention, use_spatial_attention=use_attention)
-    model = VQAModel(cfg, stem_s2d=stem_s2d)
-    init_parameters(model, torch.Generator().manual_seed(seed))
+    if isinstance(cfg, DecoderConfig):
+        from vqa_tpu_torch.models.decoder import DecoderVQAModel
+
+        build = lambda: DecoderVQAModel(cfg)  # noqa: E731
+    else:
+        build = lambda: VQAModel(cfg, stem_s2d=stem_s2d)  # noqa: E731
+    if init:
+        model = build()
+        init_parameters(model, torch.Generator().manual_seed(seed))
+    else:
+        with torch.device(device):
+            model = build()
     return model.to(device).eval().set_compute_dtype(dtype)
 
 
-def count_parameters(model: VQAModel) -> Dict[str, int]:
-    """Per-component parameter counts (buffers excluded)."""
-    counts = {
-        name: sum(p.numel() for p in getattr(model, name).parameters())
-        for name in ("image_encoder", "text_encoder", "fusion", "answer_head")
-    }
+def count_parameters(model: nn.Module) -> Dict[str, int]:
+    """Per-component parameter counts (buffers excluded): one per child of
+    the model, in order."""
+    counts = {name: sum(p.numel() for p in child.parameters())
+              for name, child in model.named_children()}
     counts["total"] = sum(counts.values())
     return counts
 

@@ -16,11 +16,16 @@ from vqa_tpu_torch.ops.cross_attention_kernel import (  # noqa: F401
     fused_cross_attention_bf16,
     plain_cross_attention,
 )
+from vqa_tpu_torch.ops.moe_kernel import (  # noqa: F401
+    fused_swiglu,
+    moe_combine,
+    moe_gather,
+)
 from vqa_tpu_torch.ops.se_kernel import fused_se, fused_se_bf16, plain_se  # noqa: F401
 from vqa_tpu_torch.ops.stem_kernel import fused_stem, fused_stem_bf16, plain_stem  # noqa: F401
 
-# each kernel's f32 and bf16 forms, counted apart: the f32 wrappers route
-# bf16 inputs to the bf16 forms
+# each kernel's f32 and bf16 forms, counted apart (the f32 wrappers route
+# bf16 inputs to the bf16 forms), and the MoE kernels
 KERNELS = {
     "stem": fused_stem,
     "se": fused_se,
@@ -28,6 +33,10 @@ KERNELS = {
     "stem_bf16": fused_stem_bf16,
     "se_bf16": fused_se_bf16,
     "cross_attention_bf16": fused_cross_attention_bf16,
+    # the MoE layer's routed rows, and every SwiGLU (routed and dense), bf16 only
+    "moe_gather": moe_gather,
+    "swiglu": fused_swiglu,
+    "moe_combine": moe_combine,
 }
 
 

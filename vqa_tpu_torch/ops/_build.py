@@ -34,7 +34,7 @@ from vqa_tpu_torch.utils.profiling import annotate
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("common.cu", "stem.cu", "se.cu", "cross_attention.cu")
+SOURCES = ("common.cu", "stem.cu", "se.cu", "cross_attention.cu", "moe.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -66,6 +66,13 @@ _SIGNATURES = {
     "vqa_cross_attention_bf16": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     # B, H, Lq, Lkv, D, out[3]: the bf16 form's launch geometry
     "vqa_cross_attention_bf16_geometry": [_I] * 5 + [ctypes.POINTER(_I)],
+    # the MoE layer's routed rows (bf16): x, src, total, out, width, blocks,
+    # stream; y, slot, w, shared, out, tokens, k, width, blocks, stream
+    "vqa_moe_gather_bf16": [_P] * 4 + [_I] * 2 + [_P],
+    "vqa_moe_combine_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # a SwiGLU (bf16): h, total (null: every row), out, rows, width, blocks,
+    # stream
+    "vqa_swiglu_bf16": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

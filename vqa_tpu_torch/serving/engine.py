@@ -27,6 +27,15 @@ a dispatch for a bucket without a graph: nothing falls back to the eager
 forward. On the CPU the engine runs eagerly. ``attention_map`` is eager
 everywhere, as the JAX one is.
 
+A model whose fusion tower is the decoder with routed experts
+(``models/decoder.py``) is loaded, captured and replayed the same way;
+its graphs also write the rows routed to each held expert of each MoE
+layer, on the device, and every dispatch copies them out with the
+probabilities. ``predict_probs_from_pixels`` reads them once the call's
+probabilities are on the host and records, per dispatch, the counters
+``moe.route`` and ``moe.route_max`` (``record_routes``), so no dispatch
+waits for them.
+
 Weights, in the JAX engine's order (its own checkpoint, a ``.pth``, a
 random model): the port's checkpoint ``checkpoint_dir/<name>.pt`` or the
 JAX trainer's Orbax directory ``checkpoint_dir/<name>/``, each with its
@@ -85,7 +94,7 @@ from vqa_tpu_torch.models.vqa_model import (
 from vqa_tpu_torch.serving import graphs
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
 from vqa_tpu_torch.utils.config import InferenceConfig, ModelConfig
-from vqa_tpu_torch.utils.profiling import annotate, watch_gc
+from vqa_tpu_torch.utils.profiling import annotate, count, watch_gc
 from vqa_tpu_torch.utils.tokenizer import Tokenizer
 
 _DEFAULT_QUESTION_WORDS = [
@@ -95,12 +104,28 @@ _DEFAULT_QUESTION_WORDS = [
 
 
 def forward_probs(model: VQAModel, pixels: torch.Tensor, ids: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor):
     """uint8 pixels, token ids and mask on the model's device → answer
     probabilities: normalize → forward → softmax, the function each CUDA
-    graph of the engine holds."""
-    logits, _ = model(device_normalize(pixels), ids.long(), mask)
-    return torch.softmax(logits, dim=-1)
+    graph of the engine holds. A model with routed experts
+    (``models/decoder.py``) gives (probabilities, the rows routed to each
+    held expert of each MoE layer [layers, held] int32)."""
+    logits, aux = model(device_normalize(pixels), ids.long(), mask)
+    probs = torch.softmax(logits, dim=-1)
+    return probs if aux is None else (probs, aux["route_counts"])
+
+
+def record_routes(dispatched) -> None:
+    """The counters of the dispatches of one call (probabilities carrying
+    each replica's routing counts as ``route_counts``; their forwards have
+    finished): per dispatch, ``moe.route``, the rows routed to the held
+    experts over every layer and replica, and ``moe.route_max``, the most
+    rows one held expert got in one layer."""
+    replicas = len(dispatched[0][0].route_counts)
+    counts = torch.stack([c.to(p.device) for p, _ in dispatched for c in p.route_counts]).cpu()
+    for c in counts.view(len(dispatched), replicas, *counts.shape[1:]):
+        count("moe.route", int(c.sum()))
+        count("moe.route_max", int(c.max()))
 
 
 def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAModel:
@@ -110,10 +135,10 @@ def load_reference_checkpoint(path: str, device, dtype=torch.float32) -> VQAMode
     state_dict = ckpt.get("model_state_dict", ckpt)
     ref_cfg = ckpt.get("config", {}) if isinstance(ckpt, dict) else {}
     cfg = model_config_from_reference(ref_cfg, state_dict)
-    with annotate("model.init"):
-        model = create_vqa_model(config=cfg, device="cpu")
+    with annotate("model.init"):  # no initialisation: the state is loaded over it
+        model = create_vqa_model(config=cfg, device=device, init=False)
     model.load_state_dict(state_dict, strict=True)
-    return model.to(device).set_compute_dtype(dtype)
+    return model.set_compute_dtype(dtype)
 
 
 class VQAInference:
@@ -344,11 +369,19 @@ class VQAInference:
             mask = np.concatenate([mask, np.repeat(mask[:1], pad, 0)])
         return (pixels, ids, mask), n, bucket
 
-    def _gather(self, probs: List[torch.Tensor]) -> torch.Tensor:
-        """Every replica is launched; gather on the first one's device."""
-        if len(probs) == 1:
-            return probs[0]
-        return torch.cat([p.to(self.device, non_blocking=True) for p in probs])
+    def _gather(self, outs: List) -> torch.Tensor:
+        """Every replica is launched; gather on the first one's device. A
+        forward that also gives its routing counts (``forward_probs``'s
+        (probabilities, counts)) has them carried on the gathered
+        probabilities, one tensor a replica, as ``route_counts`` (read at
+        the fetch, ``record_routes``)."""
+        routed = isinstance(outs[0], tuple)
+        probs = [o[0] for o in outs] if routed else outs
+        out = (probs[0] if len(probs) == 1
+               else torch.cat([p.to(self.device, non_blocking=True) for p in probs]))
+        if routed:
+            out.route_counts = [o[1] for o in outs]
+        return out
 
     def dispatch_probs_from_pixels(self, pixels: np.ndarray, questions):
         """Pad to a bucket and launch the forward: returns the padded
@@ -436,7 +469,10 @@ class VQAInference:
             for i in range(0, n, max_bucket)
         ]
         with annotate("engine.fetch"):  # the host waits here for the card
-            return np.concatenate([p.cpu().numpy()[:k] for p, k in dispatched])
+            out = np.concatenate([p.cpu().numpy()[:k] for p, k in dispatched])
+            if hasattr(dispatched[0][0], "route_counts"):
+                record_routes(dispatched)
+            return out
 
     def predict_batch_raw(self, images: Sequence[ImageInput],
                           questions: Sequence[str]) -> np.ndarray:

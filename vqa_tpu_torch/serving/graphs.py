@@ -90,6 +90,10 @@ class SlottedGraph:
         self.copied, self.free = list(copied), list(free)
         self.launches = self.graphs[0].launches
         self.slot = 0  # the slot the next feed fills
+        # the output a replay copies out: a tensor, or a tuple of them
+        # (a model with routed experts adds its routing counts)
+        self._copy = (torch.Tensor.clone if isinstance(self.graphs[0].output, torch.Tensor)
+                      else lambda out: tuple(t.clone() for t in out))
 
     def feed(self, host_inputs: Sequence[torch.Tensor]) -> int:
         """Queue the copy of ``host_inputs`` (tensors of the static inputs'
@@ -109,18 +113,18 @@ class SlottedGraph:
         s.to_compute()
         return int(held)
 
-    def replay(self) -> torch.Tensor:
+    def replay(self):
         """Replay the graph of the slot the last ``feed`` filled, on the
         compute stream once its copy has landed, and return a copy of the
-        output (queued right after the replay, before any other replay of
-        the pool)."""
+        output, a tensor or a tuple of them (queued right after the replay,
+        before any other replay of the pool)."""
         k = self.slot
         self.slot = (k + 1) % len(self.graphs)
         self.copied[k].wait(self.streams.compute)
         graph = self.graphs[k]
         graph.graph.replay()
         ops.add_launch_counts(graph.launches)
-        return graph.output.clone()
+        return self._copy(graph.output)
 
 
 def _then_record(out, events):

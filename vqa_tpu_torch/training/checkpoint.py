@@ -280,8 +280,8 @@ def load_model_for_inference(base_dir: str, name: str = "best_model", device="cu
 
         tree, cfg, _ = load_orbax_checkpoint(base_dir, name)
         state_dict = state_dict_from_jax(inference_variables(tree), cfg)
-    # the random initialisation the loaded state then overwrites
+    # built on the device with no initialisation: the loaded state is all
     with annotate("model.init"):
-        model = create_vqa_model(config=cfg, device="cpu")
+        model = create_vqa_model(config=cfg, device=device, init=False)
     model.load_state_dict(state_dict, strict=True)
-    return model.to(device).eval().set_compute_dtype(dtype or torch.float32)
+    return model.eval().set_compute_dtype(dtype or torch.float32)

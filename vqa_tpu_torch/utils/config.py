@@ -4,8 +4,10 @@ Copies of ``PathConfig``/``PATHS``, ``ModelConfig``, ``TrainingConfig``,
 ``InferenceConfig``, ``MeshConfig``, ``tiny_model_config`` and the dict
 round-trip of ``vqa_tpu/utils/config.py`` (same fields, same defaults), so
 configs and checkpoint config dicts move between the two packages
-unchanged. The kernel-toggle config is not ported: the port's kernels are
-not behind toggles.
+unchanged. ``DecoderConfig``, the port's own, extends ``ModelConfig``
+with the decoder tower's fields (the JAX package has no such model). The
+kernel-toggle config is not ported: the port's kernels are not behind
+toggles.
 """
 
 from __future__ import annotations
@@ -90,7 +92,6 @@ class ModelConfig:
     # fusion
     num_cross_layers: int = 2
     use_gating: bool = True
-
     def __post_init__(self):
         if self.stage_channels is None:
             object.__setattr__(  # frozen dataclass
@@ -105,6 +106,37 @@ class ModelConfig:
     answer_dropout: float = 0.3
 
     dropout: float = 0.1
+
+
+@dataclass(frozen=True)
+class DecoderConfig(ModelConfig):
+    """A ``ModelConfig`` whose fusion tower is a DeepSeek-V3 style decoder
+    over the image tokens, then the question's (``models/decoder.py``):
+    the backbone, ``vocab_size``, ``max_question_length`` and the answer
+    head's fields are read as the reference model reads them, the text
+    encoder's and the cross-attention's are not. The names in comments are
+    the published ``config.json``'s."""
+
+    fusion: str = "decoder"             # the sidecar's mark of this class
+    decoder_hidden: int = 2048          # hidden_size
+    decoder_layers: int = 27            # num_hidden_layers
+    decoder_heads: int = 16             # num_attention_heads
+    decoder_dense_layers: int = 1       # first_k_dense_replace
+    decoder_ffn_dim: int = 11264        # intermediate_size
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 800000.0
+    rms_norm_eps: float = 1e-5
+    moe_intermediate_size: int = 1408
+    router_experts: int = 64            # n_routed_experts: the router's outputs
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    # this rank's routed experts: [expert_offset, expert_offset + experts_held)
+    experts_held: int = 64
+    expert_offset: int = 0
 
 
 @dataclass
@@ -198,9 +230,12 @@ def model_config_dict(cfg: ModelConfig) -> dict:
 
 
 def model_config_from_dict(d: dict) -> ModelConfig:
-    known = {f.name for f in dataclasses.fields(ModelConfig)}
+    """The ModelConfig of a sidecar's dict: a ``DecoderConfig`` where it says
+    ``fusion: decoder``."""
+    cls = DecoderConfig if d.get("fusion") == "decoder" else ModelConfig
+    known = {f.name for f in dataclasses.fields(cls)}
     kwargs = {k: v for k, v in d.items() if k in known}
     for k in ("stage_channels", "blocks_per_stage"):
         if k in kwargs:
             kwargs[k] = tuple(kwargs[k])
-    return ModelConfig(**kwargs)
+    return cls(**kwargs)

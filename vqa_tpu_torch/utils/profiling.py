@@ -7,6 +7,7 @@ Counterpart of ``vqa_tpu/utils/profiling.py``:
   its thread, one small integer ``value``), read back with :func:`spans`;
   while a profiler runs, also a ``torch.profiler.record_function`` range,
   so that the span sits on the profiler's own timeline;
+  :func:`count` records a value alone, as a span of no length;
   :func:`watch_gc` records the interpreter's collections the same way;
 - :func:`step_annotation`: a step-scoped range on a profiler's timeline;
 - :class:`Profiler` / :func:`maybe_trace`: a ``torch.profiler`` trace of
@@ -167,6 +168,15 @@ class annotate:
         ring.records[seq % RING_SIZE] = (seq, self.id, self._parent, self._start, end,
                                          self.value)
         return False
+
+
+def count(name: str, value: int) -> None:
+    """Record ``value`` under ``name`` as a span of no length, ending now, in
+    the span open on this thread: a counter read back with :func:`spans`."""
+    ring = _rings.get(name) or _ring(name)
+    now = _now()
+    seq = next(ring.slots)
+    ring.records[seq % RING_SIZE] = (seq, next(_ids), _open.span, now, now, value)
 
 
 def spans(name: str) -> Tuple[List[Span], int]:
