@@ -260,11 +260,16 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     bf16, loaded by ``VQAInference`` at bucket 256 (load, ``model.init``,
     weights and graph seconds, peak memory); a call of 1,024 pairs as four
     graph replays with the eager path refused: the stem and SE kernels
-    1 and 4 times per forward, ``moe_gather`` and ``moe_combine`` once per
-    MoE layer, the SwiGLU kernel twice per MoE layer and once per dense
-    layer, ``moe.route`` and ``moe.route_max`` once per dispatch; the
-    replayed probabilities within 1e-3 of the eager forward's; then, at
-    the first MoE layer's shapes of an eager bucket, each MoE kernel
+    1 and 4 times per forward, ``mla_attention`` once per layer,
+    ``moe_gather`` and ``moe_combine`` once per MoE layer, the SwiGLU
+    kernel twice per MoE layer and once per dense layer, ``moe.route`` and
+    ``moe.route_max`` once per dispatch; the replayed probabilities within
+    1e-3 of the eager forward's; one more call traced, its device ms per
+    forward by kernel function (the ``split``); the attention kernel
+    against its plain version at the first layer's shapes of an eager
+    bucket (within 2 bf16 ulps of the output's scale, launched under
+    torch's sync debugging), with device ms, bound, plain ms and SDPA's
+    per forward; then, at the first MoE layer's shapes, each MoE kernel
     against its plain version (the gather exactly, the SwiGLU within one
     bf16 ulp, the combine within one bf16 ulp of the larger of its routed
     sum, which it rounds to bf16 first, and the shared row), with device
@@ -300,9 +305,9 @@ bf16;
 ``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that,
 the graphed forward's device ms per bucket-32 call in f32 and bf16 (phase
 15 (d), each round's); before that phase 19's ``kernels_decoder`` line
-(each MoE kernel's and each SwiGLU use's numbers per forward at bucket
-256) and ``decoder`` line; and before that the ``resume``, ``orbax``,
-``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
+(the attention kernel's, each MoE kernel's and each SwiGLU use's numbers
+per forward at bucket 256) and ``decoder`` line; and before that the
+``resume``, ``orbax``, ``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
 ``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
 phase, supervisor) and ``engine`` lines.
 """
@@ -4961,8 +4966,114 @@ def check_moe_kernels(torch, engine, pixels, questions) -> dict:
     return results
 
 
+MLA_ULPS = 2.0  # the attention kernel against its plain version, in bf16 ulps of the scale
+
+
+def check_mla_kernel(torch, engine, pixels, questions) -> dict:
+    """The attention kernel against its plain version on the card at the
+    first decoder layer's shapes (bucket 256: that layer's own q, kv and
+    rotary key from an eager forward), within ``MLA_ULPS`` bf16 ulps of the
+    output's scale (the kernel sums its scores in another order, so a
+    probability now and then rounds to its bf16 neighbour), launched with
+    torch's sync debugging set to raise; per forward (one launch a layer):
+    device ms, the bound (bytes over 3.35 TB/s: q, kv, the rotary key, keys
+    and tables read once, the context written once), the plain version's
+    ms and SDPA's on the same q, k and v, head-major, with the mask as an
+    explicit tensor (a yardstick: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.ops import mla_kernel as mk
+
+    layers = engine.model.language_model.model.layers
+    attn = layers[0].self_attn
+    seen = {}
+    hook = attn.register_forward_pre_hook(lambda _m, a: seen.setdefault("args", a))
+    try:
+        engine._dispatch_eager(pixels, questions)
+    finally:
+        hook.remove()
+    x, keys, cos, sin = seen["args"]
+    with torch.inference_mode():
+        latent, k_pe = attn.kv_a_proj_with_mqa(x).split([attn.rank, attn.rope], -1)
+        kv = attn.kv_b_proj(attn.kv_a_layernorm(latent))
+        q = attn.q_proj(x)
+        args = (q, kv, k_pe, cos, sin, keys, attn.heads)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = mk.mla_attention(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = mk.plain_mla_attention(*args)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        err = max_err(got.float(), want.float())
+        ulps = err / (scale * 2.0 ** -7)
+        b, length, _ = q.shape
+        log(f"mla_attention at bucket {b}: {length} positions, {attn.heads} heads; max abs err "
+            f"{err:.3e}, {ulps:.3f} bf16 ulps of the output's scale {scale:.3f}")
+        require(got.dtype == torch.bfloat16 and ulps <= MLA_ULPS,
+                "mla_attention disagrees with its plain version at the deployment's shapes")
+        h, nope, rope, dv = attn.heads, attn.nope, attn.rope, attn.v
+        qn, qr = q.view(b, length, h, nope + rope).split([nope, rope], -1)
+        kn, v = kv.view(b, length, h, nope + dv).split([nope, dv], -1)
+        kr = mk.apply_rope(k_pe.reshape(b, length, 1, rope), cos, sin).expand(-1, -1, h, -1)
+        qh = torch.cat([qn, mk.apply_rope(qr, cos, sin)], -1).transpose(1, 2)
+        kh = torch.cat([kn, kr], -1).transpose(1, 2)
+        vh = v.transpose(1, 2)
+        pos = torch.arange(length, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])[None] & (keys[:, None, :] != 0))[:, None]
+        k_ms, k_call = time_ms(torch, lambda: mk.mla_attention(*args), 20)
+        plain_ms, _ = time_ms(torch, lambda: mk.plain_mla_attention(*args), 5)
+        lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                          attn_mask=mask), 20)
+    nbytes = (sum(t.numel() * t.element_size() for t in (q, kv, keys, got))
+              + b * length * rope * 2 + 2 * length * (rope // 2) * 4)
+    bnd, by = bound16_ms(nbytes, 0.0)
+    per_forward = len(layers)
+    r = dict(route="cuda", source="vqa_tpu_torch/csrc/mla.cu", replaces=None, max_abs_err=err,
+             ulps=ulps, ms=per_forward * k_ms, call_ms=per_forward * k_call,
+             bound_ms=per_forward * bnd, bound_by=by, plain_ms=per_forward * plain_ms,
+             library_ms=per_forward * lib_ms, per_forward=per_forward, bytes=nbytes)
+    log(f"mla_attention per forward ({per_forward} calls): kernel {r['ms']:.4f} ms on the "
+        f"device ({r['call_ms']:.4f} ms per call), bound {r['bound_ms']:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB a layer; {100 * bnd / k_ms:.1f}%), plain {r['plain_ms']:.4f} ms, "
+        f"SDPA {r['library_ms']:.4f} ms")
+    return {"mla_attention": r}
+
+
+def forward_split(torch, engine, pixels, questions, top: int = 14) -> list:
+    """Device ms per forward of one graphed call at the bucket, summed by
+    kernel function (``benchmark/harness/trace.py:kernel_base``), the
+    largest ``top`` and the rest: [name, ms, launches] each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness.trace import kernel_base
+
+    forwards = len(questions) // DECODER_BUCKET
+    engine.predict_probs_from_pixels(pixels, questions)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.predict_probs_from_pixels(pixels, questions)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.device_time_total:
+            continue
+        name = kernel_base(e.key)
+        ms, n = by.get(name, (0.0, 0))
+        by[name] = (ms + e.device_time_total / 1e3 / forwards, n + e.count // forwards)
+    split = sorted(([k, ms, n] for k, (ms, n) in by.items()), key=lambda r: -r[1])
+    rest = split[top:]
+    split = split[:top] + [["(the rest)", sum(r[1] for r in rest), sum(r[2] for r in rest)]]
+    log(f"forward split at bucket {DECODER_BUCKET}: " + "; ".join(
+        f"{k} {ms:.3f} ms x{n}" for k, ms, n in split) +
+        f"; total {sum(r[1] for r in split):.3f} ms")
+    return split
+
+
 def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
-    """Phase 19; returns (summary, the MoE kernels' entries)."""
+    """Phase 19; returns (summary, the decoder kernels' entries)."""
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.serving.engine import VQAInference
     from vqa_tpu_torch.utils.config import DecoderConfig, InferenceConfig
@@ -5008,7 +5119,8 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
     moe_layers = cfg.decoder_layers - dense_layers
     want = {"stem_bf16": forwards, "se_bf16": 4 * forwards, "moe_gather": moe_layers * forwards,
             "swiglu": (2 * moe_layers + dense_layers) * forwards,
-            "moe_combine": moe_layers * forwards}
+            "moe_combine": moe_layers * forwards,
+            "mla_attention": cfg.decoder_layers * forwards}
     log(f"decoder path: {forwards} graphed forwards, kernel launches {launches}")
     require(launches == want, f"the decoder path launched {launches}, expected {want}")
     routes = {n: [s.value for s in spans(n)[0] if s.seq >= b] for n, b in before.items()}
@@ -5026,8 +5138,11 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
     require(graph_err <= DECODER_GRAPH_TOL, "the replayed decoder forward left the eager one")
     out.update(launches=launches, rows_per_expert=rows, imbalance=imbalance,
                graph_vs_eager=graph_err, peak_bytes=torch.cuda.max_memory_allocated())
-    kernels = check_moe_kernels(torch, engine, pixels[:DECODER_BUCKET],
-                                questions[:DECODER_BUCKET])
+    out["split"] = forward_split(torch, engine, pixels, questions)
+    kernels = check_mla_kernel(torch, engine, pixels[:DECODER_BUCKET],
+                               questions[:DECODER_BUCKET])
+    kernels.update(check_moe_kernels(torch, engine, pixels[:DECODER_BUCKET],
+                                     questions[:DECODER_BUCKET]))
     for name, r in kernels.items():  # the SwiGLU's counter counts its three uses
         r["launches"] = launches.get(name.split(".")[0], 0)
     del engine
@@ -5041,7 +5156,7 @@ def report_decoder(decoder: dict, kernels: dict) -> None:
     """Phase 19's ``decoder`` line and its ``kernels_decoder`` line."""
     log(json.dumps({"decoder": decoder}))
     keys = ("name", "route", "source", "launches", "per_forward", "max_abs_err", "ulps", "ms",
-            "call_ms", "bound_ms", "bound_by", "library_ms")
+            "call_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
     log(json.dumps({"kernels_decoder": [{k: {"name": name, **r}.get(k) for k in keys}
                                         for name, r in kernels.items()]}))
 

@@ -21,11 +21,12 @@ from benchmark.harness import decoder_weights, weights
 from benchmark.reference.decoder_vqa import DecoderReference, log_probs_in_blocks, param_shapes
 from benchmark.reference.prep import Vocabulary
 from vqa_tpu_torch.data.preprocess import device_normalize
-from vqa_tpu_torch.models.decoder import DecoderVQAModel, apply_rope, rope_tables
+from vqa_tpu_torch.models.decoder import DecoderVQAModel, rope_tables
 from vqa_tpu_torch.models import vqa_model
 from vqa_tpu_torch.models.moe import MoE, MoEGate, route_plan, swiglu
 from vqa_tpu_torch.models.vqa_model import VQAModel, count_parameters, create_vqa_model
 from vqa_tpu_torch.ops import moe_kernel
+from vqa_tpu_torch.ops.mla_kernel import apply_rope, plain_mla_attention
 from vqa_tpu_torch.serving import graphs
 from vqa_tpu_torch.serving.engine import VQAInference
 from vqa_tpu_torch.training import checkpoint as ckpt_lib
@@ -213,6 +214,77 @@ def test_rope_follows_deepseek_v3s_interleaved_layout():
             assert np.isclose(float(got[0, p, 0, i]), x0 * np.cos(a) - x1 * np.sin(a), atol=1e-5)
             assert np.isclose(float(got[0, p, 0, i + d // 2]), x1 * np.cos(a) + x0 * np.sin(a),
                               atol=1e-5)
+
+
+def head_major_core(q, kv, k_pe, cos, sin, keys, heads):
+    """The attention core as ``MLA.forward`` computed it before the
+    kernel: q, k and v assembled head-major in zeroed buffers of
+    P = L rounded up to 8 rows, a materialised [B·h, P, P] bias of 0 and
+    -1e9 added by ``baddbmm``, softmax in f32, ``bmm``, the context copied
+    back to token-major."""
+    b, length, _ = q.shape
+    rope = k_pe.shape[-1]
+    nope = q.shape[-1] // heads - rope
+    dv = kv.shape[-1] // heads - nope
+    p = -(-length // 8) * 8
+    pos = torch.arange(p, device=keys.device)
+    real = torch.nn.functional.pad(keys, (0, p - length)) != 0
+    keep = (pos[None, :] <= pos[:, None])[None] & real[:, None, :]
+    bias = torch.where(keep, 0.0, -1e9).to(q.dtype)
+    bias = bias[:, None].expand(b, heads, p, p).reshape(b * heads, p, p)
+    q_nope, q_pe = q.view(b, length, heads, nope + rope).split([nope, rope], -1)
+    k_nope, v = kv.view(b, length, heads, nope + dv).split([nope, dv], -1)
+    qh, kh, vh = (q.new_zeros(b, heads, p, w) for w in (nope + rope, nope + rope, dv))
+    qh[:, :, :length, :nope] = q_nope.transpose(1, 2)
+    qh[:, :, :length, nope:] = apply_rope(q_pe, cos, sin).transpose(1, 2)
+    kh[:, :, :length, :nope] = k_nope.transpose(1, 2)
+    kh[:, :, :length, nope:] = apply_rope(k_pe.reshape(b, length, 1, rope), cos,
+                                          sin).transpose(1, 2)
+    vh[:, :, :length] = v.transpose(1, 2)
+    qh, kh, vh = (t.view(b * heads, p, -1) for t in (qh, kh, vh))
+    scores = torch.baddbmm(bias, qh, kh.transpose(1, 2), alpha=(nope + rope) ** -0.5)
+    probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(q.dtype)
+    ctx = torch.bmm(probs, vh).view(b, heads, p, dv)[:, :, :length]
+    return ctx.transpose(1, 2).reshape(b, length, heads * dv)
+
+
+@pytest.mark.parametrize("heads,nope,rope,dv,image,question", [
+    (4, 16, 16, 16, 4, 8),       # the tiny decoder's
+    (16, 128, 64, 128, 49, 20),  # Kimi-VL-A3B's head dims, L = 69
+    (3, 8, 8, 24, 5, 6),         # widths the kernel does not take
+])
+def test_the_plain_core_matches_the_head_major_one_in_f32(heads, nope, rope, dv, image,
+                                                          question):
+    """``plain_mla_attention`` on the projections' token-major outputs
+    against the head-major core it replaced, in f32, with questions padded
+    to several lengths (the image tokens always real) and causal masking.
+    Both take the same products and the same softmax; they differ in the
+    order of the score sums and in how a masked score is dropped (-1e9
+    added, or -inf), so within 1e-5 at values of ~1 (an f32 ulp there is
+    1.2e-7; a mask or rope error moves an output by ~1e-1)."""
+    rng = np.random.default_rng(heads * 1000 + nope)
+    b, length = 5, image + question
+    q = torch.from_numpy(rng.standard_normal((b, length, heads * (nope + rope)), np.float32))
+    kv = torch.from_numpy(rng.standard_normal((b, length, heads * (nope + dv)), np.float32))
+    kv_a = torch.from_numpy(rng.standard_normal((b, length, 32 + rope), np.float32))
+    k_pe = kv_a[..., 32:]  # the strided view the model passes
+    keys = torch.ones(b, length, dtype=torch.int32)
+    for i, n in enumerate([question, 1, question // 2, 3, question - 1]):
+        keys[i, image + n:] = 0
+    cos, sin = rope_tables(length, rope, 800000.0)
+    got = plain_mla_attention(q, kv, k_pe, cos, sin, keys, heads)
+    want = head_major_core(q, kv, k_pe, cos, sin, keys, heads)
+    assert got.shape == (b, length, heads * dv)
+    assert float((got - want).abs().max()) <= 1e-5
+    # the mask is live: a padded key's value changes nothing, a real one's does
+    kv2 = kv.clone().view(b, length, heads, nope + dv)
+    kv2[1, -1, :, nope:] += 100.0  # pair 1's last key is padding
+    same = plain_mla_attention(q, kv2.view_as(kv), k_pe, cos, sin, keys, heads)
+    assert torch.equal(same, got)
+    kv2[0, image, :, nope:] += 100.0  # pair 0's first question token is real
+    moved = plain_mla_attention(q, kv2.view_as(kv), k_pe, cos, sin, keys, heads)
+    assert torch.equal(moved[0, :image], got[0, :image])  # causal: earlier rows unmoved
+    assert float((moved[0, image:] - got[0, image:]).abs().min()) > 1e-3
 
 
 def test_the_state_dict_keys_follow_the_published_checkpoint():

@@ -1,6 +1,7 @@
-"""The decoder model's routed experts on the card: the MoE kernels against
-their plain versions, the grouped routed path against the plain loop, the
-graphed bf16 forward against the eager one, and the routing counters.
+"""The decoder model on the card: the attention kernel and the MoE kernels
+against their plain versions, the grouped routed path against the plain
+loop, the graphed bf16 forward against the eager one, the kernels'
+launches per forward, and the routing counters.
 
 Marked ``cuda``: each test skips (from a fixture) where no CUDA device is
 present. On a machine with an NVIDIA GPU and no JAX:
@@ -11,7 +12,11 @@ Tolerances: the kernels compute in f32 and round once, as their plain
 versions do, so the gather is exact and the SwiGLU and the combine are
 held within one bf16 ulp. The grouped path and the loop round the same
 products in bf16 but sum the GEMMs' products in other orders, so they are
-held to a few bf16 ulps of the output's scale.
+held to a few bf16 ulps of the output's scale. The attention kernel sums
+its scores in another order than the plain version's f32 product, so a
+probability now and then rounds to the neighbouring bf16 value; with the
+context's own rounding that keeps it within 2 bf16 ulps of the output's
+scale.
 """
 
 import numpy as np
@@ -19,8 +24,9 @@ import pytest
 import torch
 
 from vqa_tpu_torch import ops
+from vqa_tpu_torch.models.decoder import rope_tables
 from vqa_tpu_torch.models.moe import MoE
-from vqa_tpu_torch.ops import moe_kernel
+from vqa_tpu_torch.ops import mla_kernel, moe_kernel
 from test_torch_decoder import TINY, tiny_deployment
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -73,6 +79,57 @@ def test_moe_kernels_match_their_plain_versions(cuda, rows, total, width):
         "moe_gather": 1, "swiglu": 2, "moe_combine": 1}
 
 
+def mla_inputs(device, batch, heads=16, dims=(128, 64, 128), image=49, question=20, seed=0):
+    """bf16 projections' outputs as the model hands them over (k_pe a view
+    of kv_a_proj_with_mqa's [B, L, 512 + rope]), the rope tables, and keys
+    with the image tokens real and questions of 1 to ``question`` tokens."""
+    nope, rope, dv = dims
+    g = torch.Generator(device=device).manual_seed(seed)
+    length = image + question
+    q = torch.randn(batch, length, heads * (nope + rope), generator=g, device=device).bfloat16()
+    kv = torch.randn(batch, length, heads * (nope + dv), generator=g, device=device).bfloat16()
+    kv_a = torch.randn(batch, length, 512 + rope, generator=g, device=device).bfloat16()
+    keys = torch.ones(batch, length, dtype=torch.int32, device=device)
+    lengths = torch.randint(1, question + 1, (batch,), generator=g, device=device)
+    keys[:, image:] = (torch.arange(question, device=device)[None] < lengths[:, None]).int()
+    cos, sin = (t.to(device) for t in rope_tables(length, rope, 800000.0))
+    return q, kv, kv_a[..., 512:], cos, sin, keys, heads
+
+
+@pytest.mark.parametrize("batch,dims,image,question", [
+    (1, (128, 64, 128), 49, 20), (4, (128, 64, 128), 49, 20), (256, (128, 64, 128), 49, 20),
+    (4, (128, 64, 128), 3, 10),  # one warp's rows (L = 13)
+    (4, (16, 16, 16), 4, 8),     # the tiny decoder's
+])
+def test_the_mla_kernel_matches_its_plain_version(cuda, batch, dims, image, question):
+    args = mla_inputs(cuda, batch, dims=dims, image=image, question=question, seed=batch)
+    before = ops.launch_counts()["mla_attention"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mla_kernel.mla_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = mla_kernel.plain_mla_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mla_attention"] - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2 * BF16_ULP * scale
+
+
+def test_the_mla_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, kv, k_pe, cos, sin, keys, heads = mla_inputs(cuda, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        mla_kernel.mla_attention(q.float(), kv.float(), k_pe.float(), cos, sin, keys, heads)
+    with pytest.raises(ValueError, match="head dims"):  # 8 heads of twice the width
+        mla_kernel.mla_attention(q, kv, k_pe, cos, sin, keys, 8)
+    long = mla_inputs(cuda, 2, question=40)  # L = 89
+    with pytest.raises(ValueError, match="L must be"):
+        mla_kernel.mla_attention(*long)
+    with pytest.raises(ValueError, match="int32"):
+        mla_kernel.mla_attention(q, kv, k_pe, cos, sin, keys.long(), heads)
+
+
 @pytest.mark.parametrize("held,offset", [(8, 0), (8, 56), (64, 0)])
 def test_the_grouped_path_matches_the_loop_without_a_sync(cuda, held, offset):
     """Kimi-VL's widths, 8 or all 64 experts held; the grouped path runs
@@ -119,6 +176,20 @@ def test_the_graphed_bf16_forward_matches_the_eager_one_at_bucket_4(cuda, tmp_pa
     want, _ = engine._dispatch_eager(pixels, questions)
     assert np.abs(got - want.cpu().numpy()).max() <= 1e-6
     assert len([r for r in spans("moe.route")[0] if r.seq >= before]) == 1
+
+
+def test_an_eager_forward_launches_the_attention_kernel_once_a_layer(cuda, tmp_path):
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import InferenceConfig
+
+    pixels, questions = tiny_deployment(tmp_path, seed=13, pairs=4)
+    engine = VQAInference(checkpoint_dir=str(tmp_path), checkpoint_name="bench_model",
+                          config=InferenceConfig(batch_buckets=(4,), max_batch_size=4),
+                          device=cuda, dtype=torch.bfloat16).load()
+    before = ops.launch_counts()["mla_attention"]
+    engine._dispatch_eager(pixels, questions)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mla_attention"] - before == TINY["decoder_layers"]
 
 
 def test_the_routing_counters_match_the_references_counts(cuda, tmp_path):

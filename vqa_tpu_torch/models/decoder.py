@@ -29,13 +29,17 @@ latent to each head's key (no rope part) and value. RoPE (theta
 ``rope_theta``, no scaling) acts on the rotary dims only, in DeepSeek-V3's
 layout: the interleaved pairs (2i, 2i+1) are taken apart to
 [even, odd] halves and rotated as ``rotate_half`` does. Scores are scaled
-by (qk_nope + qk_rope)^-1/2, masked, and take their softmax in f32.
+by (qk_nope + qk_rope)^-1/2, masked, and take their softmax in f32. The
+core between the projections (RoPE, scores, mask, softmax, context) is one
+call, ``ops.mla_attention``: on the card a hand-written kernel that reads
+the projections' token-major outputs and writes the context token-major
+for ``o_proj``, on the CPU its plain version.
 
 The dtype policy is the port's (``models/layers.py``): weights f32,
 products (and RMSNorm's scaling) from bf16 compute copies; RMSNorm's
-statistics, RoPE and the softmax compute in f32; the router works in f32
-from its f32 weight. Where DeepSeek-V3's code rounds to bf16 between two
-steps of RoPE, the port rounds once.
+statistics, RoPE, the scores and the softmax compute in f32; the router
+works in f32 from its f32 weight. Where DeepSeek-V3's code rounds to bf16
+between two steps of RoPE, the port rounds once.
 
 State_dict keys follow the published checkpoint's
 (``language_model.model.layers.{i}.self_attn.kv_a_proj_with_mqa.weight``,
@@ -59,9 +63,8 @@ from vqa_tpu_torch.models.cnn_backbone import CustomResNet
 from vqa_tpu_torch.models.layers import (ComputeCopies, ComputeDtypeRoot, Embedding, LayerNorm,
                                           Linear)
 from vqa_tpu_torch.models.moe import MoE, SwiGLU
+from vqa_tpu_torch.ops.mla_kernel import mla_attention
 from vqa_tpu_torch.utils.config import DecoderConfig
-
-NEG_INF = -1e9  # a masked score
 
 
 class RMSNorm(ComputeCopies, nn.Module):
@@ -90,42 +93,11 @@ def rope_tables(length: int, dim: int, theta: float):
     return freqs.cos(), freqs.sin()
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, L, h, d] rotated at positions 0..L-1 as DeepSeek-V3 does: its
-    interleaved pairs (2i, 2i+1) taken apart to [even, odd] halves, then
-    x·cos + rotate_half(x)·sin, so pair i lands at (i, i + d/2); in f32,
-    rounded once."""
-    length = x.shape[1]
-    cos, sin = cos[:length, None], sin[:length, None]
-    even, odd = x[..., 0::2].float(), x[..., 1::2].float()
-    return torch.cat([even * cos - odd * sin, odd * cos + even * sin], -1).to(x.dtype)
-
-
-def padded(length: int) -> int:
-    """The attention's positions, ``length`` rounded up to a multiple of 8
-    so that the score and context products take aligned rows; the padding
-    is masked as keys and dropped as queries."""
-    return -(-length // 8) * 8
-
-
-def attention_bias(keys: torch.Tensor, heads: int, dtype) -> torch.Tensor:
-    """[B·heads, P, P] in ``dtype``: 0 where a query may see a key (causal,
-    the key not padding), NEG_INF elsewhere; P = ``padded(L)`` of keys
-    [B, L] (0 at padding)."""
-    b, length = keys.shape
-    p = padded(length)
-    pos = torch.arange(p, device=keys.device)
-    real = F.pad(keys, (0, p - length)) != 0
-    keep = (pos[None, :] <= pos[:, None])[None] & real[:, None, :]
-    bias = torch.where(keep, 0.0, NEG_INF).to(dtype)
-    return bias[:, None].expand(b, heads, p, p).reshape(b * heads, p, p)
-
-
 class MLA(nn.Module):
-    """Multi-head latent attention (see the module docstring). Queries,
-    keys and values are assembled head-major in buffers of ``padded(L)``
-    rows, the score product adds the mask in its epilogue, and the softmax
-    takes its f32 statistics from the bf16 scores, as DeepSeek-V3's does."""
+    """Multi-head latent attention (see the module docstring): the four
+    projections around the attention core (``ops.mla_attention``), which
+    reads the projections' token-major outputs and writes the context
+    token-major for ``o_proj``."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -133,37 +105,18 @@ class MLA(nn.Module):
         self.heads, self.nope, self.rope, self.v = (h, cfg.qk_nope_head_dim,
                                                     cfg.qk_rope_head_dim, cfg.v_head_dim)
         self.rank = cfg.kv_lora_rank
-        self.scale = (self.nope + self.rope) ** -0.5
         self.q_proj = Linear(d, h * (self.nope + self.rope), bias=False)
         self.kv_a_proj_with_mqa = Linear(d, self.rank + self.rope, bias=False)
         self.kv_a_layernorm = RMSNorm(self.rank, cfg.rms_norm_eps)
         self.kv_b_proj = Linear(self.rank, h * (self.nope + self.v), bias=False)
         self.o_proj = Linear(h * self.v, d, bias=False)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
+    def forward(self, x: torch.Tensor, keys: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor) -> torch.Tensor:
-        """x [B, L, D]; bias from ``attention_bias``."""
-        b, length, _ = x.shape
-        h, nope, rope, dv = self.heads, self.nope, self.rope, self.v
-        p = bias.shape[-1]
-        q_nope, q_pe = self.q_proj(x).view(b, length, h, nope + rope).split([nope, rope], -1)
-        latent, k_pe = self.kv_a_proj_with_mqa(x).split([self.rank, rope], -1)
-        kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, length, h, nope + dv)
-        k_nope, v = kv.split([nope, dv], -1)
-        q, k, vh = (x.new_empty(b, h, p, w) for w in (nope + rope, nope + rope, dv))
-        for t in (q, k, vh):
-            t[:, :, length:] = 0
-        q[:, :, :length, :nope] = q_nope.transpose(1, 2)
-        q[:, :, :length, nope:] = apply_rope(q_pe, cos, sin).transpose(1, 2)
-        k[:, :, :length, :nope] = k_nope.transpose(1, 2)
-        k[:, :, :length, nope:] = apply_rope(k_pe.view(b, length, 1, rope), cos,
-                                             sin).transpose(1, 2)  # every head's
-        vh[:, :, :length] = v.transpose(1, 2)
-        q, k, vh = (t.view(b * h, p, -1) for t in (q, k, vh))
-        scores = torch.baddbmm(bias, q, k.transpose(1, 2), alpha=self.scale)
-        probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(x.dtype)
-        ctx = torch.bmm(probs, vh).view(b, h, p, dv)[:, :, :length]
-        return self.o_proj(ctx.transpose(1, 2).reshape(b, length, h * dv))
+        """x [B, L, D]; keys [B, L] int32, 0 at padding."""
+        latent, k_pe = self.kv_a_proj_with_mqa(x).split([self.rank, self.rope], -1)
+        kv = self.kv_b_proj(self.kv_a_layernorm(latent))
+        return self.o_proj(mla_attention(self.q_proj(x), kv, k_pe, cos, sin, keys, self.heads))
 
 
 class DecoderLayer(nn.Module):
@@ -180,11 +133,11 @@ class DecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(d, cfg.rms_norm_eps)
         self.post_attention_layernorm = RMSNorm(d, cfg.rms_norm_eps)
 
-    def forward(self, x, bias, cos, sin):
+    def forward(self, x, keys, cos, sin):
         """(x after the layer, the rows routed to each held expert, or None
         for a dense layer)."""
         with record_function("decoder.attention"):
-            x = x + self.self_attn(self.input_layernorm(x), bias, cos, sin)
+            x = x + self.self_attn(self.input_layernorm(x), keys, cos, sin)
         h = self.post_attention_layernorm(x)
         if isinstance(self.mlp, MoE):
             out, counts = self.mlp(h.reshape(-1, h.shape[-1]))
@@ -208,10 +161,10 @@ class DecoderStack(nn.Module):
     def forward(self, x: torch.Tensor, keys: torch.Tensor):
         """x [B, L, D], keys [B, L] (0 at padding) → (x, the rows routed to
         each held expert of each MoE layer [layers, held] int32, or None)."""
-        bias = attention_bias(keys, self.layers[0].self_attn.heads, x.dtype)
+        keys = keys.to(torch.int32)  # the attention kernel's type (the engine's already)
         counts = []
         for layer in self.layers:
-            x, c = layer(x, bias, self.rope_cos, self.rope_sin)
+            x, c = layer(x, keys, self.rope_cos, self.rope_sin)
             if c is not None:
                 counts.append(c)
         return x, (torch.stack(counts) if counts else None)

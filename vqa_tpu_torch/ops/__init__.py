@@ -16,6 +16,7 @@ from vqa_tpu_torch.ops.cross_attention_kernel import (  # noqa: F401
     fused_cross_attention_bf16,
     plain_cross_attention,
 )
+from vqa_tpu_torch.ops.mla_kernel import mla_attention, plain_mla_attention  # noqa: F401
 from vqa_tpu_torch.ops.moe_kernel import (  # noqa: F401
     fused_swiglu,
     moe_combine,
@@ -25,7 +26,7 @@ from vqa_tpu_torch.ops.se_kernel import fused_se, fused_se_bf16, plain_se  # noq
 from vqa_tpu_torch.ops.stem_kernel import fused_stem, fused_stem_bf16, plain_stem  # noqa: F401
 
 # each kernel's f32 and bf16 forms, counted apart (the f32 wrappers route
-# bf16 inputs to the bf16 forms), and the MoE kernels
+# bf16 inputs to the bf16 forms), the MoE kernels and the decoder's attention
 KERNELS = {
     "stem": fused_stem,
     "se": fused_se,
@@ -37,6 +38,8 @@ KERNELS = {
     "moe_gather": moe_gather,
     "swiglu": fused_swiglu,
     "moe_combine": moe_combine,
+    # the decoder's attention core, bf16 only
+    "mla_attention": mla_attention,
 }
 
 
