@@ -2,9 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (vqa_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown
 
-What it does, failing (non-zero exit, no result line) on any failed check:
+What it does, failing (non-zero exit, no result line) on any failed check.
+Inference throughput, dispatch timing and the forward's device time are
+the benchmark's (``benchmark/run.py``), not this script's; the helpers it
+shares with the ``cuda`` tests and the kernel tools are in
+``vqa_tpu_torch/testing.py``.
 
 1. prints the card (name and power limit from nvidia-smi) and builds the
    CUDA kernels from ``vqa_tpu_torch/csrc`` with nvcc, timing the build;
@@ -27,11 +30,9 @@ What it does, failing (non-zero exit, no result line) on any failed check:
    cross-attention kernels 1, 4 and 2 times;
 4. compares whole-model logits through the kernels with the same model
    through the plain versions, on the card (max abs error <= 1e-3);
-5. measures pairs/s through ``predict_probs_from_pixels`` at buckets 1
-   and 32;
-6. HTTP (the serving stack on the same engine): times
-   ``dispatch_probs_from_pixels`` at bucket 32 on the host against the
-   forward on the card; starts ``VQAServer`` on 127.0.0.1, GETs every
+5. (pairs/s at buckets 1 and 32, now the benchmark's ``infer_pairs_per_s``);
+6. HTTP (the serving stack on the same engine): starts ``VQAServer`` on
+   127.0.0.1, GETs every
    endpoint, posts /predict from 16 clients x 8 requests (PNG and JPEG of
    mixed sizes) and holds every answer within 1e-4 of the engine on that
    request alone, requires the micro-batcher to have grouped them, posts
@@ -86,9 +87,9 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     summing to 1 within 3 * 2^-9 (bf16 probabilities, averaged in bf16);
     its logits through the kernels no further from its bf16 plain versions
     than those are from the f32 engine's, and the argmax equal to f32's on
-    every row whose f32 margin exceeds twice that bf16 noise; (c) pairs/s
-    and p50/p90 at buckets 1 and 32 beside phase 5's f32, and both
-    forwards' device ms; (d) 8 HTTP clients x 4 /predict on the bf16
+    every row whose f32 margin exceeds twice that bf16 noise; (c) (the bf16
+    engine's pairs/s and device ms, now the benchmark's); (d) 8 HTTP
+    clients x 4 /predict on the bf16
     engine, every answer within the tolerance of (b); (e) ``python -m
     vqa_tpu_torch.training.evaluate --synthetic`` on phase 10's checkpoint
     in f32 and ``--bf16``: f32 top-1 equal to the trainer's validation,
@@ -144,8 +145,7 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     batch path; decode + resize to 224 per image, PIL against native; 32
     uploads at 512 px, the native pool against PIL in a loop; the bf16
     engine's ``_preprocess_images`` over one bucket-32 group of the soak's
-    uploads beside its dispatch host ms at bucket 32 (decode + resize as a
-    share of the group's host time); (b) ``CBAMBlock`` and
+    uploads, native against PIL; (b) ``CBAMBlock`` and
     ``SelfAttention2D`` at [32,512,7,7] and [32,64,56,56] (seeded weights,
     gamma 0.5), the card's f32 forward within 1e-4 of the CPU's, CBAMBlock
     launching SE once per eval call in f32 and in bf16; (c) spatial corpora
@@ -162,21 +162,18 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     the soak under the recycle supervisor, 600 requests from 8 clients and
     a 512 MB bound: every request answered, a recycle begun;
 15. the engine's CUDA graphs (one per bucket and replica, captured by
-    ``load``: every engine forward of phases 3-14 above was a replay), the
-    roofline and the supervisor's default, at full width: (a) for an f32
+    ``load``: every engine forward of phases 3-14 above was a replay) and
+    the supervisor's default, at full width: (a) for an f32
     and a bf16 engine, every effective bucket a graph, and the replayed
     probabilities on new inputs against the eager forward
     (``_dispatch_eager``) on the same inputs, f32 within 1e-4, bf16 by
     phase 11 (b)'s rule; (b) 70 requests in one call (three chunks, all
     dispatched before any fetch) equal to each chunk alone; (c) the
     dtype's forms launched 1, 4 and 2 times per replayed forward, the
-    others not; (d) eager and graph in turns, four rounds: bucket-1 p50/p90,
-    bucket-32 pairs/s, host ms of one bucket-32 dispatch, the card's busy
-    share and device ms per call, each with its spread; (e) phase 13 (c)'s
-    two replicas on cuda:0, each replaying graphs of its own, within 1e-4
-    of one; (f) the roofline floor of a bucket-32 forward
-    (``tools/roofline.py``, f32 and bf16) beside the graphed forward's
-    device ms; (g) a default-flag supervisor over a full-width worker: its
+    others not; (d) (eager against graph timing, now the benchmark's); (e)
+    phase 13 (c)'s two replicas on cuda:0, each replaying graphs of its
+    own, within 1e-4 of one; (f) (the roofline floor, now the benchmark's
+    ``forward.mfu``); (g) a default-flag supervisor over a full-width worker: its
     RSS at ready split by mapping, 30 s idle with no ``recycle_start``,
     exit 0 and no worker left, while a worker of this script
     (``--worker rss_stages``) builds a bf16 engine step by step and reads
@@ -264,8 +261,7 @@ What it does, failing (non-zero exit, no result line) on any failed check:
     ``moe_gather`` and ``moe_combine`` once per MoE layer, the SwiGLU
     kernel twice per MoE layer and once per dense layer, ``moe.route`` and
     ``moe.route_max`` once per dispatch; the replayed probabilities within
-    1e-3 of the eager forward's; one more call traced, its device ms per
-    forward by kernel function (the ``split``); the attention kernel
+    1e-3 of the eager forward's; the attention kernel
     against its plain version at the first layer's shapes of an eager
     bucket (within 2 bf16 ulps of the output's scale, launched under
     torch's sync debugging), with device ms, bound, plain ms and SDPA's
@@ -302,9 +298,8 @@ calls, faithfulness and visualization forwards and the in-process soak's
 engine, and ``launches_orbax``, over phase 17 (b)'s engine answers, and
 ``launches_resume``, over phase 18's validation passes: (a)'s f32, (b)'s
 bf16;
-``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that,
-the graphed forward's device ms per bucket-32 call in f32 and bf16 (phase
-15 (d), each round's); before that phase 19's ``kernels_decoder`` line
+``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that
+phase 19's ``kernels_decoder`` line
 (the attention kernel's, each MoE kernel's and each SwiGLU use's numbers
 per forward at bucket 256) and ``decoder`` line; and before that the
 ``resume``, ``orbax``, ``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
@@ -331,18 +326,19 @@ from unittest import mock
 
 import numpy as np
 
+from benchmark.costs.kernels import bound_s
+from benchmark.costs.peaks import (BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S,
+                                   TF32_FLOP_PER_S)
+from vqa_tpu_torch.testing import (
+    BF16_STEP_ALLOWED, BF16_STEP_CAP, BUCKET, GRAPH_TOL, HTTP_QUESTIONS, SE_STAGES,
+    STEM_BF16_ATOL, STEP_LOSS_TOL, STEP_NOISE_FACTOR, STEP_REL_FLOOR, attention_modules_on_card,
+    bf16_compare, bucket_spread, card_line, chunks_do_not_alias, compare_bf16_steps,
+    compare_runs, compare_train_steps, device_events, fresh_masks, graphs_match_eager,
+    launches_per_replay, log, mapped_moments, max_diff, max_err, one_train_step, time_ms,
+    train_runs, write_trainer_tree)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
-F32_FLOP_PER_S = 67e12      # H100 SXM, f32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12    # H100 SXM, TF32 on the tensor cores, dense
-BF16_FLOP_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores, dense
-BUCKET = 32
 STEM_BUCKETS = (1, 8, BUCKET)  # the bf16 stem is timed at these batch buckets (phase 11 (a))
-SE_STAGES = ((56, 64), (28, 128), (14, 256), (7, 512))  # (H = W, C) at 224 px
-
-
-def log(msg: str) -> None:
-    print(msg, flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -350,60 +346,11 @@ def require(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def device_events(prof):
-    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-
-
-def time_ms(torch, fn, iters: int):
-    """(device ms, call ms) per call of ``fn``.
-
-    Device ms: the card's busy time per call — the sum of the kernels' (and
-    copies') durations from a torch.profiler trace over ``iters`` calls.
-    Call ms: CUDA events around ``iters`` back-to-back calls, which also
-    counts the host's launch overhead wherever the host is the slower side.
-    """
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    call_ms = start.elapsed_time(end) / iters
-    # a profiler window now and then records no device activity at all
-    # (seen once in a dozen runs on the H100); such a window is retried
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        busy_us = sum(e.self_device_time_total for e in device_events(prof))
-        if busy_us > 0:
-            return busy_us / 1e3 / iters, call_ms
-        log("profiler window saw no device time; retrying")
-    raise SystemExit("chip_smoke: FAILED: the profiler saw no device time in 3 windows")
-
-
-def bound_ms(nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def max_err(a, b) -> float:
-    return float((a - b).abs().max())
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
+    """(ms, what bounds it) of ``benchmark/costs/kernels.py:bound_s``: the
+    larger of the bytes over 3.35 TB/s and the operations over the peak."""
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / flop_per_s else "operations"
+    return bound_s(nbytes, flops, flop_per_s) * 1e3, by
 
 
 def check_kernels(torch, engine, rng):
@@ -436,9 +383,8 @@ def check_kernels(torch, engine, rng):
     conv_flops = 2 * BUCKET * ch * ch * cout * 147
     nbytes = 4 * (x.numel() + w.numel() + 2 * cout + got.numel())
     # 3xTF32: three tensor-core products per f32-accurate product
-    t_ops = 3 * conv_flops / TF32_FLOP_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bnd, by = max(t_ops, t_bytes), ("operations (3xTF32)" if t_ops >= t_bytes else "bytes")
+    bnd, by = bound_ms(nbytes, 3 * conv_flops, TF32_FLOP_PER_S)
+    by = "operations (3xTF32)" if by == "operations" else by
     f32_bnd, _ = bound_ms(nbytes, conv_flops + 3 * BUCKET * ch * ch * cout + 8 * got.numel())
     log(f"stem bound: {bnd:.4f} ms ({by}); on the f32 CUDA cores it would be "
         f"{f32_bnd:.4f} ms")
@@ -634,61 +580,6 @@ def compare_whole_model(torch, engine, rng) -> float:
     return err
 
 
-def throughput(engine, rng):
-    """Pairs/s and per-call latency through predict_probs_from_pixels."""
-    size = engine.model.config.image_size
-    out = {}
-    # 100 calls: the p90 has 10 samples beyond it
-    for bucket, iters in ((1, 100), (BUCKET, 100)):
-        pixels = rng.integers(0, 256, (bucket, size, size, 3), dtype=np.uint8)
-        qs = ["what color is the cat"] * bucket
-        for _ in range(3):
-            engine.predict_probs_from_pixels(pixels, qs)
-        times = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            engine.predict_probs_from_pixels(pixels, qs)  # ends in a device->host copy
-            times.append(time.perf_counter() - t0)
-        times.sort()
-        out[bucket] = dict(
-            pairs_per_s=bucket * iters / sum(times),
-            p50_ms=1e3 * statistics.median(times),
-            p90_ms=1e3 * times[int(0.9 * (iters - 1))], samples=iters)
-        log(f"bucket {bucket}: {out[bucket]['pairs_per_s']:.1f} pairs/s, latency p50 "
-            f"{out[bucket]['p50_ms']:.3f} ms, p90 {out[bucket]['p90_ms']:.3f} ms "
-            f"({iters} calls)")
-    return out
-
-
-def profile(torch, engine, rng) -> None:
-    """Device time by kernel over 5 forwards at bucket 32."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
-
-    size = engine.model.config.image_size
-    pixels = rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)
-    qs = ["what color is the cat"] * BUCKET
-    engine.predict_probs_from_pixels(pixels, qs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            engine.predict_probs_from_pixels(pixels, qs)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    events = device_events(prof)
-    busy_us = sum(e.self_device_time_total for e in events)
-    log(f"profile: 5 forwards at bucket {BUCKET}, wall {wall * 1e3:.3f} ms "
-        f"(profiler on), device busy {busy_us / 1e3:.3f} ms")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
-        log(f"  {e.self_device_time_total / 1e3 / 5:9.4f} ms/forward  "
-            f"x{e.count // 5:<4d} {e.key[:90]}")
-
-
-HTTP_QUESTIONS = ["what color is the cat", "how many dogs are there", "is this a man",
-                  "what is the woman wearing", "what is on the table"]
-
-
 def multipart(fields, files):
     """(body, content type) of a multipart/form-data request; ``files`` is
     a list of (field, filename, bytes)."""
@@ -737,54 +628,6 @@ def check_answer(got, want_row, what: str, tol: float = 1e-4) -> bool:
     return answers[0]["index"] == int(want_row.argmax())
 
 
-def dispatch_timing(torch, engine, rng, iters: int = 12) -> dict:
-    """Host ms of ``dispatch_probs_from_pixels`` at bucket 32 against the
-    forward's device ms: whether dispatch returns before the card finishes.
-    Each round also dispatches with the inputs copied from pageable memory
-    instead of the engine's pinned staging (``_stage``), the two in
-    alternating order."""
-    size = engine.model.config.image_size
-    pixels = rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)
-    qs = [HTTP_QUESTIONS[i % 5] for i in range(BUCKET)]
-    device_ms, _ = time_ms(torch, lambda: engine.dispatch_probs_from_pixels(pixels, qs), iters)
-
-    def pageable(device, *arrays):
-        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-
-    times = {k: [] for k in ("alone", "wait", "behind", "alone_pageable", "behind_pageable")}
-    for i in range(iters):
-        for suffix in ("", "_pageable")[::1 if i % 2 else -1]:
-            with (mock.patch.object(engine, "_stage", pageable) if suffix
-                  else contextlib.nullcontext()):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                engine.dispatch_probs_from_pixels(pixels, qs)
-                t1 = time.perf_counter()
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                engine.dispatch_probs_from_pixels(pixels, qs)
-                t3 = time.perf_counter()  # the next one is issued with the card busy
-                engine.dispatch_probs_from_pixels(pixels, qs)
-                t4 = time.perf_counter()
-                torch.cuda.synchronize()
-            times["alone" + suffix].append(t1 - t0)
-            times["behind" + suffix].append(t4 - t3)
-            if not suffix:
-                times["wait"].append(t2 - t1)
-    med = {k: 1e3 * statistics.median(v) for k, v in times.items()}
-    out = dict(dispatch_host_ms=med["alone"], sync_wait_after_dispatch_ms=med["wait"],
-               dispatch_host_ms_card_busy=med["behind"],
-               pageable_dispatch_host_ms=med["alone_pageable"],
-               pageable_dispatch_host_ms_card_busy=med["behind_pageable"],
-               forward_device_ms=device_ms)
-    log(f"dispatch at bucket {BUCKET}: host {med['alone']:.3f} ms alone, {med['behind']:.3f} "
-        f"ms issued behind a running forward (pageable copies: {med['alone_pageable']:.3f} / "
-        f"{med['behind_pageable']:.3f} ms); the card ran {med['wait']:.3f} ms more after a "
-        f"lone dispatch returned; forward {device_ms:.3f} ms on the device "
-        f"(medians of {iters})")
-    return out
-
-
 def drive_http(torch, engine, rng) -> dict:
     """The port's HTTP server on the same engine: every endpoint, 16
     concurrent /predict clients through the micro-batcher, /predict-batch,
@@ -804,7 +647,6 @@ def drive_http(torch, engine, rng) -> dict:
     batch = [(image_bytes(rng, int(h), int(w), "PNG"), HTTP_QUESTIONS[i % 5])
              for i, (h, w) in enumerate(rng.integers(64, 400, (40, 2)))]
     want_batch = engine.predict_batch([b for b, _ in batch], [q for _, q in batch])
-    timing = dispatch_timing(torch, engine, rng)
 
     server = VQAServer(engine=engine)  # warms every bucket, as the CLI does
     thread = threading.Thread(target=server.serve, args=("127.0.0.1", 0), daemon=True)
@@ -941,7 +783,7 @@ def drive_http(torch, engine, rng) -> dict:
                 f"HTTP phase: {name} launched {launches[name]} times in {forwards} forwards")
     return dict(requests=len(reqs) + n_drain, batches=server.batcher.total_batches,
                 mean_group=len(reqs) / batches, forwards=forwards, launches=launches,
-                top_answer_identical=same_top, **timing)
+                top_answer_identical=same_top)
 
 
 def asgi_call(app, method, path, headers=(), messages=None):
@@ -1157,30 +999,6 @@ def drive_supervisor(rng, recycle_rss_mb: float = 512.0, worker_args=("--device"
                 recycle_warmup_s=done["warmup_s"], recycle_drain_s=done["drain_s"])
 
 
-# The training phase's card-against-CPU step (full width, f32, TF32 off),
-# also used by tests/test_torch_cuda.py. At random initialisation many
-# backbone gradients are ill-conditioned (BN's backward subtracts most of
-# what reaches it): two correct f32 runs of the same step on the CPU, the
-# batch in another order, differ by up to a sixth of some tensors' largest
-# gradient. So the card is held to the CPU's own f32 noise, measured per
-# tensor as the larger difference from the CPU's step of (1) the same step
-# on the batch in another order (the loss is a mean over the batch, so the
-# step is the same function; only the rounding differs) and (2) the step
-# without oneDNN (PyTorch's native CPU convolutions, another summation
-# order). The card's step is checked twice:
-# - cuDNN off (PyTorch's own CUDA convolutions and BN, IEEE f32 GEMMs): every
-#   gradient tensor and BN statistic within 10x the CPU's noise plus floors;
-# - as the trainer runs it (cuDNN, whose f32 convolution algorithms include
-#   FFT and Winograd ones): the loss, BN statistics and parameters to the
-#   bounds below, and the gradients as a whole within 10x the CPU's noise.
-STEP_LOSS_TOL = 1e-4      # |loss_card - loss_cpu|
-STEP_NOISE_FACTOR = 10.0  # |x_card - x_cpu| <= 10 x the CPU's noise + floors
-STEP_REL_FLOOR = 1e-5     # floor: 1e-5 of the tensor's max (BN statistics: of max(1, max))
-STEP_GLOBAL_FLOOR = 1e-6  # and, for gradients, 1e-6 of the model's largest gradient
-STEP_CUDNN_BN_REL_TOL = 1e-3  # cuDNN: BN statistics, per tensor, of max(1, max)
-# a first AdamW step moves a weight by ~lr·g/(|g| + eps), near a sign
-# function of g, so parameters are held to 2·lr (+1e-6 of rounding), and
-# the weights whose update changed sign are counted
 TRAIN_BATCH_SIZES = (32, 256)
 
 
@@ -1196,96 +1014,6 @@ def synthetic_batch(cfg, batch: int, seed: int = 0):
                              is_training=False, seed=seed)
     b = next(iter(BatchLoader(ds, batch, shuffle=False, drop_last=True)))
     return [b["image"], b["token_ids"], b["attention_mask"], b["answer"]]
-
-
-def one_train_step(torch, cfg, where, arrays, lr: float, seed: int = 11, mesh=None,
-                   **model_kw):
-    """(model after one train step from seeded weights, its metrics);
-    ``model_kw`` (``dtype``, ``stem_s2d``) go to ``create_vqa_model``; with
-    ``mesh`` the model is placed on it first (``shard_model``)."""
-    from vqa_tpu_torch.models import create_vqa_model
-    from vqa_tpu_torch.models.vqa_model import shard_model
-    from vqa_tpu_torch.training.train import TrainState, make_train_step
-    from vqa_tpu_torch.utils.config import TrainingConfig
-
-    model = create_vqa_model(config=cfg, device=where, seed=seed, **model_kw)
-    if mesh is not None:
-        shard_model(model, mesh)
-    state = TrainState.create(
-        model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
-    metrics = make_train_step(model)(state, *(torch.from_numpy(a).to(where) for a in arrays))
-    return model, metrics
-
-
-def compare_train_steps(torch, cpu, cpu_noise, card, lr: float) -> dict:
-    """The card's step against the CPU's, bounded by the CPU's own f32
-    noise: ``cpu_noise`` is a list of CPU runs of the same step in other
-    summation orders. Each run is (model, metrics). Returns the errors,
-    ``failures`` (per-tensor noise bounds) and ``cudnn_failures`` (the
-    bounds of the step as the trainer runs it)."""
-    m_cpu, r_cpu = cpu
-    m_card, r_card = card
-    failures = []
-    loss_err = abs(float(r_card["loss"]) - float(r_cpu["loss"]))
-    if loss_err > STEP_LOSS_TOL:
-        failures.append(f"loss off by {loss_err:.3e}")
-    for k in ("correct1", "correct5"):
-        if int(r_card[k]) != int(r_cpu[k]):
-            failures.append(f"{k} {int(r_card[k])} != {int(r_cpu[k])}")
-
-    def named(model, kind):
-        items = model.named_parameters() if kind == "grad" else model.named_buffers()
-        return {k: (v.grad if kind == "grad" else v).detach().cpu().double()
-                for k, v in items
-                if kind == "grad" or k.endswith(("running_mean", "running_var"))}
-
-    out = dict(loss_err=loss_err, loss_noise=max(
-        abs(float(r["loss"]) - float(r_cpu["loss"])) for _, r in cpu_noise))
-    for kind in ("grad", "bn"):
-        ref, dev = named(m_cpu, kind), named(m_card, kind)
-        others = [named(m, kind) for m, _ in cpu_noise]
-        top = max(float(v.abs().max()) for v in ref.values())
-        worst, max_rel = [], 0.0
-        sq_ref, sq_err, sq_noise = 0.0, 0.0, [0.0] * len(others)
-        for name, r in ref.items():
-            err = float((dev[name] - r).abs().max())
-            noise = max(float((o[name] - r).abs().max()) for o in others)
-            scale = float(r.abs().max()) if kind == "grad" else max(1.0, float(r.abs().max()))
-            bound = (STEP_NOISE_FACTOR * noise + STEP_REL_FLOOR * scale
-                     + (STEP_GLOBAL_FLOOR * top if kind == "grad" else 0.0))
-            worst.append((err / bound, name, err, noise, scale))
-            max_rel = max(max_rel, err / max(scale, 1e-30))
-            sq_ref += float((r ** 2).sum())
-            sq_err += float(((dev[name] - r) ** 2).sum())
-            for i, o in enumerate(others):
-                sq_noise[i] += float(((o[name] - r) ** 2).sum())
-        worst.sort(reverse=True)
-        failures += [f"{kind} {n}: err {e:.3e} > bound (noise {z:.3e}, max {m:.3e})"
-                     for f, n, e, z, m in worst if f > 1]
-        out[kind] = dict(
-            worst=[dict(name=n, err=e, noise=z, max=m, share_of_bound=f)
-                   for f, n, e, z, m in worst[:3]],
-            rel_l2_err=math.sqrt(sq_err / max(sq_ref, 1e-300)),
-            rel_l2_noise=max(math.sqrt(q / max(sq_ref, 1e-300)) for q in sq_noise),
-            max_rel_err=max_rel)
-    card_params = dict(m_card.named_parameters())
-    param_err, flipped = 0.0, 0
-    for name, p in m_cpu.named_parameters():
-        d = (card_params[name].detach().cpu() - p.detach().cpu()).abs()
-        param_err = max(param_err, float(d.max()))
-        flipped += int((d > lr).sum())
-    if param_err > 2 * lr + 1e-6:
-        failures.append(f"parameters off by {param_err:.3e} > 2·lr")
-    out.update(param_err=param_err, params_flipped=flipped, failures=failures)
-    cudnn = [f for f in failures if not f.startswith(("grad ", "bn "))]
-    if out["bn"]["max_rel_err"] > STEP_CUDNN_BN_REL_TOL:
-        cudnn.append(f"BN statistics off by {out['bn']['max_rel_err']:.3e}")
-    g = out["grad"]
-    if g["rel_l2_err"] > STEP_NOISE_FACTOR * g["rel_l2_noise"] + STEP_REL_FLOOR:
-        cudnn.append(f"gradients off by {g['rel_l2_err']:.3e} (L2; CPU noise "
-                     f"{g['rel_l2_noise']:.3e})")
-    out["cudnn_failures"] = cudnn
-    return out
 
 
 def step_card_vs_cpu(torch, cfg, device, lr: float = 1e-4, batch: int = 32) -> dict:
@@ -1589,90 +1317,11 @@ def drive_training(torch, rng, tmp: str) -> dict:
 
 
 # ---- phase 12: bf16 training -------------------------------------------------
-#
-# The card's bf16 step against the CPU's bf16 step, both from the same weights
-# and batch (dropout off). At random initialisation bf16 noise is large and
-# lumpy: a ReLU unit whose input is near zero flips its mask in one rounding
-# and not the other, which moves every gradient behind it by O(1). Each
-# tensor is held, in L2, to the CPU's own bf16 noise alone (its bf16 step
-# against its f32 step): twice that, plus a floor of the CPU's median
-# relative noise times the tensor and phase 10 (a)'s floors. One tensor of
-# each kind may pass that bound, within BF16_STEP_CAP times it, for a mask
-# flip by chance (the card's readings: none past it, the nearest at 52% at
-# full width and 74% at the cuda test's tiny width). What the card's rounding adds is held
-# apart: its own median noise at most twice the CPU's. The loss: twice the
-# CPU's own noise plus 2^-8 of it. Parameters: 2·lr (+1e-6), a first AdamW
-# step being near lr·sign(g).
-BF16_STEP_ALLOWED = {"grad": 1, "bn": 1}
-BF16_STEP_CAP = 4.0
 BF16_STEP_BATCH = 8  # full width on the CPU in bf16: a few seconds a step
 SYNTHETIC_ARGV = ("--synthetic", "--epochs", "12", "--batch-size", "64", "--subset-size",
                   "2000", "--device-aug", "--num-workers", "4")
 SYNTHETIC_MIN_TOP1 = 0.70  # JAX on its chip: 0.8025; chance ~0.09
 REMAT_BATCH = 256
-
-
-def _l2(t) -> float:
-    return float(t.double().norm())
-
-
-def compare_bf16_steps(torch, runs, lr: float) -> dict:
-    """``runs`` maps cpu32, cpu16, card32, card16 to (model, metrics) of one
-    train step from the same weights and batch; returns the distances and
-    ``failures`` against the bounds above."""
-    failures = []
-    loss = {k: float(m["loss"]) for k, (_, m) in runs.items()}
-    loss_noise = abs(loss["cpu16"] - loss["cpu32"])
-    loss_err = abs(loss["card16"] - loss["cpu16"])
-    if loss_err > 2 * loss_noise + 2 ** -8 * abs(loss["cpu16"]):
-        failures.append(f"loss off by {loss_err:.3e} (the CPU's noise {loss_noise:.3e})")
-
-    def named(model, kind):
-        items = model.named_parameters() if kind == "grad" else model.named_buffers()
-        return {k: (v.grad if kind == "grad" else v).detach().cpu().double()
-                for k, v in items
-                if kind == "grad" or k.endswith(("running_mean", "running_var"))}
-
-    def median_rel(a, b):
-        return float(np.median([_l2(a[k] - b[k]) / _l2(b[k]) for k in b if _l2(b[k]) > 0]))
-
-    out = dict(loss={k: v for k, v in loss.items()}, loss_err=loss_err, loss_noise=loss_noise)
-    for kind in ("grad", "bn"):
-        t = {k: named(m, kind) for k, (m, _) in runs.items()}
-        ref = t["cpu32"]
-        m_cpu = median_rel(t["cpu16"], ref)
-        m_card = median_rel(t["card16"], t["card32"])
-        top = max(float(v.abs().max()) for v in ref.values())
-        shares = []
-        for name, r in ref.items():
-            err = _l2(t["card16"][name] - t["cpu16"][name])
-            noise = _l2(t["cpu16"][name] - r)
-            scale = float(r.abs().max()) if kind == "grad" else max(1.0, float(r.abs().max()))
-            bound = (2 * noise + m_cpu * _l2(r) + STEP_REL_FLOOR * scale * math.sqrt(r.numel())
-                     + (STEP_GLOBAL_FLOOR * top * math.sqrt(r.numel()) if kind == "grad" else 0))
-            shares.append((err / bound, name, err, noise))
-        shares.sort(reverse=True)
-        past = [x for x in shares if x[0] > 1]
-        failures += [f"{kind} {n}: err {e:.3e} > {BF16_STEP_CAP}x the bound (CPU noise {z:.3e})"
-                     for f, n, e, z in past if f > BF16_STEP_CAP]
-        if len(past) > BF16_STEP_ALLOWED[kind]:
-            failures.append(f"{len(past)} {kind} tensors past the bound (allowed "
-                            f"{BF16_STEP_ALLOWED[kind]})")
-        if m_card > 2 * m_cpu:
-            failures.append(f"{kind}: the card's own bf16 noise {m_card:.3e} > 2x the CPU's "
-                            f"{m_cpu:.3e}")
-        out[kind] = dict(cpu_noise=m_cpu, card_noise=m_card, n_past_bound=len(past), worst=[
-            dict(name=n, err=e, cpu_noise=z, share_of_bound=f) for f, n, e, z in shares[:4]])
-    card_params = dict(runs["card16"][0].named_parameters())
-    param_err = max(float((card_params[n].detach().cpu() - p.detach().cpu()).abs().max())
-                    for n, p in runs["cpu16"][0].named_parameters())
-    if param_err > 2 * lr + 1e-6:
-        failures.append(f"parameters off by {param_err:.3e} > 2·lr")
-    dtypes = {p.dtype for m, _ in runs.values() for p in m.parameters()}
-    if dtypes != {torch.float32}:
-        failures.append(f"parameters in {dtypes}")
-    out.update(param_err=param_err, failures=failures)
-    return out
 
 
 def bf16_step_card_vs_cpu(torch, cfg, device, lr: float = 1e-4,
@@ -1918,43 +1567,6 @@ def drive_bf16_training(torch, tmp: str, f32_timing: dict) -> tuple:
 BF16_MAP_TOL = 3 * 2.0 ** -9
 
 
-# The bf16 stem's output is relu(conv * scale + bias), and where the affine
-# nearly cancels the conv the value is ~1e-6: there the f32 sum's own error
-# (each of the kernel and cuDNN's f32 conv within ~1e-6 of an f64
-# reference on the H100) is more than a bf16 ulp of the value. So an
-# element of the stem may also differ by the stem's f32 tolerance, 1e-5.
-STEM_BF16_ATOL = 1e-5
-
-
-def bf16_compare(torch, got, want, atol: float = 0.0, at=None) -> dict:
-    """A bf16 output against its plain version, compared as f32, in units
-    of the bf16 spacing at the larger magnitude of the two (and of ``at``,
-    where given: an intermediate the function rounds to bf16 before its
-    last step): the largest error, the elements beyond one ulp (and the
-    largest |value| and error among them), and whether every element is
-    within one ulp + ``atol``."""
-    g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs())
-    if at is not None:
-        mag = torch.maximum(mag, at.float().abs())
-    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126))) - 7)
-    d = (g - w).abs()
-    beyond = d > ulp
-    n = int(beyond.sum())
-    return dict(ulps=float((d / ulp).max()), beyond=n,
-                beyond_max_value=float(mag[beyond].max()) if n else 0.0,
-                beyond_max_err=float(d[beyond].max()) if n else 0.0,
-                ok=bool((d <= ulp + atol).all()))
-
-
-def bound16_ms(nbytes: float, flops: float):
-    """The bound of a bf16 form: its bytes over 3.35 TB/s or its operations
-    over the bf16 tensor-core peak, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def check_kernels_bf16(torch, engine, rng):
     """(a) Each bf16 form against its bf16 plain version on the card at the
     main path's bucket-32 shapes (within one bf16 ulp per element), with
@@ -2009,8 +1621,8 @@ def check_kernels_bf16(torch, engine, rng):
         got = ops.fused_stem(x, w, scale, bias)
         err = check(f"stem bf16 {tuple(x.shape)} -> {tuple(got.shape)}", got,
                     ops.plain_stem(x, w, scale, bias), STEM_BF16_ATOL)
-        bnd, by = bound16_ms(2 * (x.numel() + w.numel() + got.numel()) + 8 * cout,
-                             2 * b * ch * ch * cout * 147)
+        bnd, by = bound_ms(2 * (x.numel() + w.numel() + got.numel()) + 8 * cout,
+                           2 * b * ch * ch * cout * 147, BF16_FLOP_PER_S)
         (k_ms, k_call), (p_ms, p_call) = (
             time_ms(torch, lambda: ops.fused_stem(x, w, scale, bias), 20),
             time_ms(torch, lambda: ops.plain_stem(x, w, scale, bias), 20))
@@ -2054,7 +1666,7 @@ def check_kernels_bf16(torch, engine, rng):
         p_ms, p_call = time_ms(torch, lambda: ops.plain_se(xs, w1, w2), 50)
         nbytes = 2 * (2 * xs.numel() + w1.numel() + w2.numel())
         flops = 2 * xs.numel() + 4 * BUCKET * c * r + 4 * BUCKET * c
-        stage_bound, stage_by = bound16_ms(nbytes, flops)
+        stage_bound, stage_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
         log(f"se bf16 stage{i}: kernel {k_ms:.4f} ms on the device ({k_call:.4f} ms per call), "
             f"plain {p_ms:.4f} ms, bound {stage_bound:.4f} ms ({stage_by}; "
             f"{100 * stage_bound / k_ms:.0f}% of it)")
@@ -2067,7 +1679,7 @@ def check_kernels_bf16(torch, engine, rng):
             se[key] += v
         se_bytes += nbytes
         se_flops += flops
-    se["bound_ms"], se["bound_by"] = bound16_ms(se_bytes, se_flops)
+    se["bound_ms"], se["bound_by"] = bound_ms(se_bytes, se_flops, BF16_FLOP_PER_S)
     # the streaming mode: stage 1 at 448 px, too large for a resident cluster
     # per image at B = 32 (a block keeps part of its rows and reads the rest
     # twice), and a plan that keeps no row at all, through the launcher
@@ -2117,7 +1729,7 @@ def check_kernels_bf16(torch, engine, rng):
               check("cross_attention bf16 weights", wts, pw))
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + ctx.numel() + wts.numel())
     flops = 4 * BUCKET * heads * lq * lkv * dh + 5 * wts.numel()
-    bnd, by = bound16_ms(nlayers * nbytes, nlayers * flops)
+    bnd, by = bound_ms(nlayers * nbytes, nlayers * flops, BF16_FLOP_PER_S)
     k_ms, k_call = time_ms(torch, lambda: ops.fused_cross_attention(q, k, v, sc), 200)
     p_ms, p_call = time_ms(torch, lambda: ops.plain_cross_attention(q, k, v, sc), 200)
     lib_ms, _ = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 200)
@@ -2134,30 +1746,6 @@ def check_kernels_bf16(torch, engine, rng):
             f"({r['plain_call_ms']:.4f} ms per call), library {lib} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
-
-
-def bucket_spread(engine, rng, n: int = 8) -> dict:
-    """The same request's probabilities at buckets 1, 4, 16 and 32 (the
-    request first, the rest of the batch other requests), against bucket
-    1: the most any probability moves with the batch size. In bf16 this is
-    not 0 where cuDNN takes another algorithm for another batch size."""
-    size = engine.model.config.image_size
-    pixels = rng.integers(0, 256, (n + BUCKET, size, size, 3), dtype=np.uint8)
-    qs = [HTTP_QUESTIONS[i % 5] for i in range(n + BUCKET)]
-    alone = np.stack([engine.predict_probs_from_pixels(pixels[i:i + 1], qs[i:i + 1])[0]
-                      for i in range(n)])
-    spread = {}
-    for bucket in engine.cfg.batch_buckets[1:]:
-        rows = []
-        for i in range(n):
-            others = [n + j for j in range(bucket - 1)]
-            rows.append(engine.predict_probs_from_pixels(
-                pixels[[i] + others], [qs[i]] + [qs[j] for j in others])[0])
-        spread[bucket] = float(np.abs(np.stack(rows) - alone).max())
-    log(f"{engine.dtype} engine: one request's probabilities at buckets "
-        f"{tuple(spread)} against bucket 1, max over {n} requests: "
-        + ", ".join(f"{b}: {v:.3e}" for b, v in spread.items()))
-    return spread
 
 
 def compare_whole_model_bf16(torch, engine16, engine32, rng) -> dict:
@@ -2301,13 +1889,12 @@ def drive_evaluate(torch, tmp: str, val_top1: float, extra=(), forms=("", "_bf16
     return out
 
 
-def drive_bf16(torch, engine32, tput32, tmp: str, val_top1: float, rng, seed: int,
-               with_profile: bool = False) -> tuple:
+def drive_bf16(torch, engine32, tmp: str, val_top1: float, rng, seed: int) -> tuple:
     """Phase 11, bf16 serving and evaluation at full width: (a) the bf16
     forms against their plain versions, (b) the default engine (bf16 on the
     card) through the main path's entry points with launch counts, and its
-    logits against its plain versions and f32, (c) pairs/s and latency,
-    (d) HTTP, (e) the evaluator CLI. Returns (bf16 kernel results, summary)."""
+    logits against its plain versions and f32, (d) HTTP, (e) the evaluator
+    CLI. Returns (bf16 kernel results, summary)."""
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.serving.engine import VQAInference
     from vqa_tpu_torch.utils.config import ModelConfig
@@ -2334,21 +1921,6 @@ def drive_bf16(torch, engine32, tput32, tmp: str, val_top1: float, rng, seed: in
         kernels[name + "_bf16"]["launches"] = launches[name + "_bf16"]
     out = dict(bucket_spread=spread, answer_tol=tol,
                whole_model=compare_whole_model_bf16(torch, engine, engine32, rng))
-    tput = throughput(engine, rng)
-    for b in (1, BUCKET):
-        log(f"bucket {b}: bf16 {tput[b]['pairs_per_s']:.1f} pairs/s (p50 "
-            f"{tput[b]['p50_ms']:.3f} ms), f32 {tput32[b]['pairs_per_s']:.1f} pairs/s (p50 "
-            f"{tput32[b]['p50_ms']:.3f} ms) in this call")
-    out["throughput"] = tput
-    if with_profile:
-        profile(torch, engine, rng)
-    pixels = rng.integers(0, 256, (BUCKET, 224, 224, 3), dtype=np.uint8)
-    qs = ["what color is the cat"] * BUCKET
-    out["forward_device_ms"] = {
-        name: time_ms(torch, lambda e=e: e.dispatch_probs_from_pixels(pixels, qs), 12)[0]
-        for name, e in (("bf16", engine), ("f32", engine32))}
-    log(f"forward at bucket {BUCKET} on the device: bf16 "
-        f"{out['forward_device_ms']['bf16']:.3f} ms, f32 {out['forward_device_ms']['f32']:.3f} ms")
     out["http"] = drive_http_bf16(torch, engine, rng, tol)
     del engine
     out["evaluate"] = drive_evaluate(torch, tmp, val_top1)
@@ -2435,10 +2007,6 @@ def _global_metrics(torch, metrics: dict, mesh) -> dict:
     return {"loss": t[0] / mesh.data_parallel, "correct1": t[1], "correct5": t[2]}
 
 
-def _max_diff(a, b) -> float:
-    return float((a.detach().double() - b.detach().double()).abs().max()) if a.numel() else 0.0
-
-
 def mesh_step_equals_plain(torch, cfg, device, mesh, lr: float = 1e-4, batch: int = 32) -> dict:
     """(a) One f32 step at ``batch`` on the world-of-one NCCL mesh (the
     gradient all_reduce over one rank) against the plain single-process
@@ -2464,7 +2032,7 @@ def mesh_step_equals_plain(torch, cfg, device, mesh, lr: float = 1e-4, batch: in
         for name, r in ref.items():
             if r is None or not r.is_floating_point():
                 continue
-            d, noise = _max_diff(got[name], r), _max_diff(rep[name], r)
+            d, noise = max_diff(got[name], r), max_diff(rep[name], r)
             worst, tensors = max(worst, d), tensors + 1
             if d > noise:
                 past.append(f"{kind} {name}: {d:.3e} > run-to-run {noise:.3e}")
@@ -2576,7 +2144,7 @@ def worker_gloo_two_ranks(torch, args) -> dict:
         with torch.backends.cudnn.flags(enabled=False):
             noise.append(one_train_step(torch, cfg0, device, arrays, lr))
         r = compare_train_steps(torch, plain, noise, (m_dp, r_dp), lr)
-        bn = max(_max_diff(b, dict(plain[0].named_buffers())[n])
+        bn = max(max_diff(b, dict(plain[0].named_buffers())[n])
                  for n, b in m_dp.named_buffers() if n.endswith(("running_mean", "running_var")))
         loss_err = abs(float(r_dp["loss"]) - float(plain[1]["loss"]))
         log(f"phase 13 (b): dp2 step at global B=32 vs the one-rank step: loss err "
@@ -2615,7 +2183,7 @@ def worker_gloo_two_ranks(torch, args) -> dict:
         for kernel, n in (("stem", 1), ("se", 4), ("cross_attention", 2)):
             require(launches[kernel] == n, f"{name} forward launched {launches}")
         if primary:
-            err = _max_diff(logits, want)
+            err = max_diff(logits, want)
             log(f"phase 13 (b): {name} eval forward at B={BUCKET}: logits max err {err:.3e} "
                 f"against the unsharded model (tol {MP_LOGIT_TOL}); cross-attention on "
                 f"{heads} local heads; launches {launches}")
@@ -2744,7 +2312,7 @@ def check_local_heads(torch) -> dict:
             ctx, w = ops.fused_cross_attention(q, k, v, math.sqrt(32))
             pctx, pw = ops.plain_cross_attention(q, k, v, math.sqrt(32))
             if dtype == torch.float32:
-                ok = _max_diff(ctx, pctx) <= 1e-5 and _max_diff(w, pw) <= 1e-6
+                ok = max_diff(ctx, pctx) <= 1e-5 and max_diff(w, pw) <= 1e-6
             else:
                 ok = bf16_compare(torch, ctx, pctx)["ok"] and bf16_compare(torch, w, pw)["ok"]
             require(ok, f"cross-attention {name} at H={h} disagrees with its plain version")
@@ -2867,8 +2435,6 @@ def drive_multi_device(torch, tmp: str, bf16_timing: dict) -> dict:
 NATIVE_SIZES = (64, 224, 512, 1024)    # upload sides timed for decode + resize to 224
 NATIVE_ODD = ((37, 501), (333, 257), (1, 1), (300, 300))  # bit identity at odd shapes
 HOST_BATCH = 32                         # uploads of the batch timing, at 512 px
-MODULE_SHAPES = ((BUCKET, 512, 7, 7), (BUCKET, 64, 56, 56))  # backbone stage outputs
-MODULE_TOL = 1e-4       # a module's card forward against its CPU forward, f32, TF32 off
 SPATIAL_TRAIN_IMAGES = 1200  # tools/make_vqa_corpus.py --spatial --seed 42
 SPATIAL_VAL_IMAGES = 250     # ... --seed 4242, held out
 SPATIAL_EPOCHS = 16          # scripts/run_ablation.py's default
@@ -2892,8 +2458,7 @@ def host_prep(torch, rng, device="cuda") -> dict:
     the port's PIL path; decode + resize to 224 per image at 64-1024 px, PIL
     on one thread against native; a batch of 32 uploads at 512 px, the pool
     against PIL in a loop; and the bf16 engine's ``_preprocess_images`` over
-    one bucket-32 group of the soak's uploads beside the dispatch host ms at
-    bucket 32."""
+    one bucket-32 group of the soak's uploads, native against PIL."""
     from PIL import Image
 
     from vqa_tpu_torch import native
@@ -2965,99 +2530,15 @@ def host_prep(torch, rng, device="cuda") -> dict:
     prep_nat = _median_ms(lambda: engine._preprocess_images(group), 9)
     with pil_path:
         prep_pil = _median_ms(lambda: engine._preprocess_images(group), 9)
-    dispatch = dispatch_timing(torch, engine, rng)
-    host = dispatch["dispatch_host_ms"]
-    share = prep_nat / (prep_nat + host)
     log(f"phase 14 (a): a bucket-32 group of the soak's uploads: _preprocess_images native "
-        f"{prep_nat:.3f} ms, PIL {prep_pil:.3f} ms; bf16 dispatch host {host:.3f} ms "
-        f"(forward {dispatch['forward_device_ms']:.3f} ms on the device): decode + resize "
-        f"is {100 * share:.1f}% of the group's host time ({100 * prep_pil / (prep_pil + host):.1f}% "
-        f"with PIL)")
+        f"{prep_nat:.3f} ms, PIL {prep_pil:.3f} ms")
     del engine
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return dict(cpu_count=os.cpu_count(), per_image=per_image,
                 batch32_512px=dict(native_ms=batch_nat, pil_ms=batch_pil,
                                    resize_native_ms=resize_nat, resize_pil_ms=resize_pil),
-                group32=dict(preprocess_native_ms=prep_nat, preprocess_pil_ms=prep_pil,
-                             dispatch=dispatch, prep_share_of_host=share,
-                             prep_share_of_host_pil=prep_pil / (prep_pil + host)))
-
-
-def _seeded_module(torch, cls, channels: int, rng):
-    """``cls(channels)`` in eval mode with seeded weights (std 0.1) and, for
-    SelfAttention2D, gamma 0.5 (at its initial 0 the module is the
-    identity)."""
-    m = cls(channels).eval()
-    with torch.no_grad():
-        for name, p in m.named_parameters():
-            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32) * 0.1))
-        if hasattr(m, "gamma"):
-            m.gamma.fill_(0.5)
-    return m
-
-
-def attention_modules_on_card(torch, rng, device="cuda") -> tuple:
-    """(b) CBAMBlock and SelfAttention2D at the backbone's stage-output
-    shapes: the card's f32 forward (TF32 off) against the same module's CPU
-    forward within 1e-4; CBAMBlock launches the SE kernel once per eval call,
-    in f32 and in bf16. Returns the numbers and (b)'s kernel launches."""
-    import copy
-
-    from vqa_tpu_torch import ops
-    from vqa_tpu_torch.models import CBAMBlock, SelfAttention2D
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev, out = torch.device(device), {}
-    cases = []
-    for shape in MODULE_SHAPES:
-        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).contiguous(
-            memory_format=torch.channels_last)
-        for cls in (CBAMBlock, SelfAttention2D):
-            cpu = _seeded_module(torch, cls, shape[1], rng)
-            cases.append((f"{cls.__name__}{list(shape)}", cpu, copy.deepcopy(cpu).to(dev), x))
-    for name, _, card, x in cases:  # timed first: these calls are not counted
-        xd = x.to(dev)
-        device_ms, call_ms = time_ms(torch, lambda: card(xd), 10)
-        out[name] = dict(ms=device_ms, call_ms=call_ms)
-    ops.reset_launch_counts()
-    for name, cpu, card, x in cases:
-        with torch.no_grad():
-            want = cpu(x)
-            before = ops.launch_counts()
-            got = card(x.to(dev))
-            torch.cuda.synchronize()
-            delta = {k: v - before[k] for k, v in ops.launch_counts().items()}
-            err = max_err(got.cpu(), want)
-            require(got.shape == x.shape and bool(torch.isfinite(got).all()),
-                    f"{name}: shape {tuple(got.shape)} or non-finite values")
-            require(err <= MODULE_TOL, f"{name}: card vs CPU max err {err:.3e} > {MODULE_TOL}")
-            se_calls = {"se": 1} if name.startswith("CBAM") else {}
-            require(delta == {k: se_calls.get(k, 0) for k in delta},
-                    f"{name}: launches {delta} in one eval call")
-            out[name].update(max_abs_err=err, launches=delta)
-            if name.startswith("CBAM"):  # the bf16 form, once per call too
-                card.set_compute_dtype(torch.bfloat16)
-                before = ops.launch_counts()
-                got16 = card(x.to(dev, torch.bfloat16))
-                torch.cuda.synchronize()
-                delta16 = {k: v - before[k] for k, v in ops.launch_counts().items()}
-                require(delta16 == {k: int(k == "se_bf16") for k in delta16}
-                        and bool(torch.isfinite(got16).all()),
-                        f"{name} bf16: launches {delta16} in one eval call")
-                out[name].update(bf16_vs_f32=max_err(got16.float().cpu(), want),
-                                 bf16_launches=delta16)
-        log(f"phase 14 (b): {name}: card vs CPU max err {err:.3e} (tol {MODULE_TOL:.0e}), "
-            f"{out[name]['ms']:.3f} ms on the device per call ({out[name]['call_ms']:.3f} "
-            f"by events); launches per eval call {delta}"
-            + (f", bf16 {out[name]['bf16_launches']} (bf16 vs f32 {out[name]['bf16_vs_f32']:.3e})"
-               if name.startswith("CBAM") else ""))
-    launches = ops.launch_counts()
-    del cases
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
-    return out, launches
+                group32=dict(preprocess_native_ms=prep_nat, preprocess_pil_ms=prep_pil))
 
 
 def faithfulness_on_card(torch, tmp: str, rng, device="cuda", extra=()) -> tuple:
@@ -3235,10 +2716,7 @@ def drive_tools(torch, rng, device="cuda", extra=()) -> tuple:
 
 # ---- phase 15: the engine's CUDA graphs, the roofline, the supervisor's default
 
-GRAPH_TOL = 1e-4      # f32 replay against the eager forward (tests/test_torch_engine.py:72)
-ALIAS_ROWS = 70       # three chunks at bucket 32
-TIMING_ROUNDS = 4     # (d): eager and graph in turns, the order flipped each round
-B1_CALLS, B32_CALLS, DISPATCH_CALLS = 20, 10, 5
+TIMING_ROUNDS = 4     # phase 16 (b): eager and graph in turns, the order flipped each round
 IDLE_S = 30.0         # (g): a default-flag supervisor over a full-width worker, idle
 RSS_GROUPS = (        # (g): a worker's RSS by mapping, first match wins
     ("cudnn", ("libcudnn",)),
@@ -3282,173 +2760,6 @@ def rss_breakdown(pid: int) -> dict:
                     files[os.path.basename(name)] = files.get(os.path.basename(name), 0.0) + mb
     out["total"] = sum(out.values())
     out["files"] = {k: v for k, v in sorted(files.items(), key=lambda kv: -kv[1]) if v >= 20}
-    return out
-
-
-def graphs_match_eager(engine, rng, tol: float) -> dict:
-    """(a) Every effective bucket of every replica is a graph, and at each
-    bucket the replayed probabilities on inputs the capture never saw are
-    within ``tol`` of the eager forward's (``_dispatch_eager``) on the
-    same inputs. Returns the max abs err per bucket."""
-    size = engine.model.config.image_size
-    buckets = engine._effective_buckets()
-    shape = {b: len(gs) for b, gs in (engine._graphs or {}).items()}
-    require(shape == {b: len(engine.replicas) for b in buckets},
-            f"{engine.dtype} engine: graphs per bucket {shape}, buckets {buckets}")
-    errs = {}
-    for b in buckets:
-        pixels = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
-        qs = [HTTP_QUESTIONS[i % 5] for i in range(b)]
-        got, _ = engine.dispatch_probs_from_pixels(pixels, qs)
-        want, _ = engine._dispatch_eager(pixels, qs)
-        errs[b] = max_err(got, want)
-    log(f"phase 15 (a): {engine.dtype} engine, replay vs eager at buckets {tuple(errs)}: "
-        + ", ".join(f"{b}: {e:.3e}" for b, e in errs.items()) + f" (tol {tol:.1e})")
-    require(max(errs.values()) <= tol, f"{engine.dtype} replay vs eager: {errs}")
-    return errs
-
-
-def chunks_do_not_alias(engine, rng) -> float:
-    """(b) 70 requests through ``predict_probs_from_pixels`` (three chunks,
-    all dispatched before the first is fetched) against each chunk
-    dispatched and fetched alone."""
-    size = engine.model.config.image_size
-    pixels = rng.integers(0, 256, (ALIAS_ROWS, size, size, 3), dtype=np.uint8)
-    qs = [HTTP_QUESTIONS[i % 5] for i in range(ALIAS_ROWS)]
-    got = engine.predict_probs_from_pixels(pixels, qs)
-    alone = np.concatenate([engine.predict_probs_from_pixels(pixels[i:i + BUCKET],
-                                                             qs[i:i + BUCKET])
-                            for i in range(0, ALIAS_ROWS, BUCKET)])
-    err = float(np.abs(got - alone).max())
-    distinct = len({int(r.argmax()) for r in got}) > 1 or float(np.ptp(got[:, 0])) > 0
-    log(f"phase 15 (b): {engine.dtype} engine, {ALIAS_ROWS} requests in one call vs its "
-        f"chunks alone: max err {err:.3e}; rows distinct: {distinct}")
-    require(err <= 1e-6 and distinct, f"chunked dispatches alias: err {err:.3e}")
-    return err
-
-
-def launches_per_replay(torch, engine) -> dict:
-    """(c) One dispatch at each effective bucket: the forms of the engine's
-    dtype launched 1, 4 and 2 times per replayed forward, the others not."""
-    from vqa_tpu_torch import ops
-
-    size = engine.model.config.image_size
-    buckets = engine._effective_buckets()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    for b in buckets:
-        engine.dispatch_probs_from_pixels(np.zeros((b, size, size, 3), np.uint8),
-                                          ["what is this"] * b)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    suffix = "_bf16" if engine.dtype == torch.bfloat16 else ""
-    want = {**dict.fromkeys(launches, 0),
-            **{k + suffix: per * len(buckets) for k, per in
-               (("stem", 1), ("se", 4), ("cross_attention", 2))}}
-    log(f"phase 15 (c): {engine.dtype} engine, {len(buckets)} replayed forwards: launches "
-        f"{launches}")
-    require(launches == want, f"launches per replay: {launches}, want {want}")
-    return launches
-
-
-def eager_vs_graph(torch, engine, rng, rounds: int = TIMING_ROUNDS) -> dict:
-    """(d) The eager forward (``_dispatch_eager``) and the graphs, in turns
-    (eager first in even rounds, the graph first in odd ones): bucket-1
-    latency through ``predict_probs_from_pixels`` (p50/p90 of each round's
-    calls and of all of them), bucket-32 pairs/s, the host ms of one
-    bucket-32 dispatch issued with the card idle, and the card's busy share
-    of a profiled window of bucket-32 calls (device time over wall time,
-    with its device ms per call). Each metric is kept per round: its spread."""
-    from torch.profiler import ProfilerActivity, profile
-
-    size = engine.model.config.image_size
-    p1 = rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
-    p32 = rng.integers(0, 256, (BUCKET, size, size, 3), dtype=np.uint8)
-    q1, q32 = HTTP_QUESTIONS[:1], [HTTP_QUESTIONS[i % 5] for i in range(BUCKET)]
-
-    def mode(name):
-        return (mock.patch.object(engine, "dispatch_probs_from_pixels", engine._dispatch_eager)
-                if name == "eager" else contextlib.nullcontext())
-
-    def timed(fn, n):
-        out = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            fn()
-            out.append(1e3 * (time.perf_counter() - t0))
-        return out
-
-    keys = ("b1_ms", "b1_p50_ms", "b1_p90_ms", "pairs_per_s_b32", "dispatch_host_ms_b32",
-            "busy_share_b32", "device_ms_b32")
-    res = {m: {k: [] for k in keys} for m in ("eager", "graph")}
-    for m in res:
-        with mode(m):
-            for _ in range(3):
-                engine.predict_probs_from_pixels(p1, q1)
-                engine.predict_probs_from_pixels(p32, q32)
-    for r in range(rounds):
-        for m in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
-            out = res[m]
-            with mode(m):
-                b1 = sorted(timed(lambda: engine.predict_probs_from_pixels(p1, q1), B1_CALLS))
-                out["b1_ms"] += b1
-                out["b1_p50_ms"].append(statistics.median(b1))
-                out["b1_p90_ms"].append(b1[int(0.9 * (len(b1) - 1))])
-                b32 = timed(lambda: engine.predict_probs_from_pixels(p32, q32), B32_CALLS)
-                out["pairs_per_s_b32"].append(1e3 * BUCKET * B32_CALLS / sum(b32))
-                host = []
-                for _ in range(DISPATCH_CALLS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    engine.dispatch_probs_from_pixels(p32, q32)
-                    host.append(1e3 * (time.perf_counter() - t0))
-                    torch.cuda.synchronize()
-                out["dispatch_host_ms_b32"].append(statistics.median(host))
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    for _ in range(B32_CALLS):
-                        engine.predict_probs_from_pixels(p32, q32)
-                    wall = time.perf_counter() - t0
-                busy_us = sum(e.self_device_time_total for e in device_events(prof))
-                out["busy_share_b32"].append(busy_us / 1e6 / wall)
-                out["device_ms_b32"].append(busy_us / 1e3 / B32_CALLS)
-    summary = {}
-    for m, out in res.items():
-        b1 = sorted(out.pop("b1_ms"))
-        summary[m] = dict(b1_p50_ms_all=statistics.median(b1),
-                          b1_p90_ms_all=b1[int(0.9 * (len(b1) - 1))], b1_calls=len(b1),
-                          rounds=out, **{k: statistics.median(v) for k, v in out.items()})
-    for k in keys[1:]:
-        e, g = res["eager"][k], res["graph"][k]
-        log(f"phase 15 (d): {engine.dtype} {k}: eager {statistics.median(e):.4g} "
-            f"[{min(e):.4g}-{max(e):.4g}], graph {statistics.median(g):.4g} "
-            f"[{min(g):.4g}-{max(g):.4g}] (median [range] of {rounds} rounds)")
-    log(f"phase 15 (d): {engine.dtype} bucket 1 over all {summary['graph']['b1_calls']} calls: "
-        f"eager p50 {summary['eager']['b1_p50_ms_all']:.3f} ms p90 "
-        f"{summary['eager']['b1_p90_ms_all']:.3f}, graph p50 "
-        f"{summary['graph']['b1_p50_ms_all']:.3f} p90 {summary['graph']['b1_p90_ms_all']:.3f}")
-    require(all(v > 0 for v in res["graph"]["busy_share_b32"]),
-            "a profiled window of graph replays saw no device time")
-    return summary
-
-
-def roofline_floor(timing: dict) -> dict:
-    """(f) The roofline floor of one bucket-32 forward (tools/roofline.py at
-    the H100's peaks) beside the graphed forward's device ms from (d)."""
-    from vqa_tpu_torch.tools import roofline
-
-    out = {}
-    for dtype, t in timing.items():
-        floor = roofline.forward_floor_ms(BUCKET, dtype)
-        device_ms = t["graph"]["device_ms_b32"]
-        out[dtype] = dict(floor, graph_device_ms=device_ms,
-                          share_of_floor=floor["overlap_ms"] / device_ms)
-        log(f"phase 15 (f): {dtype} bucket-{BUCKET} forward: roofline floor "
-            f"{floor['overlap_ms']:.4f} ms ({floor['bound_by']}; additive "
-            f"{floor['additive_ms']:.4f}; {floor['flops'] / 1e9:.1f} GFLOP, "
-            f"{floor['bytes'] / 1e6:.1f} MB) against the graphed forward's "
-            f"{device_ms:.4f} ms on the device ({100 * floor['overlap_ms'] / device_ms:.1f}%)")
     return out
 
 
@@ -3584,14 +2895,14 @@ def default_supervisor_idle(rng, tmp: str, idle_s: float = IDLE_S,
 
 
 def drive_graphs(torch, rng, multi_device: dict, tmp: str) -> dict:
-    """Phase 15: (a)-(d) on a full-width f32 and a bf16 engine, (e) phase
-    13 (c)'s two graphed replicas, (f) the roofline floor, (g) the default
-    supervisor; each part's seconds logged."""
+    """Phase 15: (a)-(c) on a full-width f32 and a bf16 engine, (e) phase
+    13 (c)'s two graphed replicas, (g) the default supervisor; each part's
+    seconds logged."""
     from vqa_tpu_torch.serving.engine import VQAInference
     from vqa_tpu_torch.utils.config import ModelConfig
 
     t_start = time.perf_counter()
-    out, timing = {}, {}
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         t0 = time.perf_counter()
@@ -3604,18 +2915,15 @@ def drive_graphs(torch, rng, multi_device: dict, tmp: str) -> dict:
                          replay_vs_eager=graphs_match_eager(engine, rng, tol),
                          alias_err=chunks_do_not_alias(engine, rng),
                          launches_per_replay=launches_per_replay(torch, engine))
-        timing[name] = eager_vs_graph(torch, engine, rng)
-        log(f"phase 15 ({name}): load with capture {load_s:.1f} s; (a)-(d) "
+        log(f"phase 15 ({name}): load with capture {load_s:.1f} s; (a)-(c) "
             f"{time.perf_counter() - t0:.1f} s")
         del engine
         torch.cuda.empty_cache()
-    out["timing"] = timing
     replicas = multi_device["replicas"]
     require(replicas.get("graphs_per_bucket") == 2, "phase 13 (c)'s replicas were not graphed")
     out["replicas"] = {k: replicas[k] for k in ("err_n1", f"err_n{BUCKET}")}
     log(f"phase 15 (e): phase 13 (c)'s two replicas on cuda:0, each replaying its own graphs, "
         f"against one: max err {out['replicas']} (tol {REPLICA_TOL})")
-    out["roofline"] = roofline_floor(timing)
     t0 = time.perf_counter()
     out["supervisor"] = default_supervisor_idle(rng, tmp)
     out["seconds"] = time.perf_counter() - t_start
@@ -3643,77 +2951,9 @@ ABLATION_ARGV = ("--epochs", "1", "--num-images", "300", "--val-num-images", "10
                  "--seeds", "42")  # (e): the JAX script's corpora cut from 2,500/500 scenes
 
 
-def train_runs(torch, cfg, device, batches, dtype=None, graphed=False, grad_accum=1,
-               remat="none", mesh=None, lr=1e-4, seed=16) -> dict:
-    """``len(batches)`` train steps from seeded weights and a seeded dropout
-    generator, with deterministic cuDNN, through the eager step or
-    ``GraphedTrainStep``: the model, its TrainState and step, the loss of
-    each step and the card's generator state before each step."""
-    from vqa_tpu_torch.models import create_vqa_model
-    from vqa_tpu_torch.models.vqa_model import shard_model
-    from vqa_tpu_torch.training.step_graph import GraphedTrainStep
-    from vqa_tpu_torch.training.train import TrainState, make_train_step
-    from vqa_tpu_torch.utils.config import TrainingConfig
-
-    model = create_vqa_model(config=cfg, device=device, seed=seed,
-                             dtype=dtype or torch.float32)
-    if mesh is not None:
-        shard_model(model, mesh)
-    state = TrainState.create(
-        model, TrainingConfig(learning_rate=lr, warmup_epochs=0, num_epochs=3), 10)
-    step = make_train_step(model, grad_accum=grad_accum, remat=remat)
-    if graphed:
-        step = GraphedTrainStep(step, state)
-    torch.manual_seed(21)
-    losses, rng = [], []
-    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
-        for b in batches:
-            rng.append(torch.cuda.get_rng_state(device))
-            losses.append(float(step(state, *b)["loss"]))
-    return dict(model=model, state=state, step=step, losses=losses, rng=rng)
-
-
-def _grad_norm(model) -> float:
-    return math.sqrt(sum(float((p.grad.double() ** 2).sum())
-                         for p in model.parameters() if p.grad is not None))
-
-
-def compare_runs(torch, got, want) -> dict:
-    """Largest differences of ``got`` from ``want`` (runs of ``train_runs``):
-    per-step losses, the clipped gradients' norm after the last step,
-    parameters, clipped gradients and BN's running statistics."""
-    a, b = got["model"], want["model"]
-    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
-    ba, bb = dict(a.named_buffers()), dict(b.named_buffers())
-    bn = [k for k in bb if k.endswith(("running_mean", "running_var"))]
-    return dict(
-        loss=max(abs(x - y) for x, y in zip(got["losses"], want["losses"])),
-        grad_norm=abs(_grad_norm(a) - _grad_norm(b)),
-        param=max(_max_diff(pa[n], p) for n, p in pb.items()),
-        grad=max(_max_diff(pa[n].grad, p.grad) for n, p in pb.items() if p.grad is not None),
-        bn=max(_max_diff(ba[k], bb[k]) for k in bn),
-        rng_equal=all(torch.equal(x, y) for x, y in zip(got["rng"], want["rng"])))
-
-
 def graph_batches(torch, cfg, device, batch: int = GRAPH_BATCH, steps: int = GRAPH_STEPS):
     return [[torch.from_numpy(a).to(device) for a in synthetic_batch(cfg, batch, seed=30 + i)]
             for i in range(steps)]
-
-
-def fresh_masks(torch, run, batch) -> dict:
-    """Two replays of a graphed run on one batch with the learning rate at 0
-    (the weights stay; BN's running statistics do not enter a training
-    forward): their losses differ only if the dropout masks do."""
-    state = run["state"]
-    state.schedule = lambda step: 0.0
-    before = [p.detach().clone() for p in run["model"].parameters()]
-    replays = run["step"].calls.replays
-    losses = [float(run["step"](state, *batch)["loss"]) for _ in range(2)]
-    moved = max(_max_diff(p, q) for p, q in zip(run["model"].parameters(), before))
-    require(run["step"].calls.replays == replays + 2, "the two steps were not replays")
-    require(moved == 0.0, f"weights moved by {moved:.3e} at learning rate 0")
-    require(losses[0] != losses[1], f"two replays drew the same dropout masks: {losses}")
-    return dict(losses=losses)
 
 
 def graph_vs_eager(torch, cfg, device) -> dict:
@@ -4302,169 +3542,6 @@ RESUME_TIMED_STEPS = 10   # (b): graphed steps timed after the compared ones
 # it is there and never depends on it
 RESUME_JAX_TREE = os.path.join(REPO, "_checkout", "fullwidth", "trainer")
 
-# (b)'s writer: the port's state_dict key → the flax module path and kind, the
-# inverse of compat/jax_weights.py:_torch_key (each result is checked against it)
-_FLAX_MODULES = (
-    (r"image_encoder\.stem\.0", "image_encoder/stem_conv", "conv"),
-    (r"image_encoder\.stem\.1", "image_encoder/stem_bn", "norm"),
-    (r"image_encoder\.(stage\d+)\.attention\.se\.(fc\d)", r"image_encoder/\1/attention/se/\2",
-     "dense"),
-    (r"image_encoder\.(stage\d+)\.attention\.spatial\.conv",
-     r"image_encoder/\1/attention/spatial/conv", "conv"),
-    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.(conv\d)", r"image_encoder/\1/block\2/\3", "conv"),
-    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.(bn\d)", r"image_encoder/\1/block\2/\3", "norm"),
-    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.downsample\.0",
-     r"image_encoder/\1/block\2/down_conv", "conv"),
-    (r"image_encoder\.(stage\d+)\.blocks\.(\d+)\.downsample\.1",
-     r"image_encoder/\1/block\2/down_bn", "norm"),
-    (r"text_encoder\.token_embedding", "text_encoder/token_embedding", "embed"),
-    (r"text_encoder\.final_norm", "text_encoder/final_norm", "norm"),
-    (r"text_encoder\.layers\.(\d+)\.self_attention\.(W_\w)",
-     r"text_encoder/layer\1/self_attention/\2", "dense"),
-    (r"text_encoder\.layers\.(\d+)\.(norm\d)", r"text_encoder/layer\1/\2", "norm"),
-    (r"text_encoder\.layers\.(\d+)\.ffn\.(fc\d)", r"text_encoder/layer\1/ffn/\2", "dense"),
-    (r"fusion\.image_projector\.projection\.0", "fusion/image_projector/proj", "dense"),
-    (r"fusion\.image_projector\.projection\.1", "fusion/image_projector/proj_norm", "norm"),
-    (r"fusion\.image_projector", "fusion/image_projector", "param"),
-    (r"fusion\.cross_attention\.layers\.(\d+)\.(norm_\w+)", r"fusion/cross_attention/layer\1/\2",
-     "norm"),
-    (r"fusion\.cross_attention\.layers\.(\d+)\.cross_attention\.(W_\w)",
-     r"fusion/cross_attention/layer\1/cross_attention/\2", "dense"),
-    (r"fusion\.cross_attention\.layers\.(\d+)\.ffn\.0", r"fusion/cross_attention/layer\1/ffn_fc1",
-     "dense"),
-    (r"fusion\.cross_attention\.layers\.(\d+)\.ffn\.3", r"fusion/cross_attention/layer\1/ffn_fc2",
-     "dense"),
-    (r"fusion\.gate\.gate\.0", "fusion/gate/gate", "dense"),
-    (r"fusion\.output_norm", "fusion/output_norm", "norm"),
-    (r"answer_head\.classifier\.0", "answer_head/fc1", "dense"),
-    (r"answer_head\.classifier\.3", "answer_head/fc2", "dense"),
-    (r"answer_head\.classifier\.6", "answer_head/fc3", "dense"),
-)
-_FLAX_LEAVES = {"conv": {"weight": "kernel"}, "dense": {"weight": "kernel", "bias": "bias"},
-                "embed": {"weight": "embedding"},
-                "norm": {"weight": "scale", "bias": "bias", "running_mean": "mean",
-                         "running_var": "var"},
-                "param": {"position_embedding": "position_embedding"}}
-
-
-def flax_leaf(key: str, value: np.ndarray):
-    """(collection, flax path, array in flax's layout) of one state_dict
-    entry, or None for what flax does not store (``pe``,
-    ``num_batches_tracked``)."""
-    import re
-
-    from vqa_tpu_torch.compat import jax_weights
-
-    module, leaf = key.rsplit(".", 1)
-    if leaf == "num_batches_tracked" or key == "text_encoder.positional_encoding.pe":
-        return None
-    for pattern, template, kind in _FLAX_MODULES:
-        if re.fullmatch(pattern, module) and leaf in _FLAX_LEAVES[kind]:
-            path = tuple(re.sub(pattern, template, module).split("/")) + (
-                _FLAX_LEAVES[kind][leaf],)
-            collection = "batch_stats" if leaf.startswith("running_") else "params"
-            back, transform = jax_weights._torch_key(collection, path)
-            require(back == key, f"flax_leaf({key}) → {'/'.join(path)} maps back to {back}")
-            if transform is jax_weights._conv_kernel:
-                value = np.transpose(value, (2, 3, 1, 0))  # OIHW → HWIO
-            elif transform is jax_weights._linear_kernel:
-                value = value.T
-            return collection, path, np.ascontiguousarray(value, np.float32)
-    raise KeyError(f"no flax path for {key}")
-
-
-def flax_variables(state_dict) -> dict:
-    """The port's state_dict (numpy arrays) as flax ``{'params',
-    'batch_stats'}`` trees."""
-    out = {"params": {}, "batch_stats": {}}
-    for key, value in state_dict.items():
-        leaf = flax_leaf(key, np.asarray(value))
-        if leaf is None:
-            continue
-        collection, path, arr = leaf
-        node = out[collection]
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = arr
-    return out
-
-
-def write_orbax_tree(path: str, tree) -> int:
-    """``tree`` (dicts, lists, numpy arrays, Nones) as an Orbax checkpoint
-    directory in the plain-directory zarr v2 layout, uncompressed, one
-    chunk per array (``compat/orbax.py`` reads it; Orbax writes it with
-    ``use_ocdbt=False``). Returns the bytes of array data written."""
-    entries, written = {}, 0
-
-    def walk(node, keys):
-        nonlocal written
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, keys + [(str(k), 2)])
-            return
-        if isinstance(node, list):
-            for i, v in enumerate(node):
-                walk(v, keys + [(str(i), 1)])
-            return
-        name = ".".join(k for k, _ in keys)
-        meta = {"key_metadata": [{"key": k, "key_type": t} for k, t in keys]}
-        if node is None:
-            meta["value_metadata"] = {"value_type": "None", "skip_deserialize": True}
-        else:
-            arr = np.array(node, order="C", copy=False) if np.ndim(node) else np.asarray(node)
-            meta["value_metadata"] = {"value_type": "jax.Array", "skip_deserialize": False,
-                                      "write_shape": list(arr.shape)}
-            folder = os.path.join(path, name)
-            os.makedirs(folder)
-            with open(os.path.join(folder, ".zarray"), "w", encoding="utf-8") as f:
-                json.dump({"zarr_format": 2, "shape": list(arr.shape), "chunks": list(arr.shape),
-                           "dtype": arr.dtype.str, "compressor": None, "fill_value": None,
-                           "order": "C", "filters": None, "dimension_separator": "."}, f)
-            with open(os.path.join(folder, ".".join(["0"] * max(arr.ndim, 1))), "wb") as f:
-                f.write(arr.tobytes())
-            written += arr.nbytes
-        entries[str(tuple(k for k, _ in keys))] = meta
-
-    os.makedirs(path)
-    walk(tree, [])
-    with open(os.path.join(path, "_METADATA"), "w", encoding="utf-8") as f:
-        json.dump({"tree_metadata": entries, "use_ocdbt": False, "use_zarr3": False,
-                   "store_array_data_equal_to_fill_value": True, "custom_metadata": None}, f)
-    return written
-
-
-def write_trainer_tree(base: str, name: str, model, rng, step: int, meta: dict) -> int:
-    """The JAX trainer's tree (``vqa_tpu/training/train.py:_state_tree``) of
-    ``model``'s weights and BN statistics, with AdamW's moments of seeded
-    values (mu ~ 1e-4·N(0, 1), nu = mu² + (1e-3·N(0, 1))², as gradients
-    near 1e-3 leave them) and every count at ``step``, written to
-    ``<base>/<name>/`` with its sidecar. Returns the array bytes."""
-    from vqa_tpu_torch.utils.config import model_config_dict
-
-    variables = flax_variables({k: v.detach().cpu().numpy()
-                                for k, v in model.state_dict().items()})
-
-    def like(tree, draw):
-        return {k: like(v, draw) if isinstance(v, dict) else draw(v.shape)
-                for k, v in tree.items()}
-
-    mu = like(variables["params"], lambda s: (1e-4 * rng.standard_normal(s)).astype(np.float32))
-
-    def second(tree, first):  # nu >= mu², as a mean of squares is
-        return {k: second(v, first[k]) if isinstance(v, dict) else
-                (np.square(first[k]) + np.square(1e-3 * rng.standard_normal(v.shape))
-                 ).astype(np.float32) for k, v in tree.items()}
-
-    nu = second(variables["params"], mu)
-    count = np.asarray(step, np.int32)
-    tree = {**variables, "opt_state": [None, [{"count": count, "mu": mu, "nu": nu}, None,
-                                              {"count": count}]], "step": count}
-    written = write_orbax_tree(os.path.join(base, name), tree)
-    with open(os.path.join(base, name + ".meta.json"), "w", encoding="utf-8") as f:
-        json.dump({"config": model_config_dict(model.config), "meta": meta}, f)
-    return written
-
-
 def _sidecar_config(base: str, name: str):
     from vqa_tpu_torch.utils.config import model_config_from_dict
 
@@ -4492,18 +3569,6 @@ def resumed_trainer(torch, base: str, name: str, device, dtype=None, cfg=None, c
     trainer.resume(name)
     sync()
     return trainer, (time.perf_counter() - t0) * 1e3
-
-
-def mapped_moments(base: str, name: str, names) -> dict:
-    """The tree's moments as ``compat/jax_weights.py`` maps them, on the
-    CPU: {position: state}."""
-    from vqa_tpu_torch.compat.jax_weights import adamw_state_from_jax
-    from vqa_tpu_torch.compat.orbax import training_state
-    from vqa_tpu_torch.training.checkpoint import load_orbax_checkpoint
-
-    tree, _, _ = load_orbax_checkpoint(base, name)
-    state = training_state(tree)
-    return adamw_state_from_jax(state["mu"], state["nu"], state["adam_count"], names)
 
 
 def check_resumed_state(torch, trainer, base: str, name: str, step: int) -> dict:
@@ -4711,7 +3776,7 @@ def resume_full_width(torch, tmp: str, device, cfg=None) -> dict:
                 rng_states.append(torch.cuda.get_rng_state(device))
                 losses.append(_steps(torch, trainer, [b], graphed=label == "graph")[0])
                 if i == 0:
-                    moved = max(_max_diff(p, q) for p, q in zip(trainer.model.parameters(),
+                    moved = max(max_diff(p, q) for p, q in zip(trainer.model.parameters(),
                                                                  before))
         require(moved > 0.1 * checked["lr"],
                 f"phase 18 (b) {label}: the first resumed step moved no weight ({moved:.3e})")
@@ -4922,7 +3987,7 @@ def check_moe_kernels(torch, engine, pixels, questions) -> dict:
                 f"{name} disagrees with its plain version at the deployment's shapes")
         k_ms, k_call = time_ms(torch, fn, 20)
         lib_ms, _ = time_ms(torch, library, 20)
-        bnd, by = bound16_ms(nbytes, 0.0)
+        bnd, by = bound_ms(nbytes, 0.0, BF16_FLOP_PER_S)
         r = dict(route="cuda", source="vqa_tpu_torch/csrc/moe.cu", replaces=None,
                  max_abs_err=err, ulps=c["ulps"], ms=per_forward * k_ms,
                  call_ms=per_forward * k_call, bound_ms=per_forward * bnd, bound_by=by,
@@ -5029,7 +4094,7 @@ def check_mla_kernel(torch, engine, pixels, questions) -> dict:
                                                                           attn_mask=mask), 20)
     nbytes = (sum(t.numel() * t.element_size() for t in (q, kv, keys, got))
               + b * length * rope * 2 + 2 * length * (rope // 2) * 4)
-    bnd, by = bound16_ms(nbytes, 0.0)
+    bnd, by = bound_ms(nbytes, 0.0, BF16_FLOP_PER_S)
     per_forward = len(layers)
     r = dict(route="cuda", source="vqa_tpu_torch/csrc/mla.cu", replaces=None, max_abs_err=err,
              ulps=ulps, ms=per_forward * k_ms, call_ms=per_forward * k_call,
@@ -5040,36 +4105,6 @@ def check_mla_kernel(torch, engine, pixels, questions) -> dict:
         f"{nbytes / 1e6:.1f} MB a layer; {100 * bnd / k_ms:.1f}%), plain {r['plain_ms']:.4f} ms, "
         f"SDPA {r['library_ms']:.4f} ms")
     return {"mla_attention": r}
-
-
-def forward_split(torch, engine, pixels, questions, top: int = 14) -> list:
-    """Device ms per forward of one graphed call at the bucket, summed by
-    kernel function (``benchmark/harness/trace.py:kernel_base``), the
-    largest ``top`` and the rest: [name, ms, launches] each."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from benchmark.harness.trace import kernel_base
-
-    forwards = len(questions) // DECODER_BUCKET
-    engine.predict_probs_from_pixels(pixels, questions)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.predict_probs_from_pixels(pixels, questions)
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or not e.device_time_total:
-            continue
-        name = kernel_base(e.key)
-        ms, n = by.get(name, (0.0, 0))
-        by[name] = (ms + e.device_time_total / 1e3 / forwards, n + e.count // forwards)
-    split = sorted(([k, ms, n] for k, (ms, n) in by.items()), key=lambda r: -r[1])
-    rest = split[top:]
-    split = split[:top] + [["(the rest)", sum(r[1] for r in rest), sum(r[2] for r in rest)]]
-    log(f"forward split at bucket {DECODER_BUCKET}: " + "; ".join(
-        f"{k} {ms:.3f} ms x{n}" for k, ms, n in split) +
-        f"; total {sum(r[1] for r in split):.3f} ms")
-    return split
 
 
 def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
@@ -5138,7 +4173,6 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
     require(graph_err <= DECODER_GRAPH_TOL, "the replayed decoder forward left the eager one")
     out.update(launches=launches, rows_per_expert=rows, imbalance=imbalance,
                graph_vs_eager=graph_err, peak_bytes=torch.cuda.max_memory_allocated())
-    out["split"] = forward_split(torch, engine, pixels, questions)
     kernels = check_mla_kernel(torch, engine, pixels[:DECODER_BUCKET],
                                questions[:DECODER_BUCKET])
     kernels.update(check_moe_kernels(torch, engine, pixels[:DECODER_BUCKET],
@@ -5178,7 +4212,6 @@ def run_worker(args) -> int:
     (``--worker``): its result as JSON in ``--out``."""
     import torch
 
-    sys.path.insert(0, REPO)
     from vqa_tpu_torch.parallel import distributed
 
     result = WORKERS[args.worker](torch, args)
@@ -5191,8 +4224,6 @@ def run_worker(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--profile", action="store_true",
-                   help="add a torch.profiler breakdown of the bucket-32 forward")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--decoder-only", action="store_true",
                    help="build the kernels, then run phase 19 (the decoder deployment) alone")
@@ -5213,7 +4244,6 @@ def main(argv=None) -> int:
     if args.worker:
         return run_worker(args)
     t_start = time.perf_counter()
-    sys.path.insert(0, REPO)
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.models import count_parameters
     from vqa_tpu_torch.ops import _build
@@ -5269,9 +4299,6 @@ def main(argv=None) -> int:
         kernels[name]["launches"] = launches[name]
 
     compare_whole_model(torch, engine, rng)
-    tput = throughput(engine, rng)
-    if args.profile:
-        profile(torch, engine, rng)
 
     t0 = time.perf_counter()
     http = drive_http(torch, engine, rng)
@@ -5284,8 +4311,8 @@ def main(argv=None) -> int:
     log(f"serving phases: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train.") as tmp:
         training = drive_training(torch, rng, tmp)
-        kernels16, bf16 = drive_bf16(torch, engine, tput, tmp, training["cli"]["val_top1"],
-                                     rng, args.seed, args.profile)
+        kernels16, bf16 = drive_bf16(torch, engine, tmp, training["cli"]["val_top1"], rng,
+                                     args.seed)
     kernels.update(kernels16)
     del engine
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_train.") as tmp:
@@ -5321,13 +4348,7 @@ def main(argv=None) -> int:
         decoder = drive_decoder(torch, tmp, rng, args.seed)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
-    log(json.dumps({"engine": {
-        "params": n_params, "build_s": build_s,
-        "pairs_per_s_bucket1": tput[1]["pairs_per_s"],
-        "pairs_per_s_bucket32": tput[BUCKET]["pairs_per_s"],
-        "p50_ms_bucket1": tput[1]["p50_ms"], "p90_ms_bucket1": tput[1]["p90_ms"],
-        "p50_ms_bucket32": tput[BUCKET]["p50_ms"],
-        "p90_ms_bucket32": tput[BUCKET]["p90_ms"]}}))
+    log(json.dumps({"engine": {"params": n_params, "build_s": build_s}}))
     log(json.dumps({"serving": {**load, "http": http, "supervisor": supervisor}}))
     log(json.dumps({"training": training}))
     log(json.dumps({"bf16": bf16}))
@@ -5343,12 +4364,6 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools",
             "launches_orbax", "launches_resume", "stages")
-    # the graphed forward's device ms per bucket-32 call (phase 15 (d)), beside
-    # the kernels it runs
-    log(json.dumps({"graphed_forward_device_ms_b32": {
-        name: dict(median=t["graph"]["device_ms_b32"],
-                   rounds=t["graph"]["rounds"]["device_ms_b32"])
-        for name, t in graphs["timing"].items()}}))
     log(json.dumps({"kernels": [{k: ({"name": name, "stages": None, **r}[k]) for k in keys}
                                 for name, r in kernels.items()]}))
     log(card)

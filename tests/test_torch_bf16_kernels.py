@@ -25,7 +25,7 @@ BF16 = torch.bfloat16
 
 def _ulps(got, want) -> float:
     """Largest |got - want| in bf16 spacings at the larger magnitude (as
-    ``chip_smoke.bf16_compare`` measures it on the card)."""
+    ``vqa_tpu_torch.testing.bf16_compare`` measures it on the card)."""
     g, w = got.float(), want.float()
     mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
     return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())

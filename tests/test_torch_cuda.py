@@ -319,7 +319,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     paths)."""
     import dataclasses
 
-    import chip_smoke
+    from vqa_tpu_torch.testing import compare_train_steps, one_train_step
     from vqa_tpu_torch.utils.config import tiny_model_config
 
     cfg = dataclasses.replace(tiny_model_config(), dropout=0.0, answer_dropout=0.0)
@@ -330,18 +330,18 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
               rng.integers(0, cfg.num_answers, 8).astype(np.int32)]
     perm = np.arange(8)[::-1].copy()
     ops.reset_launch_counts()
-    cpu = [chip_smoke.one_train_step(torch, cfg, "cpu", data, 1e-4, seed=4)
+    cpu = [one_train_step(torch, cfg, "cpu", data, 1e-4, seed=4)
            for data in (arrays, [a[perm] for a in arrays])]
     with torch.backends.mkldnn.flags(enabled=False):
-        cpu.append(chip_smoke.one_train_step(torch, cfg, "cpu", arrays, 1e-4, seed=4))
+        cpu.append(one_train_step(torch, cfg, "cpu", arrays, 1e-4, seed=4))
     with torch.backends.cudnn.flags(enabled=False):
-        native = chip_smoke.one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
-    card = chip_smoke.one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
+        native = one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
+    card = one_train_step(torch, cfg, cuda, arrays, 1e-4, seed=4)
     torch.cuda.synchronize()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
-    out = chip_smoke.compare_train_steps(torch, cpu[0], cpu[1:], native, lr=1e-4)
+    out = compare_train_steps(torch, cpu[0], cpu[1:], native, lr=1e-4)
     assert not out["failures"], out["failures"]
-    out = chip_smoke.compare_train_steps(torch, cpu[0], cpu[1:], card, lr=1e-4)
+    out = compare_train_steps(torch, cpu[0], cpu[1:], card, lr=1e-4)
     assert not out["cudnn_failures"], out["cudnn_failures"]
 
 
@@ -406,10 +406,10 @@ def _ulps(got, want) -> float:
 
 def _stem_ok(got, want) -> bool:
     """Within one bf16 ulp, or the stem's f32 tolerance where the affine
-    nearly cancels the conv (chip_smoke.STEM_BF16_ATOL)."""
-    import chip_smoke
+    nearly cancels the conv (``vqa_tpu_torch.testing.STEM_BF16_ATOL``)."""
+    from vqa_tpu_torch.testing import STEM_BF16_ATOL, bf16_compare
 
-    return chip_smoke.bf16_compare(torch, got, want, chip_smoke.STEM_BF16_ATOL)["ok"]
+    return bf16_compare(torch, got, want, STEM_BF16_ATOL)["ok"]
 
 
 def _bf16_stem_case(cuda, b, h, w, cout, offset=0):
@@ -739,17 +739,17 @@ def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
     everything f32."""
     import dataclasses
 
-    import chip_smoke
+    from vqa_tpu_torch.testing import compare_bf16_steps, one_train_step
     from vqa_tpu_torch.utils.config import tiny_model_config
 
     cfg = dataclasses.replace(tiny_model_config(), dropout=0.0, answer_dropout=0.0)
     arrays = [a.numpy() for a in _train_batch(cfg, 8, 15)]
-    runs = {name: chip_smoke.one_train_step(torch, cfg, where, arrays, 1e-4, seed=4, dtype=dtype)
+    runs = {name: one_train_step(torch, cfg, where, arrays, 1e-4, seed=4, dtype=dtype)
             for name, where, dtype in (("cpu32", "cpu", torch.float32),
                                        ("cpu16", "cpu", torch.bfloat16),
                                        ("card32", cuda, torch.float32),
                                        ("card16", cuda, torch.bfloat16))}
-    out = chip_smoke.compare_bf16_steps(torch, runs, lr=1e-4)
+    out = compare_bf16_steps(torch, runs, lr=1e-4)
     assert not out["failures"], out["failures"]
 
 
@@ -824,11 +824,11 @@ def test_cbam_and_self_attention_2d_on_the_card_match_the_cpu(cuda):
     weights, SelfAttention2D's gamma 0.5: the card's f32 forward (TF32 off)
     within 1e-4 of the CPU's, and CBAMBlock launching the SE kernel once per
     eval call, in f32 and in bf16."""
-    import chip_smoke
+    from vqa_tpu_torch.testing import MODULE_TOL, attention_modules_on_card
 
-    out, launches = chip_smoke.attention_modules_on_card(torch, np.random.default_rng(0))
+    out, launches = attention_modules_on_card(torch, np.random.default_rng(0))
     assert len(out) == 4
-    assert all(r["max_abs_err"] <= chip_smoke.MODULE_TOL for r in out.values())
+    assert all(r["max_abs_err"] <= MODULE_TOL for r in out.values())
     assert launches == {**dict.fromkeys(ops.KERNELS, 0), "se": 2, "se_bf16": 2}
 
 
@@ -851,14 +851,14 @@ def test_engine_graphs_replay_the_eager_forward(cuda, dtype):
     replayed probabilities against the eager forward on the same new
     inputs, f32 within 1e-4, bf16 within twice the bucket spread (at least
     1e-4)."""
-    import chip_smoke
+    from vqa_tpu_torch.testing import GRAPH_TOL, bucket_spread, graphs_match_eager
 
     engine = _graphed_engine(cuda, dtype)
     rng = np.random.default_rng(0)
-    tol = chip_smoke.GRAPH_TOL
+    tol = GRAPH_TOL
     if dtype == torch.bfloat16:
-        tol = max(tol, 2 * max(chip_smoke.bucket_spread(engine, rng).values()))
-    errs = chip_smoke.graphs_match_eager(engine, rng, tol)
+        tol = max(tol, 2 * max(bucket_spread(engine, rng).values()))
+    errs = graphs_match_eager(engine, rng, tol)
     assert sorted(errs) == engine._effective_buckets()
 
 
@@ -886,17 +886,17 @@ def test_engine_dispatch_records_whether_the_card_had_drained(cuda):
 def test_engine_graph_chunks_do_not_alias(cuda):
     """Phase 15 (b): 70 requests in one call (three chunks, all dispatched
     before any is fetched) equal each chunk dispatched alone."""
-    import chip_smoke
+    from vqa_tpu_torch.testing import chunks_do_not_alias
 
     engine = _graphed_engine(cuda, torch.float32)
-    assert chip_smoke.chunks_do_not_alias(engine, np.random.default_rng(1)) <= 1e-6
+    assert chunks_do_not_alias(engine, np.random.default_rng(1)) <= 1e-6
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_engine_graph_replays_count_their_launches(cuda, dtype):
     """Phase 15 (c): each replayed forward adds the dtype's forms 1, 4 and
     2 times (recorded at capture), the capture itself none."""
-    import chip_smoke
+    from vqa_tpu_torch.testing import launches_per_replay
 
     before = ops.launch_counts()
     engine = _graphed_engine(cuda, dtype)
@@ -909,7 +909,7 @@ def test_engine_graph_replays_count_their_launches(cuda, dtype):
 
     loaded = {k: ops.launch_counts()[k] - before[k] for k in before}
     assert loaded["se" + suffix] == 4 * graphs.WARM_FORWARDS * len(engine._graphs)
-    chip_smoke.launches_per_replay(torch, engine)
+    launches_per_replay(torch, engine)
 
 
 def test_two_graphed_replicas_on_one_card_match_one(cuda):
@@ -1015,24 +1015,23 @@ def test_train_graph_matches_the_eager_step(cuda, dtype):
     16 (a)'s bounds: within 1e-6 (the same kernels on the same state),
     and bf16 also by ``compare_bf16_steps`` against the two f32 runs; the
     generator's state before each step equal."""
-    import chip_smoke
+    from vqa_tpu_torch.testing import compare_bf16_steps, compare_runs, train_runs
     from vqa_tpu_torch.utils.config import tiny_model_config
 
     cfg = tiny_model_config()
     batches = _graph_batches(cfg, cuda)
     runs = {}
     for name, dt in (("32", torch.float32), ("16", dtype)):
-        runs["eager" + name] = chip_smoke.train_runs(torch, cfg, cuda, batches, dtype=dt)
-        runs["graph" + name] = chip_smoke.train_runs(torch, cfg, cuda, batches, dtype=dt,
-                                                     graphed=True)
+        runs["eager" + name] = train_runs(torch, cfg, cuda, batches, dtype=dt)
+        runs["graph" + name] = train_runs(torch, cfg, cuda, batches, dtype=dt, graphed=True)
     graph = runs["graph16"]
     assert (graph["step"].calls.eager_calls, graph["step"].calls.replays) == (2, 3)
-    r = chip_smoke.compare_runs(torch, graph, runs["eager16"])
+    r = compare_runs(torch, graph, runs["eager16"])
     assert r["rng_equal"]
     assert max(r[k] for k in ("loss", "grad_norm", "param", "grad", "bn")) <= 1e-6, r
     if dtype == torch.bfloat16:
-        out = chip_smoke.compare_bf16_steps(torch, {k: (run["model"], {"loss": run["losses"][-1]})
-                                                    for k, run in (
+        out = compare_bf16_steps(torch, {k: (run["model"], {"loss": run["losses"][-1]})
+                                         for k, run in (
             ("cpu32", runs["eager32"]), ("cpu16", runs["eager16"]),
             ("card32", runs["graph32"]), ("card16", graph))}, lr=1e-4)
         assert not out["failures"], out["failures"]
@@ -1041,13 +1040,13 @@ def test_train_graph_matches_the_eager_step(cuda, dtype):
 def test_train_graph_draws_fresh_dropout_masks_per_replay(cuda):
     """Two replays on one batch at learning rate 0: the weights stay, the
     losses differ (other dropout masks)."""
-    import chip_smoke
+    from vqa_tpu_torch.testing import fresh_masks, train_runs
     from vqa_tpu_torch.utils.config import tiny_model_config
 
     cfg = tiny_model_config()
     batches = _graph_batches(cfg, cuda)
-    run = chip_smoke.train_runs(torch, cfg, cuda, batches, graphed=True)
-    losses = chip_smoke.fresh_masks(torch, run, batches[0])["losses"]
+    run = train_runs(torch, cfg, cuda, batches, graphed=True)
+    losses = fresh_masks(torch, run, batches[0])["losses"]
     assert losses[0] != losses[1]
 
 

@@ -196,3 +196,51 @@ def test_the_train_graphs_and_the_ablation_runner_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_on_card_checks_import_the_package_and_nothing_imports_chip_smoke():
+    """The arrows point one way: ``chip_smoke.py``, the ``cuda`` tests and
+    the tools share ``vqa_tpu_torch/testing.py``. No file under
+    ``vqa_tpu_torch/`` or ``tests/`` imports the root script; no package
+    module puts a repository root on ``sys.path`` (only ``stem_sweep.py
+    --repo`` puts another checkout's there); and ``vqa_tpu_torch.testing``
+    imports in a fresh interpreter without jax, ``vqa_tpu`` or torch, so a
+    tool can load it by path beside another checkout's package."""
+    found = []
+    for top in (PKG, os.path.join(REPO, "tests")):
+        for root, _, files in os.walk(top):
+            for f in files:
+                if not f.endswith(".py"):
+                    continue
+                path = os.path.join(root, f)
+                with open(path, encoding="utf-8") as fh:
+                    source = fh.read()
+                for node in ast.walk(ast.parse(source, path)):
+                    if isinstance(node, ast.Import):
+                        names = [a.name for a in node.names]
+                    elif isinstance(node, ast.ImportFrom):
+                        names = [node.module or ""]
+                    else:
+                        names = []
+                    found += [(path, n) for n in names if n.split(".")[0] == "chip_smoke"]
+                    if (top == PKG and isinstance(node, ast.Call)
+                            and isinstance(node.func, ast.Attribute)
+                            and node.func.attr in ("insert", "append")
+                            and ast.unparse(node.func.value) == "sys.path"
+                            and "args.repo" not in ast.unparse(node)):
+                        found.append((path, ast.unparse(node)))
+    assert not found, found
+
+    code = (
+        "import sys\n"
+        "import vqa_tpu_torch.testing as t\n"
+        "assert t.time_ms and t.bf16_compare and t.write_trainer_tree\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN_IMPORTS + ('torch',)!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -387,17 +387,16 @@ def _leaf_specs(tree, path=()):
 
 
 def test_the_phase_18_writer_writes_the_jax_trainers_tree(tmp_path):
-    """``chip_smoke.write_trainer_tree`` at a narrow config: read by the
-    port's reader, the JAX-written tree's names, shapes and dtypes; a
-    Trainer resumes from it, its moments the ones written."""
-    sys.path.insert(0, REPO)
-    import chip_smoke
+    """``vqa_tpu_torch.testing.write_trainer_tree`` at a narrow config:
+    read by the port's reader, the JAX-written tree's names, shapes and
+    dtypes; a Trainer resumes from it, its moments the ones written."""
+    from vqa_tpu_torch.testing import mapped_moments, write_trainer_tree
 
     cfg = dataclasses.replace(tiny_model_config(), image_size=32)
     model = create_vqa_model(config=cfg, device="cpu", seed=3)
     meta = {"epoch": 3, "best_val_accuracy": 0.5, "metrics_history": {}}
-    chip_smoke.write_trainer_tree(str(tmp_path / "port"), "latest", model,
-                                  np.random.default_rng(0), 250, meta)
+    write_trainer_tree(str(tmp_path / "port"), "latest", model, np.random.default_rng(0), 250,
+                       meta)
     jcfg = JaxModelConfig(**model_config_dict(cfg))
     shapes = jax.eval_shape(lambda: init_vqa_model(jax_create_model(config=jcfg),
                                                    jax.random.PRNGKey(0)))
@@ -416,8 +415,8 @@ def test_the_phase_18_writer_writes_the_jax_trainers_tree(tmp_path):
     trainer.resume("latest")
     for (name, p), (_, q) in zip(trainer.model.named_parameters(), model.named_parameters()):
         assert torch.equal(p, q), name
-    want = chip_smoke.mapped_moments(str(tmp_path / "port"), "latest",
-                                     [n for n, _ in model.named_parameters()])
+    want = mapped_moments(str(tmp_path / "port"), "latest",
+                          [n for n, _ in model.named_parameters()])
     opt = trainer.state.optimizer
     for i, p in enumerate(trainer.model.parameters()):
         assert torch.equal(opt.state[p]["exp_avg"], want[i]["exp_avg"])

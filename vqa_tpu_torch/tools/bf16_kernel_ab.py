@@ -8,11 +8,11 @@ lists). Each measurement is a process of its own that imports the
 ``vqa_tpu_torch`` of one checkout, builds its kernels and times, on the
 card, at the main path's bucket-32 shapes with seeded inputs: the bf16 SE
 kernel at each of the four stages and the bf16 cross-attention kernel
-(two calls per forward), device ms from a profiler trace
-(``chip_smoke.time_ms``) and per call of a CUDA graph of 20 calls timed
-with CUDA events; with ``--forward`` also the graphed bf16
-engine's device ms per bucket-32 ``predict_probs_from_pixels`` call (full
-width, seeded weights). The processes run other, this, this, other in
+(two calls per forward), device ms from a profiler trace (this checkout's
+``vqa_tpu_torch/testing.py:time_ms``, for both sides) and per call of a
+CUDA graph of 20 calls timed with CUDA events; with ``--forward`` also the
+graphed bf16 engine's device ms per bucket-32 ``predict_probs_from_pixels``
+call (full width, seeded weights). The processes run other, this, this, other in
 each round, so both sides share the card's state. Prints one JSON line
 per process and a summary (median and range per side). Needs a CUDA
 device; runs only on the card.
@@ -53,21 +53,34 @@ def graph_ms(torch, fn, n: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (n * replays)
 
 
+def this_checkouts_testing():
+    """This checkout's ``vqa_tpu_torch/testing.py``, loaded by path: the
+    measuring process imports the other checkout's package, which may have
+    no such module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bf16_kernel_ab_testing", os.path.join(REPO, "vqa_tpu_torch", "testing.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def measure(forward: bool) -> dict:
     """One side's numbers, in this process (its ``sys.path`` picks the
-    checkout)."""
+    checkout's kernels; the timing is this checkout's)."""
     import numpy as np
     import torch
 
-    import chip_smoke
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.utils.config import ModelConfig
 
+    testing = this_checkouts_testing()
     ops._build.load_library()
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(0)
     cfg = ModelConfig()
-    b = chip_smoke.BUCKET
+    b = testing.BUCKET
 
     def randn(*shape, scale=1.0):
         return torch.from_numpy(
@@ -75,11 +88,11 @@ def measure(forward: bool) -> dict:
 
     out = {"repo": os.getcwd(), "se_stage_ms": [], "se_stage_graph_ms": []}
     with torch.no_grad():
-        for side, c in chip_smoke.SE_STAGES:
+        for side, c in testing.SE_STAGES:
             r = c // 16
             x = torch.relu(randn(b, side, side, c))
             w1, w2 = randn(r, c, scale=0.2), randn(c, r, scale=0.2)
-            ms, _ = chip_smoke.time_ms(torch, lambda: ops.fused_se(x, w1, w2), 50)
+            ms, _ = testing.time_ms(torch, lambda: ops.fused_se(x, w1, w2), 50)
             out["se_stage_ms"].append(ms)
             out["se_stage_graph_ms"].append(graph_ms(torch, lambda: ops.fused_se(x, w1, w2)))
         out["se_ms"] = sum(out["se_stage_ms"])
@@ -87,7 +100,7 @@ def measure(forward: bool) -> dict:
         heads, dh = cfg.num_attention_heads, cfg.embed_dim // cfg.num_attention_heads
         lq, lkv = cfg.max_question_length, cfg.feature_spatial_size ** 2
         q, k, v = (randn(b, n, heads, dh).transpose(1, 2) for n in (lq, lkv, lkv))
-        ms, _ = chip_smoke.time_ms(
+        ms, _ = testing.time_ms(
             torch, lambda: ops.fused_cross_attention(q, k, v, math.sqrt(dh)), 200)
         out["cross_attention_ms"] = cfg.num_cross_layers * ms
         out["cross_attention_graph_ms"] = cfg.num_cross_layers * graph_ms(
@@ -100,7 +113,7 @@ def measure(forward: bool) -> dict:
         engine = VQAInference(model_config=cfg, device="cuda", seed=0).load()
         size = cfg.image_size
         pixels = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
-        questions = [chip_smoke.HTTP_QUESTIONS[i % 5] for i in range(b)]
+        questions = [testing.HTTP_QUESTIONS[i % 5] for i in range(b)]
         for _ in range(5):
             engine.predict_probs_from_pixels(pixels, questions)
         torch.cuda.synchronize()
@@ -109,7 +122,7 @@ def measure(forward: bool) -> dict:
             for _ in range(calls):
                 engine.predict_probs_from_pixels(pixels, questions)
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in chip_smoke.device_events(prof))
+        busy = sum(e.self_device_time_total for e in testing.device_events(prof))
         out["graphed_forward_device_ms"] = busy / 1e3 / calls
     return out
 
@@ -141,7 +154,7 @@ def main(argv=None) -> int:
                                                 "bf16_kernel_ab.py"), "--measure"]
             if args.forward:
                 cmd.append("--forward")
-            # the measuring process imports the checkout's own package and chip_smoke
+            # the measuring process imports the checkout's own package
             proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
                                   timeout=900)
             if proc.returncode != 0:

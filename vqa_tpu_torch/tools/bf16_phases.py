@@ -32,7 +32,6 @@ import subprocess
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MAX_BLOCKS, MAX_PHASES = 1024, 8
 KERNELS = {"se.cu": "se_bf16", "cross_attention.cu": "cross_attention_bf16"}
 
@@ -134,16 +133,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bf16_phases: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
-    import chip_smoke
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.ops.se_kernel import SEPlan, _smem_bytes, se_plan
+    from vqa_tpu_torch.testing import BUCKET, SE_STAGES, bf16_compare, card_line
     from vqa_tpu_torch.utils.config import ModelConfig
 
-    print(chip_smoke.card_line(), flush=True)
+    print(card_line(), flush=True)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(0)
-    b = chip_smoke.BUCKET
+    b = BUCKET
 
     def randn(*shape, scale=1.0):
         return torch.from_numpy(
@@ -152,7 +150,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="bf16_phases.") as tmp:
         lib = build(tmp)
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-        for side, c in chip_smoke.SE_STAGES:
+        for side, c in SE_STAGES:
             hw, r = side * side, c // 16
             x = torch.relu(randn(b, side, side, c))
             w1, w2 = randn(r, c, scale=0.2), randn(c, r, scale=0.2)
@@ -179,7 +177,7 @@ def main(argv=None) -> int:
                         raise SystemExit(f"bf16_phases: SE plan {plan} refused: {rc}")
                 launch()
                 torch.cuda.synchronize()
-                if not chip_smoke.bf16_compare(torch, out, want)["ok"]:
+                if not bf16_compare(torch, out, want)["ok"]:
                     raise SystemExit(f"bf16_phases: SE {plan} disagrees with plain_se")
                 ms = graph_ms(torch, launch)
                 launch()
@@ -209,8 +207,7 @@ def main(argv=None) -> int:
                 raise SystemExit(f"bf16_phases: cross-attention refused: {rc}")
         launch_ca()
         torch.cuda.synchronize()
-        if not (chip_smoke.bf16_compare(torch, ctx, pctx)["ok"]
-                and chip_smoke.bf16_compare(torch, w, pw)["ok"]):
+        if not (bf16_compare(torch, ctx, pctx)["ok"] and bf16_compare(torch, w, pw)["ok"]):
             raise SystemExit("bf16_phases: cross-attention disagrees with its plain version")
         ms = graph_ms(torch, launch_ca)
         launch_ca()

@@ -9,26 +9,23 @@ to 16, one block per image included) split by rows or by channels, it
 launches ``csrc/se.cu`` with the rows held in shared memory (resident),
 streamed (kept rows 0), and (f32) partly kept so that 2, 3 or 4 blocks fit
 an SM; it checks each against ``plain_se`` (f32: 1e-3; bf16: one bf16 ulp)
-and prints device ms (``chip_smoke.time_ms``) and the clusters the card
-holds at once. The plan ``se_plan`` picks is marked. Needs a CUDA device.
+and prints device ms (``vqa_tpu_torch.testing.time_ms``) and the clusters
+the card holds at once. The plan ``se_plan`` picks is marked. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import os
 import sys
 
 import numpy as np
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, REPO)
-
-import chip_smoke  # noqa: E402
-from vqa_tpu_torch.ops._build import load_library  # noqa: E402
-from vqa_tpu_torch.ops.se_kernel import (  # noqa: E402
+from vqa_tpu_torch.ops._build import load_library
+from vqa_tpu_torch.ops.se_kernel import (
     MAX_SMEM, SM_SHARED, SEPlan, _smem_bytes, max_active_clusters, plain_se, se_plan,
     slice_width)
+from vqa_tpu_torch.testing import SE_STAGES, bf16_compare, card_line, time_ms
+from vqa_tpu_torch.tools.roofline import HBM_GBPS
 
 
 def plans(hw: int, c: int, r: int, esize: int = 4):
@@ -64,14 +61,14 @@ def main(argv=None) -> int:
         print("se_plan_sweep: needs a CUDA device", file=sys.stderr)
         return 2
     lib = load_library()
-    print(chip_smoke.card_line(), flush=True)
+    print(card_line(), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
     dtype, esize = (torch.bfloat16, 2) if args.bf16 else (torch.float32, 4)
     launcher = lib.vqa_se_bf16 if args.bf16 else lib.vqa_se_f32
     for b in ((32, 8, 1) if args.bf16 else (32, 1)):
-        for side, c in chip_smoke.SE_STAGES:
+        for side, c in SE_STAGES:
             hw, r = side * side, c // 16
 
             def randn(*shape, scale=1.0):
@@ -85,7 +82,7 @@ def main(argv=None) -> int:
             chosen = se_plan(b, hw, c, r, esize)
             nbytes = esize * (2 * x.numel() + w1.numel() + w2.numel())
             print(f"B={b} {side}x{side}x{c} r={r} bytes bound "
-                  f"{nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+                  f"{nbytes / (HBM_GBPS * 1e9) * 1e3:.4f} ms", flush=True)
             for plan in plans(hw, c, r, esize):
                 def run(plan=plan):
                     rc = launcher(
@@ -98,12 +95,12 @@ def main(argv=None) -> int:
                 run()
                 torch.cuda.synchronize()
                 if args.bf16:
-                    ok = chip_smoke.bf16_compare(torch, out, want)["ok"]
+                    ok = bf16_compare(torch, out, want)["ok"]
                 else:
                     ok = float((out - want).abs().max()) <= 1e-3
                 if not ok:
                     raise SystemExit(f"se_plan_sweep: FAILED: {plan} disagrees with plain_se")
-                ms, _ = chip_smoke.time_ms(torch, run, 50)
+                ms, _ = time_ms(torch, run, 50)
                 active = max_active_clusters(plan, hw, c, r, 16 // esize, esize)
                 print(f"  {'rows' if plan.rows else 'chan'} cluster {plan.cluster:2d} kept "
                       f"{plan.keep_rows:4d}/{plan.block_rows(hw):<4d} smem "

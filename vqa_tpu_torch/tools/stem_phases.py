@@ -24,7 +24,6 @@ import subprocess
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PHASES = ("box wait", "products", "epilogue", "barrier", "pool", "loop")
 BLOCKS, TILES = 4, 16  # blocks stamped, tiles stamped per block
 
@@ -72,13 +71,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("stem_phases: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
-    import chip_smoke
     from vqa_tpu_torch.ops import plain_stem
     from vqa_tpu_torch.ops.stem_kernel import stem_output_hw, stem_plan
+    from vqa_tpu_torch.testing import STEM_BF16_ATOL, bf16_compare, card_line
     from vqa_tpu_torch.tools.stem_sweep import inputs
 
-    print(chip_smoke.card_line(), flush=True)
+    print(card_line(), flush=True)
     b = args.batch
     x, w, scale, bias = inputs(torch, b)
     plan = stem_plan(b, 224, 224, 64, 2, x.data_ptr() % 16 == 0)
@@ -93,8 +91,7 @@ def main(argv=None) -> int:
             if rc:
                 raise SystemExit(f"stem_phases: launch refused: CUDA error {rc}")
         torch.cuda.synchronize()
-        c = chip_smoke.bf16_compare(torch, out, plain_stem(x, w, scale, bias),
-                                    chip_smoke.STEM_BF16_ATOL)
+        c = bf16_compare(torch, out, plain_stem(x, w, scale, bias), STEM_BF16_ATOL)
         if not c["ok"]:
             raise SystemExit(f"stem_phases: FAILED: the instrumented kernel disagrees: {c}")
         t = (ctypes.c_longlong * (BLOCKS * TILES * 6))()

@@ -1,24 +1,25 @@
 """Time the bf16 stem kernel under every layout it takes, at buckets 1, 8, 32.
 
     python -m vqa_tpu_torch.tools.stem_sweep               # from the repository root
-    python vqa_tpu_torch/tools/stem_sweep.py --repo DIR    # another checkout's stem
+    python -m vqa_tpu_torch.tools.stem_sweep --repo DIR    # another checkout's stem
 
 For batch 1, 8 and 32 at 224 px (cout 64, the engine's stem), it launches
 ``csrc/stem.cu``'s bf16 form with its patch by TMA (the plan ``stem_plan``
 picks at these shapes) and by plain loads (the route it takes where TMA
 cannot take x). Each is checked against ``plain_stem``
-(one bf16 ulp + ``chip_smoke.STEM_BF16_ATOL``), run for half a second so
-that the card has left its idle clock, and timed with
-``chip_smoke.time_ms``; the SM clock and power nvidia-smi reads after that
-warm-up are printed beside each time. Its weights are N(0, 2/147), not the
-model's initialisation: on the H100 these inputs time ~1.4x slower than
-``chip_smoke.py``'s at the same clock, for the parent's kernel and this
-one alike, so compare times within one tool.
+(one bf16 ulp + ``vqa_tpu_torch.testing.STEM_BF16_ATOL``), run for half a
+second so that the card has left its idle clock, and timed with
+``vqa_tpu_torch.testing.time_ms``; the SM clock and power nvidia-smi reads
+after that warm-up are printed beside each time. Its weights are N(0,
+2/147), not the model's initialisation: on the H100 these inputs time
+~1.4x slower than ``chip_smoke.py``'s at the same clock, for the parent's
+kernel and this one alike, so compare times within one tool.
 
 With ``--repo DIR`` it imports ``vqa_tpu_torch`` from DIR instead and times
-that checkout's public ``ops.fused_stem`` on the same inputs (no plans):
-the way to hold two versions of the kernel against each other on one card,
-run in turns (parent, change, change, parent) on one card. The last
+that checkout's public ``ops.fused_stem`` on the same inputs (no plans),
+with this checkout's timing and comparison: the way to hold two versions
+of the kernel against each other on one card, run in turns (parent,
+change, change, parent) on one card. The last
 line is one JSON object of the times. Needs a CUDA device.
 """
 
@@ -33,7 +34,8 @@ import time
 
 import numpy as np
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from vqa_tpu_torch.testing import STEM_BF16_ATOL, bf16_compare, card_line, time_ms
+
 BUCKETS = (1, 8, 32)
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -72,9 +74,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("stem_sweep: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
-    import chip_smoke  # this checkout's timing and comparison
-
     if args.repo:
         sys.path.insert(0, os.path.abspath(args.repo))
         for name in [m for m in sys.modules if m.split(".")[0] == "vqa_tpu_torch"]:
@@ -82,7 +81,7 @@ def main(argv=None) -> int:
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.ops import _build
 
-    print(chip_smoke.card_line(), flush=True)
+    print(card_line(), flush=True)
     print(f"stem_sweep: vqa_tpu_torch from {os.path.dirname(os.path.dirname(ops.__file__))}",
           flush=True)
     _build.load_library()
@@ -95,7 +94,7 @@ def main(argv=None) -> int:
         def checked(name, fn):
             out = fn()
             torch.cuda.synchronize()
-            c = chip_smoke.bf16_compare(torch, out, want, chip_smoke.STEM_BF16_ATOL)
+            c = bf16_compare(torch, out, want, STEM_BF16_ATOL)
             if not c["ok"]:
                 raise SystemExit(f"stem_sweep: FAILED: {name} at B={b}: {c}")
             t0 = time.perf_counter()
@@ -104,7 +103,7 @@ def main(argv=None) -> int:
                     fn()
                 torch.cuda.synchronize()
             clock = sm_clock()
-            ms, call_ms = chip_smoke.time_ms(torch, fn, args.iters)
+            ms, call_ms = time_ms(torch, fn, args.iters)
             return dict(ms=ms, call_ms=call_ms, ulps=c["ulps"], beyond=c["beyond"], clock=clock)
 
         if args.repo:
