@@ -258,15 +258,19 @@ shares with the ``cuda`` tests and the kernel tools are in
     weights and graph seconds, peak memory); a call of 1,024 pairs as four
     graph replays with the eager path refused: the stem and SE kernels
     1 and 4 times per forward, ``mla_attention`` once per layer,
-    ``moe_gather`` and ``moe_combine`` once per MoE layer, the SwiGLU
+    ``moe_route``, ``moe_plan``, ``moe_gather`` and ``moe_combine`` once
+    per MoE layer, the SwiGLU
     kernel twice per MoE layer and once per dense layer, ``moe.route`` and
     ``moe.route_max`` once per dispatch; the replayed probabilities within
     1e-3 of the eager forward's; the attention kernel
     against its plain version at the first layer's shapes of an eager
     bucket (within 2 bf16 ulps of the output's scale, launched under
     torch's sync debugging), with device ms, bound, plain ms and SDPA's
-    per forward; then, at the first MoE layer's shapes, each MoE kernel
-    against its plain version (the gather exactly, the SwiGLU within one
+    per forward; then, at the first MoE layer's shapes, the router's two
+    kernels against the f32 path (logits and weights within 1e-5, the
+    choices equal wherever no near tie, the plan bit for bit), with device
+    ms, bound, plain ms and the library's calls' ms per forward, and each
+    MoE kernel against its plain version (the gather exactly, the SwiGLU within one
     bf16 ulp, the combine within one bf16 ulp of the larger of its routed
     sum, which it rounds to bf16 first, and the shared row), with device
     ms, bound and the library's form of the same function per forward.
@@ -300,7 +304,7 @@ engine, and ``launches_orbax``, over phase 17 (b)'s engine answers, and
 bf16;
 ``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that
 phase 19's ``kernels_decoder`` line
-(the attention kernel's, each MoE kernel's and each SwiGLU use's numbers
+(the attention kernel's, the router's, each MoE kernel's and each SwiGLU use's numbers
 per forward at bucket 256) and ``decoder`` line; and before that the
 ``resume``, ``orbax``, ``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
 ``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
@@ -3913,7 +3917,7 @@ def moe_inputs(torch, engine, pixels, questions) -> dict:
     outputs, the shared experts' product)."""
     import torch.nn.functional as F
 
-    from vqa_tpu_torch.models.moe import MoE, grouped_mm, route_plan
+    from vqa_tpu_torch.models.moe import MoE, grouped_mm
     from vqa_tpu_torch.ops import moe_kernel
 
     layers = engine.model.language_model.model.layers
@@ -3929,7 +3933,7 @@ def moe_inputs(torch, engine, pixels, questions) -> dict:
     with torch.inference_mode():
         x = seen["x"]
         idx, w = moe.gate(x)
-        src, ends, slot = route_plan(idx, moe.offset, moe.held)
+        src, ends, slot, _ = moe_kernel.moe_plan(idx, moe.offset, moe.held)
         total = ends[-1:]
         xs = moe_kernel.moe_gather(x, src, total)
         h = grouped_mm(xs, moe.compute("w13"), ends)
@@ -3943,10 +3947,75 @@ def moe_inputs(torch, engine, pixels, questions) -> dict:
         routed = flat >= 0
         row_w = torch.zeros(src.shape[0], dtype=torch.float32, device=x.device)
         row_w[flat[routed].long()] = w.reshape(-1)[routed]
-    return dict(x=x, src=src, total=total, n=n, slot=slot, w=w, h=h, y=y, shared=shared,
+    return dict(x=x, gate=moe.gate, offset=moe.offset, held=moe.held, src=src, total=total,
+                n=n, slot=slot, w=w, h=h, y=y, shared=shared,
                 shared_h=shared_h, dense_h=dense_h, row_tok=src[:n].long(),
                 row_w=row_w[:n, None], moe_layers=sum(isinstance(lr.mlp, MoE) for lr in layers),
                 dense_layers=sum(not isinstance(lr.mlp, MoE) for lr in layers))
+
+
+ROUTER_TOL = 1e-5  # the router kernel's logits and weights against the f32 path's
+
+
+def check_router_kernels(torch, t: dict) -> dict:
+    """The router's two kernels (``moe_route_bf16``, ``moe_plan``) on the
+    first MoE layer's input at bucket 256: logits and weights within
+    ``ROUTER_TOL`` of the f32 path (``plain_moe_route``: cuBLAS's f32 GEMM
+    on the f32 weight), the choices equal wherever no two of a token's top
+    k + 1 biased scores lie within ``ROUTER_TOL``, and the plan equal to the
+    plain plan of the same choices bit for bit; per forward (one launch of
+    each per MoE layer): device ms of both, the bound (x's bytes over 3.35
+    TB/s), the plain form's ms (the f32 path and its stable sort, as the
+    model ran them before) and the library's calls alone (``F.linear`` in
+    f32, ``topk``, the stable sort)."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.ops import moe_kernel as mk
+
+    x, gate, offset, held = t["x"], t["gate"], t["offset"], t["held"]
+    weight, bias, tiles = gate.weight, gate.e_score_correction_bias, gate.compute("tiles")
+    tokens, experts, k = x.shape[0], weight.shape[0], gate.top_k
+    logits = torch.empty(tokens, experts, device=x.device)
+    idx, w = mk.moe_route(x, weight, bias, k, gate.scaling, tiles, logits)
+    plan = mk.moe_plan(idx, offset, held)
+    want_logits = F.linear(x.float(), weight)
+    want_idx, want_w = mk.plain_moe_route(x, weight, bias, k, gate.scaling)
+    biased = (torch.sigmoid(want_logits) + bias).sort(-1, descending=True).values
+    clear = (biased[:, :k] - biased[:, 1:k + 1] > ROUTER_TOL).all(-1)
+    logit_err = max_err(logits, want_logits)
+    w_err = max_err(w[clear], want_w[clear])
+    same = bool(torch.equal(idx[clear], want_idx[clear]))
+    plan_ok = all(torch.equal(a, b) for a, b in zip(plan, mk.plain_moe_plan(idx, offset, held)))
+    log(f"moe_route: logits {logit_err:.3e}, weights {w_err:.3e} from the f32 path; choices "
+        f"{'equal' if same else 'NOT equal'} on {int(clear.sum())} of {tokens} tokens clear of "
+        f"a near tie; the plan {'equals' if plan_ok else 'does NOT equal'} the plain plan")
+    require(logit_err <= ROUTER_TOL and w_err <= ROUTER_TOL and same and plan_ok,
+            "the router's kernels disagree with the f32 path at the deployment's shapes")
+    per_forward = t["moe_layers"]
+
+    def kernels():
+        mk.moe_plan(mk.moe_route(x, weight, bias, k, gate.scaling, tiles)[0], offset, held)
+
+    def plain():
+        mk.plain_moe_plan(mk.plain_moe_route(x, weight, bias, k, gate.scaling)[0], offset, held)
+
+    def library():
+        scores = F.linear(x.float(), weight)
+        torch.sort(torch.topk(scores, k, dim=-1).indices.reshape(-1), stable=True)
+
+    k_ms, k_call = time_ms(torch, kernels, 20)
+    plain_ms, _ = time_ms(torch, plain, 20)
+    lib_ms, _ = time_ms(torch, library, 20)
+    bnd, by = bound_ms(2 * x.numel(), 0.0, BF16_FLOP_PER_S)
+    r = dict(route="cuda", source="vqa_tpu_torch/csrc/router.cu", replaces=None,
+             max_abs_err=max(logit_err, w_err), ulps=None, ms=per_forward * k_ms,
+             call_ms=per_forward * k_call, bound_ms=per_forward * bnd, bound_by=by,
+             plain_ms=per_forward * plain_ms, library_ms=per_forward * lib_ms,
+             per_forward=per_forward)
+    log(f"moe_route + moe_plan per forward ({per_forward} calls each): kernels {r['ms']:.4f} ms "
+        f"on the device ({r['call_ms']:.4f} ms per call), plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({by})")
+    return {"moe_route": r}
 
 
 def check_moe_kernels(torch, engine, pixels, questions) -> dict:
@@ -3975,7 +4044,7 @@ def check_moe_kernels(torch, engine, pixels, questions) -> dict:
     log(f"moe kernels at bucket {DECODER_BUCKET}: {tokens} tokens, {n} of {src.shape[0]} "
         f"rows routed to the held experts in the first MoE layer; {t['moe_layers']} MoE "
         f"layers, {t['dense_layers']} dense")
-    results = {}
+    results = check_router_kernels(torch, t)
 
     def entry(name, got, want, fn, library, nbytes, per_forward, exact=False, at=None):
         torch.cuda.synchronize()
@@ -4152,7 +4221,8 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
     forwards = DECODER_CALL // DECODER_BUCKET
     dense_layers = cfg.decoder_dense_layers
     moe_layers = cfg.decoder_layers - dense_layers
-    want = {"stem_bf16": forwards, "se_bf16": 4 * forwards, "moe_gather": moe_layers * forwards,
+    want = {"stem_bf16": forwards, "se_bf16": 4 * forwards, "moe_route": moe_layers * forwards,
+            "moe_plan": moe_layers * forwards, "moe_gather": moe_layers * forwards,
             "swiglu": (2 * moe_layers + dense_layers) * forwards,
             "moe_combine": moe_layers * forwards,
             "mla_attention": cfg.decoder_layers * forwards}

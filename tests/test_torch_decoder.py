@@ -16,6 +16,7 @@ width 32 of which 8 are held, 4 per token, one shared expert.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmark.harness import decoder_weights, weights
 from benchmark.reference.decoder_vqa import DecoderReference, log_probs_in_blocks, param_shapes
@@ -23,7 +24,7 @@ from benchmark.reference.prep import Vocabulary
 from vqa_tpu_torch.data.preprocess import device_normalize
 from vqa_tpu_torch.models.decoder import DecoderVQAModel, rope_tables
 from vqa_tpu_torch.models import vqa_model
-from vqa_tpu_torch.models.moe import MoE, MoEGate, route_plan, swiglu
+from vqa_tpu_torch.models.moe import MoE, MoEGate, swiglu
 from vqa_tpu_torch.models.vqa_model import VQAModel, count_parameters, create_vqa_model
 from vqa_tpu_torch.ops import moe_kernel
 from vqa_tpu_torch.ops.mla_kernel import apply_rope, plain_mla_attention
@@ -141,12 +142,102 @@ def test_the_routing_rule_on_a_hand_worked_case():
 
 
 def test_the_route_plan_groups_the_held_experts_pairs():
-    idx = torch.tensor([[3, 9, 4], [5, 3, 0], [4, 12, 3]])
-    src, ends, slot = route_plan(idx, 3, 3)  # experts 3, 4, 5 held
-    assert ends.tolist() == [3, 5, 6]
+    idx = torch.tensor([[3, 9, 4], [5, 3, 0], [4, 12, 3]], dtype=torch.int32)
+    src, ends, slot, counts = moe_kernel.moe_plan(idx, 3, 3)  # experts 3, 4, 5 held
+    assert ends.tolist() == [3, 5, 6] and counts.tolist() == [3, 2, 1]
     assert src[:6].tolist() == [0, 1, 2, 0, 2, 1]  # expert 3's tokens, 4's, 5's
+    assert src[6:].tolist() == [0, 1, 2]  # the pairs held elsewhere, in (token, choice) order
     assert slot.tolist() == [[0, -1, 3], [5, 1, -1], [4, -1, 2]]
     assert all(int(src[slot[t, j]]) == t for t in range(3) for j in range(3) if slot[t, j] >= 0)
+    assert all(t.dtype == torch.int32 for t in (src, ends, slot, counts))
+
+
+@pytest.mark.parametrize("experts,top_k,held,offset", [
+    (64, 6, 8, 0), (64, 6, 8, 56), (64, 6, 64, 0), (16, 4, 8, 8), (48, 8, 5, 40)])
+def test_the_plain_route_and_plan_equal_the_gate_and_sort_they_replace(experts, top_k, held,
+                                                                       offset):
+    """The router's and the plan's plain forms (what the CPU runs, and what
+    the card's kernels are held to) against the gate and the stable sort
+    written out here: the same f32 logits, sigmoid, biased top-k and
+    normalised weights; each held expert's tokens in token order, then the
+    pairs held elsewhere, from numpy's stable argsort."""
+    g = torch.Generator().manual_seed(experts + held + offset)
+    x = torch.randn(300, 128, generator=g).bfloat16()
+    weight = torch.randn(experts, 128, generator=g) * 128 ** -0.5
+    bias = 0.1 * torch.randn(experts, generator=g)
+    idx, w = moe_kernel.moe_route(x, weight, bias, top_k, 2.446)
+    scores = torch.sigmoid(x.float() @ weight.T)
+    want_idx = torch.topk(scores + bias, top_k, dim=-1).indices
+    chosen = scores.gather(1, want_idx)
+    assert idx.dtype == torch.int32 and torch.equal(idx.long(), want_idx)
+    assert torch.equal(w, chosen / (chosen.sum(-1, keepdim=True) + 1e-20) * 2.446)
+
+    src, ends, slot, counts = moe_kernel.moe_plan(idx, offset, held)
+    flat = idx.reshape(-1).numpy() - offset
+    key = np.where((flat >= 0) & (flat < held), flat, held)
+    order = np.argsort(key, kind="stable")
+    assert src.tolist() == (order // top_k).tolist()
+    assert counts.tolist() == [int((key == e).sum()) for e in range(held)]
+    assert ends.tolist() == np.cumsum(counts.numpy()).tolist()
+    rows = np.empty_like(order)
+    rows[order] = np.arange(order.size)
+    assert slot.reshape(-1).tolist() == np.where(key < held, rows, -1).tolist()
+
+
+def merge_planes(planes: torch.Tensor) -> torch.Tensor:
+    """The f32 weight that ``moe_kernel.weight_planes`` split."""
+    p = planes.float()
+    return p[0] + (p[1] + p[2]) / moe_kernel.PLANE_SCALE
+
+
+def untile(tiles: torch.Tensor, experts: int, width: int) -> torch.Tensor:
+    """``moe_kernel.route_tiles``'s planes back as [3, N, D]."""
+    stages, _, steps, groups, _, _, _ = tiles.shape
+    planes = tiles.permute(1, 3, 5, 0, 2, 4, 6).reshape(3, groups * 8, stages * steps * 16)
+    return planes[:, :experts, :width]
+
+
+@pytest.mark.parametrize("exponent", range(-120, 121, 10))
+def test_the_routers_weight_planes_sum_back_to_it_exactly(exponent):
+    """Each plane holds bf16 values, and hi + (mid + lo) / 2^12 is the f32
+    weight bit for bit, over normal exponents from 2^-120 to 2^120 (every
+    f32 significand, both signs)."""
+    g = torch.Generator().manual_seed(exponent + 1000)
+    significand = 1.0 + torch.rand(4096, generator=g, dtype=torch.float64)
+    sign = torch.where(torch.rand(4096, generator=g) < 0.5, -1.0, 1.0).double()
+    weight = (sign * significand * 2.0 ** exponent).float().reshape(64, 64)
+    planes = moe_kernel.weight_planes(weight)
+    assert planes.shape == (3, 64, 64) and planes.dtype == torch.float32
+    assert torch.equal(planes.bfloat16().float(), planes)
+    assert torch.equal(merge_planes(planes.bfloat16()), weight)
+    assert torch.equal(merge_planes(planes), weight)
+
+
+@pytest.mark.parametrize("experts,width", [(16, 64), (64, 2048), (48, 100)])
+def test_the_router_keeps_its_planes_as_a_compute_copy(experts, width):
+    """In bf16 the gate holds its weight's planes as a bf16 compute copy in
+    the kernel's stage layout (every value in its place, the padding
+    zero), refreshed in place when the weight changes; the state_dict
+    keeps the published keys only."""
+    gate = MoEGate(width, experts, 4, 2.446).eval()
+    with torch.no_grad():
+        gate.weight.normal_(0.0, 0.125)
+    gate.set_compute_dtype(torch.bfloat16)
+    tiles = gate.compute("tiles")
+    padded, stages = -(-experts // 64) * 64, -(-width // 64)
+    assert tiles.dtype == torch.bfloat16 and tiles.shape == (stages, 3, 4, padded // 8, 2, 8, 8)
+    planes = moe_kernel.weight_planes(gate.weight.detach())
+    assert torch.equal(untile(tiles, experts, width).float(), planes)
+    whole = untile(tiles, padded, 64 * stages).float()  # the padding is 0
+    assert torch.equal(whole, F.pad(planes, (0, 64 * stages - width, 0, padded - experts)))
+    e, c = experts - 1, width - 1  # plane 2's last value, by hand
+    assert tiles[c // 64, 2, c % 64 // 16, e // 8, c % 16 // 8, e % 8, c % 8] == planes[2, e, c]
+    with torch.no_grad():
+        gate.weight.mul_(3.0)
+    gate.set_compute_dtype(torch.bfloat16)
+    assert torch.equal(merge_planes(
+        untile(gate.compute("tiles"), experts, width)), gate.weight.detach())
+    assert sorted(gate.state_dict()) == ["e_score_correction_bias", "weight"]
 
 
 def test_the_grouped_path_matches_the_loop_on_the_cpu():

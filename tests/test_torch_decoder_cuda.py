@@ -1,7 +1,7 @@
-"""The decoder model on the card: the attention kernel and the MoE kernels
-against their plain versions, the grouped routed path against the plain
-loop, the graphed bf16 forward against the eager one, the kernels'
-launches per forward, and the routing counters.
+"""The decoder model on the card: the attention kernel, the router's
+kernels and the MoE kernels against their plain versions, the grouped
+routed path against the plain loop, the graphed bf16 forward against the
+eager one, the kernels' launches per forward, and the routing counters.
 
 Marked ``cuda``: each test skips (from a fixture) where no CUDA device is
 present. On a machine with an NVIDIA GPU and no JAX:
@@ -12,8 +12,13 @@ Tolerances: the kernels compute in f32 and round once, as their plain
 versions do, so the gather is exact and the SwiGLU and the combine are
 held within one bf16 ulp. The grouped path and the loop round the same
 products in bf16 but sum the GEMMs' products in other orders, so they are
-held to a few bf16 ulps of the output's scale. The attention kernel sums
-its scores in another order than the plain version's f32 product, so a
+held to a few bf16 ulps of the output's scale. The router's kernel sums
+the f32 logits' exact products in another order than cuBLAS's f32 GEMM,
+so logits and weights are held within 1e-5, and its choices and the plan
+equal the f32 path's wherever no two of a token's top k + 1 biased scores
+lie within 1e-5; the plan kernel equals the plain plan of the same
+choices bit for bit. The attention kernel sums its scores in another
+order than the plain version's f32 product, so a
 probability now and then rounds to the neighbouring bf16 value; with the
 context's own rounding that keeps it within 2 bf16 ulps of the output's
 scale.
@@ -130,6 +135,76 @@ def test_the_mla_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         mla_kernel.mla_attention(q, kv, k_pe, cos, sin, keys.long(), heads)
 
 
+def router_inputs(device, tokens, width, experts, seed):
+    """bf16 rows as an RMSNorm hands them over, an f32 router weight of
+    N(0, 1/width) and a correction bias of 0.1 N(0, 1), as the benchmark
+    draws them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(tokens, width, generator=g, device=device).bfloat16()
+    weight = torch.randn(experts, width, generator=g, device=device) * width ** -0.5
+    bias = 0.1 * torch.randn(experts, generator=g, device=device)
+    return x, weight, bias
+
+
+@pytest.mark.parametrize("tokens,width,experts,top_k,held,offset", [
+    (48, 64, 16, 4, 8, 0), (48, 64, 16, 4, 8, 8),  # the tiny decoder's
+    (17664, 2048, 64, 6, 8, 0), (17664, 2048, 64, 6, 8, 56),  # the cell's bucket 256
+    (1000, 2048, 64, 6, 64, 0),  # every expert held
+    (777, 256, 48, 8, 5, 40), (300, 128, 256, 8, 256, 0),  # odd 16s; the most
+])
+def test_the_router_kernels_match_the_f32_path(cuda, tokens, width, experts, top_k, held,
+                                               offset):
+    x, weight, bias = router_inputs(cuda, tokens, width, experts, tokens + experts + offset)
+    tiles = moe_kernel.route_tiles(weight).bfloat16()
+    logits = torch.empty(tokens, experts, device=cuda)
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, w = moe_kernel.moe_route(x, weight, bias, top_k, 2.446, tiles, logits)
+        src, ends, slot, counts = moe_kernel.moe_plan(idx, offset, held)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["moe_route"] - before["moe_route"] == 1
+    assert after["moe_plan"] - before["moe_plan"] == 1
+    # the plan kernel: the plain plan of the same choices, bit for bit
+    for got, want in zip((src, ends, slot, counts), moe_kernel.plain_moe_plan(idx, offset, held)):
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+    # the f32 path: cuBLAS's f32 GEMM, sigmoid, top-k, the stable sort
+    want_logits = x.float() @ weight.T
+    assert float((logits - want_logits).abs().max()) <= 1e-5
+    want_idx, want_w = moe_kernel.plain_moe_route(x, weight, bias, top_k, 2.446)
+    biased = (torch.sigmoid(want_logits) + bias).sort(-1, descending=True).values
+    clear = (biased[:, :top_k] - biased[:, 1:top_k + 1] > 1e-5).all(-1)
+    assert float(clear.float().mean()) > 0.9
+    assert torch.equal(idx[clear], want_idx[clear])
+    assert float((w[clear] - want_w[clear]).abs().max()) <= 1e-5
+    for got, want in zip(moe_kernel.moe_plan(idx[clear].contiguous(), offset, held),
+                         moe_kernel.plain_moe_plan(want_idx[clear], offset, held)):
+        assert torch.equal(got, want)
+
+
+def test_the_router_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    x, weight, bias = router_inputs(cuda, 64, 256, 64, 0)
+    with pytest.raises(ValueError, match="multiple of 16 up to 256, got 40"):
+        moe_kernel.moe_route(x, weight[:40], bias[:40], 6, 2.446)
+    with pytest.raises(ValueError, match="got 512"):
+        moe_kernel.moe_route(x, torch.randn(512, 256, device=cuda), torch.zeros(512, device=cuda),
+                             6, 2.446)
+    with pytest.raises(ValueError, match="k must be 1 to 8, got 9"):
+        moe_kernel.moe_route(x, weight, bias, 9, 2.446)
+    with pytest.raises(ValueError, match="bfloat16"):
+        moe_kernel.moe_route(x.float(), weight, bias, 6, 2.446)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_kernel.moe_route(torch.cat([x, x], 1)[:, :256], weight, bias, 6, 2.446)
+    with pytest.raises(ValueError, match="tiles"):
+        moe_kernel.moe_route(x, weight, bias, 6, 2.446, moe_kernel.route_tiles(weight))
+    with pytest.raises(ValueError, match="int32"):
+        moe_kernel.moe_plan(torch.zeros(4, 6, dtype=torch.int64, device=cuda), 0, 8)
+
+
 @pytest.mark.parametrize("held,offset", [(8, 0), (8, 56), (64, 0)])
 def test_the_grouped_path_matches_the_loop_without_a_sync(cuda, held, offset):
     """Kimi-VL's widths, 8 or all 64 experts held; the grouped path runs
@@ -190,6 +265,23 @@ def test_an_eager_forward_launches_the_attention_kernel_once_a_layer(cuda, tmp_p
     engine._dispatch_eager(pixels, questions)
     torch.cuda.synchronize()
     assert ops.launch_counts()["mla_attention"] - before == TINY["decoder_layers"]
+
+
+def test_an_eager_forward_launches_the_router_kernels_once_a_moe_layer(cuda, tmp_path):
+    from vqa_tpu_torch.serving.engine import VQAInference
+    from vqa_tpu_torch.utils.config import InferenceConfig
+
+    pixels, questions = tiny_deployment(tmp_path, seed=14, pairs=4)
+    engine = VQAInference(checkpoint_dir=str(tmp_path), checkpoint_name="bench_model",
+                          config=InferenceConfig(batch_buckets=(4,), max_batch_size=4),
+                          device=cuda, dtype=torch.bfloat16).load()
+    before = ops.launch_counts()
+    engine._dispatch_eager(pixels, questions)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    moe_layers = TINY["decoder_layers"] - TINY["decoder_dense_layers"]
+    assert {k: after[k] - before[k] for k in ("moe_route", "moe_plan", "moe_gather")} == {
+        "moe_route": moe_layers, "moe_plan": moe_layers, "moe_gather": moe_layers}
 
 
 def test_the_routing_counters_match_the_references_counts(cuda, tmp_path):

@@ -8,7 +8,9 @@ language model; ``models/decoder.py``), told which experts it holds:
   computes its logits and their sigmoid in f32 from the f32 weight, picks
   each token's top ``num_experts_per_tok`` by the score plus
   ``e_score_correction_bias``, and weights them by the unbiased scores,
-  normalised to sum to 1 and scaled by ``routed_scaling_factor``;
+  normalised to sum to 1 and scaled by ``routed_scaling_factor``; on the
+  card as one kernel (``ops.moe_route``), from a compute copy of the
+  weight as three bf16 planes that sum to it exactly (``route_tiles``);
 - the layer holds experts ``[expert_offset, expert_offset + experts_held)``
   of the router's ``router_experts`` and computes their part of the result
   for the tokens routed to them: the layer of one rank of an
@@ -19,12 +21,13 @@ language model; ``models/decoder.py``), told which experts it holds:
 
 The routed path on the card (bf16) runs inside a CUDA graph, since nothing
 in it waits on the host: the (token, choice) pairs are sorted on the
-device by held expert, with the pairs of experts held elsewhere last
-(``route_plan``); ``ops.moe_gather`` permutes the routed rows, two grouped
-GEMMs (``torch.nn.functional.grouped_mm`` or ``torch._grouped_mm``) read
-each expert's end row from the device, ``ops.fused_swiglu`` applies the
-SwiGLU to the routed rows and ``ops.moe_combine`` weights each token's
-rows, sums them in f32 and adds its shared row. The buffers have a row for
+device by held expert, in a stable order, with the pairs of experts held
+elsewhere last (``ops.moe_plan``); ``ops.moe_gather`` permutes the routed
+rows, two grouped GEMMs (``torch.nn.functional.grouped_mm`` or
+``torch._grouped_mm``) read each expert's end row from the device,
+``ops.fused_swiglu`` applies the SwiGLU to the routed rows and
+``ops.moe_combine`` weights each token's rows, sums them in f32 and adds
+its shared row. The buffers have a row for
 every pair, the most that can come; only the rows routed here are
 computed. On the CPU the layer runs its plain form, a loop over the held
 experts, in any dtype; on the card it takes bf16 only and refuses any
@@ -47,7 +50,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from vqa_tpu_torch.models.layers import ComputeCopies, Linear
-from vqa_tpu_torch.ops.moe_kernel import fused_swiglu, moe_combine, moe_gather
+from vqa_tpu_torch.ops.moe_kernel import (fused_swiglu, moe_combine, moe_gather, moe_plan,
+                                           moe_route, route_tiles)
 
 
 def on_card_in_bf16(t: torch.Tensor, what: str) -> bool:
@@ -102,39 +106,29 @@ class Expert(nn.Module):
         self.down_proj = nn.Linear(width, hidden, bias=False)
 
 
-class MoEGate(nn.Module):
-    """The router: (expert ids [T, k] int64, weights [T, k] f32) of each
-    token (see the module docstring)."""
+class MoEGate(ComputeCopies, nn.Module):
+    """The router: (expert ids [T, k] int32, weights [T, k] f32) of each
+    token (see the module docstring). On the card its weight is computed
+    with as a compute copy of its three bf16 planes, laid out for the
+    kernel (``route_tiles``); the CPU computes from the f32 weight."""
+
+    copied = ("tiles",)
 
     def __init__(self, hidden: int, experts: int, top_k: int, scaling: float):
         super().__init__()
         self.top_k, self.scaling = top_k, scaling
         self.weight = nn.Parameter(torch.empty(experts, hidden))
         self.e_score_correction_bias = nn.Parameter(torch.zeros(experts))
+        self.init_copies()
+
+    @property
+    def tiles(self) -> torch.Tensor:
+        return route_tiles(self.weight.detach())
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        scores = torch.sigmoid(F.linear(x.float(), self.weight))
-        idx = torch.topk(scores + self.e_score_correction_bias, self.top_k, dim=-1).indices
-        w = scores.gather(1, idx)
-        return idx, w / (w.sum(-1, keepdim=True) + 1e-20) * self.scaling
-
-
-def route_plan(idx: torch.Tensor, offset: int, held: int):
-    """The permutation of the (token, choice) pairs of ``idx`` [T, k] that
-    groups the pairs of held expert ``offset + e`` in the e-th place, the
-    others last, all on the device: (``src`` [T·k] int32, the token of each
-    sorted row; ``ends`` [held] int32, the end row of each held expert's
-    group; ``slot`` [T, k] int32, each pair's sorted row, -1 where its
-    expert is held elsewhere)."""
-    t, k = idx.shape
-    local = idx - offset
-    here = (local >= 0) & (local < held)
-    key = torch.where(here, local, held).reshape(-1)
-    sorted_key, order = torch.sort(key, stable=True)
-    ends = torch.searchsorted(sorted_key, torch.arange(held, device=idx.device), right=True)
-    pos = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=idx.device))
-    slot = torch.where(here.reshape(-1), pos, -1).reshape(t, k)
-    return (order // k).to(torch.int32), ends.to(torch.int32), slot.to(torch.int32)
+        tiles = self.compute("tiles") if on_card_in_bf16(x, "the router") else None
+        return moe_route(x, self.weight, self.e_score_correction_bias, self.top_k,
+                         self.scaling, tiles)
 
 
 def grouped_mm(a: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
@@ -188,11 +182,10 @@ class MoE(ComputeCopies, nn.Module):
 
     def _grouped(self, x, idx, w, shared):
         """The routed path on the card (module docstring): no host sync."""
-        src, ends, slot = route_plan(idx, self.offset, self.held)
+        src, ends, slot, counts = moe_plan(idx, self.offset, self.held)
         total = ends[-1:]
         h = grouped_mm(moe_gather(x, src, total), self.compute("w13"), ends)
         y = grouped_mm(fused_swiglu(h, total), self.compute("w2"), ends)
-        counts = torch.diff(ends, prepend=ends.new_zeros(1))
         return moe_combine(y, slot, w, shared), counts
 
     def _loop(self, x, idx, w, shared):

@@ -21,6 +21,8 @@ from vqa_tpu_torch.ops.moe_kernel import (  # noqa: F401
     fused_swiglu,
     moe_combine,
     moe_gather,
+    moe_plan,
+    moe_route,
 )
 from vqa_tpu_torch.ops.se_kernel import fused_se, fused_se_bf16, plain_se  # noqa: F401
 from vqa_tpu_torch.ops.stem_kernel import fused_stem, fused_stem_bf16, plain_stem  # noqa: F401
@@ -34,7 +36,10 @@ KERNELS = {
     "stem_bf16": fused_stem_bf16,
     "se_bf16": fused_se_bf16,
     "cross_attention_bf16": fused_cross_attention_bf16,
-    # the MoE layer's routed rows, and every SwiGLU (routed and dense), bf16 only
+    # the MoE layer's router and route plan, its routed rows, and every
+    # SwiGLU (routed and dense), bf16 only
+    "moe_route": moe_route,
+    "moe_plan": moe_plan,
     "moe_gather": moe_gather,
     "swiglu": fused_swiglu,
     "moe_combine": moe_combine,

@@ -34,7 +34,8 @@ from vqa_tpu_torch.utils.profiling import annotate
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("common.cu", "stem.cu", "se.cu", "cross_attention.cu", "moe.cu", "mla.cu")
+SOURCES = ("common.cu", "stem.cu", "se.cu", "cross_attention.cu", "moe.cu", "router.cu",
+           "mla.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -73,6 +74,11 @@ _SIGNATURES = {
     # a SwiGLU (bf16): h, total (null: every row), out, rows, width, blocks,
     # stream
     "vqa_swiglu_bf16": [_P] * 3 + [_I] * 3 + [_P],
+    # an MoE layer's router (bf16 x): x, tiles, bias, idx, w, logits (or
+    # null), T, D, N, k, scaling, SMs, stream; its route plan: idx, tokens,
+    # k, offset, held, src, ends, slot, counts, stream
+    "vqa_moe_route_bf16": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    "vqa_moe_plan": [_P] + [_I] * 4 + [_P] * 5,
     # the decoder's attention core (bf16): q, kv, kpe, cos, sin, keys, out,
     # B, L, H, the head dims (nope, rope, v), kpe's row stride, scale, stream
     "vqa_mla_attention_bf16": [_P] * 7 + [_I] * 6 + [_L, _F, _P],
