@@ -250,20 +250,26 @@ shares with the ``cuda`` tests and the kernel tools are in
     per forward. Where a JAX-written full-width tree was carried into the
     run at ``_checkout/fullwidth/trainer`` (``make_fixture.py --full-width
     _checkout/fullwidth``), the resume from it is timed too;
-19. the decoder deployment (``--decoder-only`` runs the build and this
-    phase alone): Kimi-VL-A3B's language model as the fusion tower at
-    full width, rank 0's 8 of 64 routed experts (the benchmark's
-    ``kimivl_a3b_ep8``), its weights drawn on the card and written in
-    bf16, loaded by ``VQAInference`` at bucket 256 (load, ``model.init``,
-    weights and graph seconds, peak memory); a call of 1,024 pairs as four
-    graph replays with the eager path refused: the stem and SE kernels
-    1 and 4 times per forward, ``mla_attention`` once per layer,
+19. the decoder deployments (``--decoder-only`` runs the build and this
+    phase alone), each in turn: Kimi-VL-A3B's language model as the fusion
+    tower at full width, rank 0's 8 of 64 routed experts (the benchmark's
+    ``kimivl_a3b_ep8``), then Kimi-Linear-48B-A3B's, KDA in 20 of its 27
+    layers and MLA without rotation in the other 7, rank 0's 32 of 256
+    (``kimilinear_48b_ep8``); each with its weights drawn on the card and
+    written in bf16, loaded by ``VQAInference`` at bucket 256 (load,
+    ``model.init``, weights and graph seconds, peak memory); a call of
+    1,024 pairs as four graph replays with the eager path refused: the
+    stem and SE kernels 1 and 4 times per forward, ``kda_attention`` once
+    per KDA layer, ``mla_attention`` once per other layer,
     ``moe_route``, ``moe_plan``, ``moe_gather`` and ``moe_combine`` once
     per MoE layer, the SwiGLU
     kernel twice per MoE layer and once per dense layer, ``moe.route`` and
     ``moe.route_max`` once per dispatch; the replayed probabilities within
-    1e-3 of the eager forward's; the attention kernel
-    against its plain version at the first layer's shapes of an eager
+    1e-3 of the eager forward's; the KDA kernel against its plain version
+    at the first KDA layer's shapes of an eager bucket (within 2 bf16 ulps
+    of the output's scale, launched under torch's sync debugging), with
+    device ms, bound and plain ms per forward; the attention kernel
+    against its plain version at the first MLA layer's shapes of an eager
     bucket (within 2 bf16 ulps of the output's scale, launched under
     torch's sync debugging), with device ms, bound, plain ms and SDPA's
     per forward; then, at the first MoE layer's shapes, the router's two
@@ -304,8 +310,9 @@ engine, and ``launches_orbax``, over phase 17 (b)'s engine answers, and
 bf16;
 ``stages``, the bf16 SE's per-stage numbers, null elsewhere); before that
 phase 19's ``kernels_decoder`` line
-(the attention kernel's, the router's, each MoE kernel's and each SwiGLU use's numbers
-per forward at bucket 256) and ``decoder`` line; and before that the
+(the KDA kernel's, the attention kernel's, the router's, each MoE kernel's and each
+SwiGLU use's numbers per forward at bucket 256, each under its deployment's
+``config``) and ``decoder`` line (a summary per deployment); and before that the
 ``resume``, ``orbax``, ``train_graphs``, ``graphs``, ``tools``, ``multi_device``,
 ``bf16_training``, ``bf16``, ``training``, ``serving`` (load bench, HTTP
 phase, supervisor) and ``engine`` lines.
@@ -316,6 +323,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import math
@@ -3863,10 +3871,19 @@ def drive_resume(torch, tmp: str, device="cuda") -> tuple:
     return out, launches
 
 
-# ---- phase 19: the decoder deployment (Kimi-VL-A3B's language model) ------
+# ---- phase 19: the decoder deployments (Kimi-VL-A3B's, Kimi-Linear's LM) ---
 # the benchmark's kimivl_a3b_ep8 at full width: rank 0's 8 of 64 routed experts
 DECODER_FIELDS = dict(vocab_size=163_840, answer_hidden_dim=4096, experts_held=8,
                       expert_offset=0)
+# the benchmark's kimilinear_48b_ep8 at full width: rank 0's 32 of 256 routed
+# experts; KDA in every layer but 3, 7, ..., 23 and 26, MLA without rotation there
+KIMI_LINEAR_FIELDS = dict(DECODER_FIELDS, answer_hidden_dim=4608, decoder_hidden=2304,
+                          decoder_heads=32, decoder_ffn_dim=9216, rope_theta=10000.0,
+                          moe_intermediate_size=1024, router_experts=256,
+                          num_experts_per_tok=8, n_shared_experts=1, experts_held=32,
+                          kda_layers=tuple(i for i in range(26) if i % 4 != 3),
+                          mla_use_nope=True)
+DECODERS = (("kimivl_a3b_ep8", DECODER_FIELDS), ("kimilinear_48b_ep8", KIMI_LINEAR_FIELDS))
 DECODER_BUCKET = 256
 DECODER_CALL = 4 * DECODER_BUCKET  # pairs a call: four dispatches, one fetch
 DECODER_GRAPH_TOL = 1e-3  # replayed probabilities against the eager forward's
@@ -3875,9 +3892,12 @@ DECODER_GRAPH_TOL = 1e-3  # replayed probabilities against the eager forward's
 def decoder_deployment(torch, cfg, tmp: str, seed: int, device="cuda") -> dict:
     """Write a bf16 deployment of ``cfg`` to ``tmp``: the model built on the
     card without initialisation, each tensor drawn there from ``seed``
-    (products N(0, 1/fan_in), the word table N(0, 1), norm and BatchNorm
-    weights 1 + 0.1 z, biases and the router's correction bias 0.1 z),
-    saved in bf16 as Kimi-VL publishes its weights. Returns seconds."""
+    (products N(0, 1/fan_in), the short convolutions' taps N(0, 1/taps),
+    the word table N(0, 1), norm and BatchNorm weights 1 + 0.1 z, biases
+    and the router's correction bias 0.1 z; KDA's A_log log U(1, 16) and
+    dt_bias the inverse softplus of a log-uniform dt in [1e-3, 0.1], as fla
+    draws them), saved in bf16 as Kimi-VL publishes its weights. Returns
+    seconds."""
     from vqa_tpu_torch.models.vqa_model import create_vqa_model
     from vqa_tpu_torch.training import checkpoint as ckpt_lib
 
@@ -3892,6 +3912,12 @@ def decoder_deployment(torch, cfg, tmp: str, seed: int, device="cuda") -> dict:
                 p.copy_(z)
             elif p.dim() >= 2:
                 p.copy_(z * (p[0].numel() ** -0.5))
+            elif name.endswith("A_log"):
+                p.copy_(torch.log(1 + 15 * torch.rand(p.shape, generator=g, device=p.device)))
+            elif name.endswith("dt_bias"):
+                u = torch.rand(p.shape, generator=g, device=p.device)
+                dt = torch.exp(math.log(1e-3) + math.log(100) * u)
+                p.copy_(dt + torch.log(-torch.expm1(-dt)))
             elif name.endswith(("bias", "e_score_correction_bias")):
                 p.copy_(0.1 * z)
             else:
@@ -4105,7 +4131,7 @@ MLA_ULPS = 2.0  # the attention kernel against its plain version, in bf16 ulps o
 
 def check_mla_kernel(torch, engine, pixels, questions) -> dict:
     """The attention kernel against its plain version on the card at the
-    first decoder layer's shapes (bucket 256: that layer's own q, kv and
+    first MLA layer's shapes (bucket 256: that layer's own q, kv and
     rotary key from an eager forward), within ``MLA_ULPS`` bf16 ulps of the
     output's scale (the kernel sums its scores in another order, so a
     probability now and then rounds to its bf16 neighbour), launched with
@@ -4116,10 +4142,12 @@ def check_mla_kernel(torch, engine, pixels, questions) -> dict:
     explicit tensor (a yardstick: the port never calls it)."""
     import torch.nn.functional as F
 
+    from vqa_tpu_torch.models.decoder import MLA
     from vqa_tpu_torch.ops import mla_kernel as mk
 
     layers = engine.model.language_model.model.layers
-    attn = layers[0].self_attn
+    mla_layers = [layer.self_attn for layer in layers if isinstance(layer.self_attn, MLA)]
+    attn = mla_layers[0]
     seen = {}
     hook = attn.register_forward_pre_hook(lambda _m, a: seen.setdefault("args", a))
     try:
@@ -4164,7 +4192,7 @@ def check_mla_kernel(torch, engine, pixels, questions) -> dict:
     nbytes = (sum(t.numel() * t.element_size() for t in (q, kv, keys, got))
               + b * length * rope * 2 + 2 * length * (rope // 2) * 4)
     bnd, by = bound_ms(nbytes, 0.0, BF16_FLOP_PER_S)
-    per_forward = len(layers)
+    per_forward = len(mla_layers)
     r = dict(route="cuda", source="vqa_tpu_torch/csrc/mla.cu", replaces=None, max_abs_err=err,
              ulps=ulps, ms=per_forward * k_ms, call_ms=per_forward * k_call,
              bound_ms=per_forward * bnd, bound_by=by, plain_ms=per_forward * plain_ms,
@@ -4176,16 +4204,87 @@ def check_mla_kernel(torch, engine, pixels, questions) -> dict:
     return {"mla_attention": r}
 
 
-def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
-    """Phase 19; returns (summary, the decoder kernels' entries)."""
+KDA_ULPS = 2.0  # the KDA kernel against its plain version, in bf16 ulps of the scale
+
+
+def check_kda_kernel(torch, engine, pixels, questions) -> dict:
+    """The KDA kernel against its plain version on the card at the first
+    KDA layer's shapes (bucket 256: that layer's own projections of its
+    input from an eager forward, q, k, v and b as the views of the one
+    product of x that the model hands over), within ``KDA_ULPS`` bf16 ulps
+    of the output's scale (both compute in f32 from the same bf16 inputs
+    and round once, summing in other orders; a missed decay, a wrong β or a
+    convolution off by a position moves outputs by a large share of the
+    scale), launched with torch's sync debugging set to raise; per forward
+    (one launch per KDA layer): device ms, the bound (the larger of the
+    bytes over 3.35 TB/s, q, k, v, g and b read once and o written once in
+    bf16, and the delta rule's 6·K·V operations a token a head at the bf16
+    peak) and the plain version's ms."""
+    import torch.nn.functional as F
+
+    from vqa_tpu_torch.models.decoder import KDA
+    from vqa_tpu_torch.ops import kda_kernel as kk
+
+    layers = engine.model.language_model.model.layers
+    kda_layers = [layer.self_attn for layer in layers if isinstance(layer.self_attn, KDA)]
+    attn = kda_layers[0]
+    seen = {}
+    hook = attn.register_forward_pre_hook(lambda _m, a: seen.setdefault("x", a[0]))
+    try:
+        engine._dispatch_eager(pixels, questions)
+    finally:
+        hook.remove()
+    with torch.inference_mode():
+        proj = F.linear(seen["x"], attn.compute("w_in"))
+        q, k, v, fa, _, b = (proj[..., a:e] for a, e in attn.parts)
+        args = (q, k, v, attn.f_b_proj(fa), b, attn.q_conv1d.weight, attn.k_conv1d.weight,
+                attn.v_conv1d.weight, attn.A_log, attn.dt_bias, attn.heads)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = kk.kda_attention(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = kk.plain_kda_attention(*args)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        err = max_err(got.float(), want.float())
+        ulps = err / (scale * 2.0 ** -7)
+        batch, length, width = q.shape
+        log(f"kda_attention at bucket {batch}: {length} positions, {attn.heads} heads of "
+            f"{attn.head_dim}; max abs err {err:.3e}, {ulps:.3f} bf16 ulps of the output's "
+            f"scale {scale:.3f}")
+        require(got.dtype == torch.bfloat16 and scale > 0 and ulps <= KDA_ULPS,
+                "kda_attention disagrees with its plain version at the deployment's shapes")
+        k_ms, k_call = time_ms(torch, lambda: kk.kda_attention(*args), 20)
+        plain_ms, _ = time_ms(torch, lambda: kk.plain_kda_attention(*args), 3)
+    nbytes = 2 * (sum(t.numel() for t in args[:5]) + got.numel())
+    flops = 6 * batch * length * attn.heads * attn.head_dim ** 2
+    bnd, by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+    per_forward = len(kda_layers)
+    r = dict(route="cuda", source="vqa_tpu_torch/csrc/kda.cu", replaces=None, max_abs_err=err,
+             ulps=ulps, ms=per_forward * k_ms, call_ms=per_forward * k_call,
+             bound_ms=per_forward * bnd, bound_by=by, plain_ms=per_forward * plain_ms,
+             library_ms=None, per_forward=per_forward, bytes=nbytes)
+    log(f"kda_attention per forward ({per_forward} calls): kernel {r['ms']:.4f} ms on the "
+        f"device ({r['call_ms']:.4f} ms per call), bound {r['bound_ms']:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB a layer; {100 * bnd / k_ms:.1f}%), plain {r['plain_ms']:.4f} ms")
+    return {"kda_attention": r}
+
+
+def drive_decoder(torch, tmp: str, rng, seed: int, name: str, fields: dict,
+                  device="cuda") -> tuple:
+    """Phase 19 for the deployment ``name`` of ``fields``; returns (summary,
+    the decoder kernels' entries)."""
     from vqa_tpu_torch import ops
     from vqa_tpu_torch.serving.engine import VQAInference
     from vqa_tpu_torch.utils.config import DecoderConfig, InferenceConfig
     from vqa_tpu_torch.utils.profiling import spans
 
     t0 = time.perf_counter()
-    cfg = DecoderConfig(**DECODER_FIELDS)
-    out = {"deployment": decoder_deployment(torch, cfg, tmp, seed, device)}
+    cfg = DecoderConfig(**fields)
+    log(f"phase 19: {name}")
+    out = {"config": name, "deployment": decoder_deployment(torch, cfg, tmp, seed, device)}
     torch.cuda.reset_peak_memory_stats()
     marks = {n: spans(n)[1] for n in ("model.init", "engine.load.weights", "engine.load.graphs")}
     t1 = time.perf_counter()
@@ -4194,10 +4293,10 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
                                                  max_batch_size=DECODER_BUCKET),
                           device=device, dtype=torch.bfloat16).load()
     out["load_s"] = time.perf_counter() - t1
-    for name, before in marks.items():
-        new = [s for s in spans(name)[0] if s.seq >= before]
-        require(len(new) == 1, f"the load recorded {len(new)} {name} spans")
-        out[name + "_s"] = (new[0].end_ns - new[0].start_ns) / 1e9
+    for span, before in marks.items():
+        new = [s for s in spans(span)[0] if s.seq >= before]
+        require(len(new) == 1, f"the load recorded {len(new)} {span} spans")
+        out[span + "_s"] = (new[0].end_ns - new[0].start_ns) / 1e9
     require(engine.model_loaded_from_checkpoint and sorted(engine._graphs) == [DECODER_BUCKET],
             f"the decoder engine has graphs for {sorted(engine._graphs or {})}")
     log(f"decoder engine: loaded in {out['load_s']:.1f} s (model.init "
@@ -4221,11 +4320,14 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
     forwards = DECODER_CALL // DECODER_BUCKET
     dense_layers = cfg.decoder_dense_layers
     moe_layers = cfg.decoder_layers - dense_layers
+    kda_layers = len(cfg.kda_layers)
     want = {"stem_bf16": forwards, "se_bf16": 4 * forwards, "moe_route": moe_layers * forwards,
             "moe_plan": moe_layers * forwards, "moe_gather": moe_layers * forwards,
             "swiglu": (2 * moe_layers + dense_layers) * forwards,
             "moe_combine": moe_layers * forwards,
-            "mla_attention": cfg.decoder_layers * forwards}
+            "mla_attention": (cfg.decoder_layers - kda_layers) * forwards}
+    if kda_layers:
+        want["kda_attention"] = kda_layers * forwards
     log(f"decoder path: {forwards} graphed forwards, kernel launches {launches}")
     require(launches == want, f"the decoder path launched {launches}, expected {want}")
     routes = {n: [s.value for s in spans(n)[0] if s.seq >= b] for n, b in before.items()}
@@ -4243,25 +4345,39 @@ def drive_decoder(torch, tmp: str, rng, seed: int, device="cuda") -> tuple:
     require(graph_err <= DECODER_GRAPH_TOL, "the replayed decoder forward left the eager one")
     out.update(launches=launches, rows_per_expert=rows, imbalance=imbalance,
                graph_vs_eager=graph_err, peak_bytes=torch.cuda.max_memory_allocated())
-    kernels = check_mla_kernel(torch, engine, pixels[:DECODER_BUCKET],
-                               questions[:DECODER_BUCKET])
-    kernels.update(check_moe_kernels(torch, engine, pixels[:DECODER_BUCKET],
-                                     questions[:DECODER_BUCKET]))
-    for name, r in kernels.items():  # the SwiGLU's counter counts its three uses
-        r["launches"] = launches.get(name.split(".")[0], 0)
+    bucket = (pixels[:DECODER_BUCKET], questions[:DECODER_BUCKET])
+    kernels = check_kda_kernel(torch, engine, *bucket) if kda_layers else {}
+    kernels.update(check_mla_kernel(torch, engine, *bucket))
+    kernels.update(check_moe_kernels(torch, engine, *bucket))
+    for kernel, r in kernels.items():  # the SwiGLU's counter counts its three uses
+        r["launches"] = launches.get(kernel.split(".")[0], 0)
+        r["config"] = name
     del engine
+    gc.collect()  # the next deployment needs the card
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
-    log(f"phase 19: {out['seconds']:.1f} s; {card_line()}")
+    log(f"phase 19 ({name}): {out['seconds']:.1f} s; {card_line()}")
     return out, kernels
 
 
-def report_decoder(decoder: dict, kernels: dict) -> None:
-    """Phase 19's ``decoder`` line and its ``kernels_decoder`` line."""
-    log(json.dumps({"decoder": decoder}))
-    keys = ("name", "route", "source", "launches", "per_forward", "max_abs_err", "ulps", "ms",
-            "call_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
+def drive_decoders(torch, rng, seed: int) -> list:
+    """Phase 19 for each of ``DECODERS`` in turn, each in a directory of its
+    own: [(summary, the decoder kernels' entries)]."""
+    runs = []
+    for name, fields in DECODERS:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_decoder.") as tmp:
+            runs.append(drive_decoder(torch, tmp, rng, seed, name, fields))
+    return runs
+
+
+def report_decoder(runs: list) -> None:
+    """Phase 19's ``decoder`` line and its ``kernels_decoder`` line, each
+    deployment's entries under its ``config``."""
+    log(json.dumps({"decoder": [decoder for decoder, _ in runs]}))
+    keys = ("config", "name", "route", "source", "launches", "per_forward", "max_abs_err",
+            "ulps", "ms", "call_ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
     log(json.dumps({"kernels_decoder": [{k: {"name": name, **r}.get(k) for k in keys}
+                                        for _, kernels in runs
                                         for name, r in kernels.items()]}))
 
 
@@ -4296,7 +4412,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--decoder-only", action="store_true",
-                   help="build the kernels, then run phase 19 (the decoder deployment) alone")
+                   help="build the kernels, then run phase 19 (the decoder deployments) alone")
     # one rank of phase 13 or phase 15 (g)'s engine, started by the script itself
     p.add_argument("--worker", choices=sorted(WORKERS), help=argparse.SUPPRESS)
     for flag in ("--rank", "--world", "--port"):
@@ -4339,8 +4455,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     if args.decoder_only:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_decoder.") as tmp:
-            report_decoder(*drive_decoder(torch, tmp, rng, args.seed))
+        report_decoder(drive_decoders(torch, rng, args.seed))
         log(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4414,8 +4529,7 @@ def main(argv=None) -> int:
         resume, resume_launches = drive_resume(torch, tmp)
     for name in kernels:  # (a)'s f32 and (b)'s bf16 validation replays
         kernels[name]["launches_resume"] = resume_launches.get(name, 0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_decoder.") as tmp:
-        decoder = drive_decoder(torch, tmp, rng, args.seed)
+    decoders = drive_decoders(torch, rng, args.seed)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"engine": {"params": n_params, "build_s": build_s}}))
@@ -4429,7 +4543,7 @@ def main(argv=None) -> int:
     log(json.dumps({"train_graphs": train_graphs}))
     log(json.dumps({"orbax": orbax}))
     log(json.dumps({"resume": resume}))
-    report_decoder(*decoder)
+    report_decoder(decoders)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_bf16_training_validation", "launches_multi_device", "launches_tools",

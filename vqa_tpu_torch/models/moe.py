@@ -1,8 +1,11 @@
 """DeepSeek-V3's mixture of experts: a sigmoid router over every routed
 expert, the experts this rank holds, and shared experts.
 
-``MoE`` is DeepSeek-V3's ``DeepseekV3MoE`` in inference (Kimi-VL-A3B's
-language model; ``models/decoder.py``), told which experts it holds:
+``MoE`` is DeepSeek-V3's ``DeepseekV3MoE`` in inference, the MoE layer of
+both decoders ``models/decoder.py`` builds: Kimi-VL-A3B's (64 experts, 6 a
+token, 2 shared) and Kimi-Linear-48B-A3B's (256 experts, 8 a token, 1
+shared; its ``moe_router_activation_func`` sigmoid and ``moe_renormalize``
+are this rule), told which experts it holds:
 
 - the router (``MoEGate``, ``topk_method="noaux_tc"`` with one group)
   computes its logits and their sigmoid in f32 from the f32 weight, picks

@@ -243,6 +243,14 @@ def init_parameters(model: VQAModel, generator: torch.Generator) -> None:
             xavier(p)
         elif p.dim() == 2:  # other dense layers: LeCun normal
             normal(p, math.sqrt(1.0 / p.shape[1]))
+        elif p.dim() == 3:  # a depthwise conv1d [C, 1, W]: normal, fan_in = W
+            normal(p, math.sqrt(1.0 / p.shape[2]))
+        elif parts[-1] == "A_log":  # KDA's decay rates, log U(1, 16) as fla draws them
+            p.copy_(torch.log(1 + 15 * torch.rand(p.shape, generator=generator)))
+        elif parts[-1] == "dt_bias":  # softplus^-1 of a log-uniform dt in [1e-3, 0.1]
+            u = torch.rand(p.shape, generator=generator)
+            dt = torch.exp(math.log(1e-3) + math.log(100) * u)
+            p.copy_(dt + torch.log(-torch.expm1(-dt)))
         elif parts[-1] == "bias":
             p.zero_()
         # LayerNorm / BN weights keep torch's ones

@@ -16,6 +16,7 @@ from vqa_tpu_torch.ops.cross_attention_kernel import (  # noqa: F401
     fused_cross_attention_bf16,
     plain_cross_attention,
 )
+from vqa_tpu_torch.ops.kda_kernel import kda_attention, plain_kda_attention  # noqa: F401
 from vqa_tpu_torch.ops.mla_kernel import mla_attention, plain_mla_attention  # noqa: F401
 from vqa_tpu_torch.ops.moe_kernel import (  # noqa: F401
     fused_swiglu,
@@ -43,8 +44,9 @@ KERNELS = {
     "moe_gather": moe_gather,
     "swiglu": fused_swiglu,
     "moe_combine": moe_combine,
-    # the decoder's attention core, bf16 only
+    # the decoder's attention cores, bf16 only: latent and linear attention
     "mla_attention": mla_attention,
+    "kda_attention": kda_attention,
 }
 
 

@@ -35,7 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("common.cu", "stem.cu", "se.cu", "cross_attention.cu", "moe.cu", "router.cu",
-           "mla.cu")
+           "mla.cu", "kda.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -82,6 +82,10 @@ _SIGNATURES = {
     # the decoder's attention core (bf16): q, kv, kpe, cos, sin, keys, out,
     # B, L, H, the head dims (nope, rope, v), kpe's row stride, scale, stream
     "vqa_mla_attention_bf16": [_P] * 7 + [_I] * 6 + [_L, _F, _P],
+    # the linear attention core (bf16): q, k, v, g, b, their row strides,
+    # the convolutions' weights (q, k, v), A_log, dt_bias, out, B, L, H, the
+    # head dim, the taps, scale, stream
+    "vqa_kda_attention_bf16": [_P] * 5 + [_L] * 5 + [_P] * 6 + [_I] * 5 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -137,6 +137,15 @@ class DecoderConfig(ModelConfig):
     # this rank's routed experts: [expert_offset, expert_offset + experts_held)
     experts_held: int = 64
     expert_offset: int = 0
+    # layers (0-based) whose attention is Kimi Delta Attention, a gated
+    # delta-rule linear attention (``models/decoder.py:KDA``); the others
+    # take MLA. ``linear_attn_config``'s ``kda_layers`` count from 1.
+    kda_layers: Tuple[int, ...] = ()
+    kda_heads: int = 32                 # linear_attn_config.num_heads
+    kda_head_dim: int = 128             # linear_attn_config.head_dim
+    short_conv_kernel_size: int = 4
+    # MLA without a rotary embedding: its rope dims are used as they are
+    mla_use_nope: bool = False
 
 
 @dataclass
@@ -226,6 +235,8 @@ def model_config_dict(cfg: ModelConfig) -> dict:
     d = dataclasses.asdict(cfg)
     d["stage_channels"] = list(d["stage_channels"])
     d["blocks_per_stage"] = list(d["blocks_per_stage"])
+    if "kda_layers" in d:
+        d["kda_layers"] = list(d["kda_layers"])
     return d
 
 
@@ -235,7 +246,7 @@ def model_config_from_dict(d: dict) -> ModelConfig:
     cls = DecoderConfig if d.get("fusion") == "decoder" else ModelConfig
     known = {f.name for f in dataclasses.fields(cls)}
     kwargs = {k: v for k, v in d.items() if k in known}
-    for k in ("stage_channels", "blocks_per_stage"):
+    for k in ("stage_channels", "blocks_per_stage", "kda_layers"):
         if k in kwargs:
             kwargs[k] = tuple(kwargs[k])
     return cls(**kwargs)
